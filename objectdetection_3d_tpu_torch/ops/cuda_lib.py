@@ -1,0 +1,95 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/torch_kernels/`` at the repository root (listed in .gitignore) and
+loaded with ``ctypes``.  The library's file name carries a hash of its
+source, so an edited kernel is rebuilt and a stale build is never loaded.
+Nothing is compiled when a module is imported.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+KERNEL_SOURCES = ("voxel_scan", "grid_scatter")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs = {}
+_lock = threading.Lock()
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = []
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    candidates.append(shutil.which("nvcc"))
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name):
+    """Path of the shared library built from ``csrc/<name>.cu``."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names=KERNEL_SOURCES):
+    """Compile every named kernel that has no current build, one ``nvcc``
+    per source, all started together.
+
+    Returns:
+        {name: compiler log} for the sources compiled by this call
+        (``-Xptxas -v`` reports registers, shared memory and spills).
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (rc={proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def load(name):
+    """The loaded ``ctypes`` library of kernel ``name``, built if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build((name,))
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib
