@@ -60,9 +60,35 @@ class Anchor3DRangeGenerator:
 
 
 class BBoxCoder:
-    """Delta decoding of 9-param boxes against anchors: xy by the anchor
-    BEV diagonal, z by anchor height with the anchor z shifted from bottom
-    to center, log-size ratios, raw angle deltas."""
+    """Delta coding of 9-param boxes against anchors: xy by the anchor BEV
+    diagonal, z by anchor height with both z's shifted from bottom to
+    center, log-size ratios, raw angle deltas."""
+
+    @staticmethod
+    def encode(src_boxes, dst_boxes):
+        xa, ya, za = src_boxes[..., 0], src_boxes[..., 1], src_boxes[..., 2]
+        dxa, dya, dza = (src_boxes[..., 3], src_boxes[..., 4],
+                         src_boxes[..., 5])
+        xg, yg, zg = dst_boxes[..., 0], dst_boxes[..., 1], dst_boxes[..., 2]
+        dxg, dyg, dzg = (dst_boxes[..., 3], dst_boxes[..., 4],
+                         dst_boxes[..., 5])
+
+        zg = zg + dzg / 2
+        za = za + dza / 2
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+
+        out = [
+            (xg - xa) / diagonal,
+            (yg - ya) / diagonal,
+            (zg - za) / dza,
+            torch.log(dxg / dxa),
+            torch.log(dyg / dya),
+            torch.log(dzg / dza),
+            dst_boxes[..., 6] - src_boxes[..., 6],
+            dst_boxes[..., 7] - src_boxes[..., 7],
+            dst_boxes[..., 8] - src_boxes[..., 8],
+        ]
+        return torch.stack(out, dim=-1)
 
     @staticmethod
     def decode(anchors, deltas):

@@ -1,10 +1,14 @@
-"""PointPillars detector: voxelizer, anchors, network, decode and NMS.
+"""PointPillars detector: voxelizer, anchors, network, losses, target
+assignment, the training step, decode and NMS.
 
-Port of the inference path of the JAX package's ``models/detector.py``:
-the constructor's grid / voxelizer / anchors / network set-up, ``apply``
-(point path, eval), ``_predict_single``, ``predict`` and
-``make_predict_fn``.  Weights live in the ``net`` module; load trained or
-JAX-initialised ones with ``models/weights.py``.
+Port of the JAX package's ``models/detector.py``: the constructor,
+``apply`` (point path, eval and train), ``loss``, ``get_optimizer``,
+``make_train_step`` (one device, no gradient accumulation),
+``_predict_single``, ``predict`` and ``make_predict_fn``.
+Weights and running statistics live in the ``net`` module; load trained
+or JAX-initialised ones with ``models/weights.py``.  The training state
+is the module and its optimizer, updated in place by each step (the JAX
+package threads a ``{"params", "batch_stats", "opt_state"}`` tree).
 
 Tie order of the candidate top-k: among exactly equal logits the port
 takes the lowest anchor index first (:func:`topk_lowest_index`).  The JAX
@@ -20,11 +24,22 @@ import numpy as np
 import torch
 
 from objectdetection_3d_tpu_torch.configs import DEFAULT_TPU_CFG
+from objectdetection_3d_tpu_torch.losses.losses import (
+    CrossEntropyLoss,
+    FocalLoss,
+    SmoothL1Loss,
+)
 from objectdetection_3d_tpu_torch.models.anchors import (
     Anchor3DRangeGenerator,
     BBoxCoder,
 )
+from objectdetection_3d_tpu_torch.models.assign import (
+    assign_targets,
+    make_anchor_layout,
+    topk_rows_lowest_index,
+)
 from objectdetection_3d_tpu_torch.models.network import PointPillarsNet
+from objectdetection_3d_tpu_torch.ops.assign_geometry import combo_table
 from objectdetection_3d_tpu_torch.ops.boxes import limit_period
 from objectdetection_3d_tpu_torch.ops.nms import multiclass_nms
 from objectdetection_3d_tpu_torch.ops.voxelize import Voxelizer
@@ -48,16 +63,28 @@ def topk_lowest_index(x, k):
     """Exact top-k of a 1-D tensor, ties broken by the lowest index.
 
     Returns the k indices ordered by value descending, then index
-    ascending.  ``torch.topk`` leaves the order of equal values free, so
-    it only finds the k-th value; the indices are then taken in a fixed
-    order.
+    ascending (``torch.topk`` leaves the order of equal values free).
     """
-    kth = torch.topk(x, k, sorted=True).values[-1]
-    above = torch.nonzero(x > kth).squeeze(1)
-    ties = torch.nonzero(x == kth).squeeze(1)[:k - above.numel()]
-    idx = torch.cat([above, ties])
+    idx = topk_rows_lowest_index(x[None], k)[0]
     order = torch.sort(x[idx], descending=True, stable=True).indices
     return idx[order]
+
+
+class ClippedAdamW(torch.optim.AdamW):
+    """AdamW whose ``step`` first clips every gradient element to
+    ``[-grad_clip_value, grad_clip_value]`` (the JAX package's
+    ``optax.chain(optax.clip(v), optax.adamw(...))``)."""
+
+    def __init__(self, params, grad_clip_value=None, **kwargs):
+        super().__init__(params, **kwargs)
+        self.grad_clip_value = grad_clip_value
+
+    def step(self, closure=None):
+        if self.grad_clip_value:
+            grads = [p for group in self.param_groups
+                     for p in group["params"] if p.grad is not None]
+            torch.nn.utils.clip_grad_value_(grads, self.grad_clip_value)
+        return super().step(closure)
 
 
 class PointPillars:
@@ -111,6 +138,8 @@ class PointPillars:
         if cfg.get("use_dense_backbone", False):
             raise NotImplementedError(
                 "use_dense_backbone is not ported yet")
+        if cfg.get("device_augment"):
+            raise NotImplementedError("device_augment is not ported yet")
         self.anchor_generator = Anchor3DRangeGenerator(
             ranges=head["ranges"], sizes=head["sizes"],
             rotations=head["rotations"], box_params_num=self.box_params_num)
@@ -120,6 +149,30 @@ class PointPillars:
         self.anchors = self.anchor_generator.flat_anchors(self.featmap,
                                                           self.device)
         self.bbox_coder = BBoxCoder()
+        # (cells x combos) factorization of the anchor grid, which target
+        # assignment needs; a multi-range grid that does not factor can
+        # still predict
+        try:
+            self.anchor_layout = make_anchor_layout(self.anchors,
+                                                    self.num_anchors)
+            self.combo_tab = combo_table(self.anchor_layout)
+        except ValueError:
+            self.anchor_layout = self.combo_tab = None
+
+        loss = dict(cfg.get("loss") or {})
+        self.loss_cls = FocalLoss(**dict(loss.get("focal", {})))
+        self.loss_bbox = SmoothL1Loss(**dict(loss.get("smooth_l1", {})))
+        self.loss_dir = CrossEntropyLoss(**dict(loss.get("cross_entropy",
+                                                         {})))
+        iou_thr = head.get("iou_thr", [[0.08, 0.2]])
+        if len(iou_thr) != max(self.num_classes, 1):
+            if len(iou_thr) != 1:
+                raise ValueError("head.iou_thr needs one pair per class or "
+                                 "a single pair")
+            iou_thr = iou_thr * max(self.num_classes, 1)
+        thr = torch.tensor(iou_thr, dtype=torch.float32).reshape(-1, 2)
+        self._neg_thr = thr[:, 0].to(self.device)
+        self._pos_thr = thr[:, 1].to(self.device)
 
         ve_cfg = dict(cfg["voxel_encoder"])
         vertical = dict(cfg["vertical_encoder"])
@@ -153,21 +206,187 @@ class PointPillars:
         num_points = torch.as_tensor(batch["num_points"], device=self.device)
         return points.to(torch.float32), num_points
 
-    @torch.inference_mode()
-    def apply(self, batch):
+    def apply(self, batch, train=False):
         """Full forward: voxelize -> network.
 
         Args:
             batch: dict with ``points`` (B, P, 4) and ``num_points`` (B,),
                 numpy arrays or tensors.
+            train: training mode: batch statistics in every batch norm,
+                running statistics updated in place, autograd on.
         Returns:
-            (cls, reg, dirs): (B, H, W, A*C / A*9 / A*6) float32, NHWC.
+            eval: (cls, reg, dirs), (B, H, W, A*C / A*9 / A*6) float32,
+            NHWC; train: ((cls, reg, dirs), the net's updated running
+            statistics as {buffer name: tensor}).
         """
+        if not train:
+            with torch.inference_mode():
+                self.net.eval()
+                return self._forward(batch)
+        self.net.train()
+        outs = self._forward(batch)
+        return outs, dict(self.net.named_buffers())
+
+    def _forward(self, batch):
         points, num_points = self._batch_tensors(batch)
         vox = self.voxel_layer.points_batch(points, num_points)
         return self.net(vox["num_points_per_voxel"], vox["coords"],
                         vox["voxel_mask"], vox["points"], vox["pt_voxel"],
                         vox["pt_valid"])
+
+    # ------------------------------------------------------------------
+    # loss
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def assign(self, inputs, plain=False):
+        """Target assignment of every item of a batch against the model's
+        anchors, stacked.
+
+        ``plain`` runs the plain PyTorch versions of the assignment's
+        kernels (see ``models/assign.assign_targets``).
+        """
+        boxes = torch.as_tensor(inputs["bboxes"], device=self.device)
+        labels = torch.as_tensor(inputs["labels"], device=self.device)
+        mask = torch.as_tensor(inputs["gt_mask"], device=self.device)
+        with torch.profiler.record_function("assignment"):
+            outs = [assign_targets(
+                self.anchors, boxes[i], labels[i], mask[i], self._pos_thr,
+                self._neg_thr, self.anchor_layout,
+                candidates_per_gt=int(
+                    self.tpu_cfg["assign_candidates_per_gt"]),
+                num_classes=self.num_classes, combo_tab=self.combo_tab,
+                plain=plain) for i in range(boxes.shape[0])]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def loss(self, results, inputs, with_num_pos=False):
+        """Training losses.
+
+        Args:
+            results: (cls, reg, dirs) head outputs.
+            inputs: batch dict with ``bboxes`` (B, G, 9), ``labels``
+                (B, G), ``gt_mask`` (B, G) and optionally ``item_valid``
+                (B,): padded repeat items carry zero weight.
+            with_num_pos: also return the positive count (the
+                ``avg_factor`` before its clamp).
+        Returns:
+            dict of scalar losses ``loss_cls``, ``loss_bbox`` and
+            ``loss_dir_x|y|z``, each normalized by ``max(num_pos, 1)``;
+            or ``(losses, num_pos)`` with ``with_num_pos``.
+        """
+        cls, reg, dirs = results
+        b = cls.shape[0]
+        c = max(self.num_classes, 1)
+        assign = self.assign(inputs)
+
+        item_valid = inputs.get("item_valid")
+        if item_valid is None:
+            item_valid = torch.ones((b,), dtype=torch.float32,
+                                    device=self.device)
+        else:
+            item_valid = torch.as_tensor(item_valid, device=self.device)
+            item_valid = item_valid.to(torch.float32)
+
+        pos_w = assign["pos_mask"].to(torch.float32) * item_valid[:, None]
+        pos_f = pos_w.reshape(-1)
+        neg_f = (assign["neg_mask"].to(torch.float32)
+                 * item_valid[:, None]).reshape(-1)
+        num_pos = (assign["num_pos"].to(torch.float32) * item_valid).sum()
+        # avg_factor = total positive count; 1 when there is none
+        avg = torch.clamp(num_pos, min=1.0)
+
+        cls_flat = cls.reshape(-1, c)
+        target_labels = assign["target_labels"].reshape(-1)
+        wmask = (pos_f + neg_f)[:, None]
+        loss_cls = self.loss_cls(cls_flat, target_labels, weight=wmask,
+                                 avg_factor=avg)
+
+        reg_flat = reg.reshape(-1, self.box_params_num)
+        tgt = assign["target_deltas"].reshape(-1, self.box_params_num)
+        # sin-difference rotation encoding
+        pred_r = reg_flat[:, -3:]
+        tgt_r = tgt[:, -3:]
+        pred_sin = torch.cat(
+            [reg_flat[:, :-3], torch.sin(pred_r) * torch.cos(tgt_r)], dim=-1)
+        tgt_sin = torch.cat(
+            [tgt[:, :-3], torch.cos(pred_r) * torch.sin(tgt_r)], dim=-1)
+        loss_bbox = self.loss_bbox(pred_sin, tgt_sin, weight=pos_f[:, None],
+                                   avg_factor=avg)
+
+        # direction CE in the head's native (..., A*6) layout: a pairwise
+        # log-softmax over the two bins of each (anchor, axis), whose
+        # channel order matches dir_targets' flat (h, w, anchor, axis)
+        d0 = dirs[..., 0::2]
+        d1 = dirs[..., 1::2]
+        lse = torch.logaddexp(d0, d1)
+        dir_tgt = assign["dir_targets"].reshape(d0.shape)
+        logp_sel = torch.where(dir_tgt == 1, d1, d0) - lse
+        pos_w3 = torch.repeat_interleave(
+            pos_w.reshape(d0.shape[:-1] + (d0.shape[-1] // 3,)), 3, dim=-1)
+        dir_ce = -logp_sel * pos_w3 * self.loss_dir.loss_weight
+        loss_dir = {ax: dir_ce[..., i::3].sum() / avg
+                    for i, ax in enumerate("xyz")}
+
+        losses = {
+            "loss_cls": loss_cls,
+            "loss_bbox": loss_bbox,
+            "loss_dir_x": loss_dir["x"],
+            "loss_dir_y": loss_dir["y"],
+            "loss_dir_z": loss_dir["z"],
+        }
+        if with_num_pos:
+            return losses, num_pos
+        return losses
+
+    # ------------------------------------------------------------------
+    # train step
+    # ------------------------------------------------------------------
+    def get_optimizer(self, cfg, grad_clip_value=None):
+        """AdamW (eps 1e-8, weight decay on every parameter) over the
+        net's parameters, with gradients clipped by value first when
+        ``grad_clip_value`` is positive."""
+        cfg = dict(cfg or {})
+        betas = cfg.get("betas", (0.9, 0.999))
+        clip = (float(grad_clip_value)
+                if grad_clip_value is not None and grad_clip_value > 0
+                else None)
+        return ClippedAdamW(
+            self.net.parameters(), grad_clip_value=clip,
+            lr=float(cfg.get("lr", 1e-3)),
+            betas=(float(betas[0]), float(betas[1])), eps=1e-8,
+            weight_decay=float(cfg.get("weight_decay", 1e-2)))
+
+    def make_train_step(self, tx):
+        """The training step on one device.
+
+        Args:
+            tx: the optimizer over ``self.net``'s parameters
+                (:meth:`get_optimizer`).
+        Returns:
+            step(batch) -> {name: detached scalar} of the five losses and
+            ``num_pos``, the batch's positive count: forward in train
+            mode, assignment, losses, backward, clip and update; the net's
+            parameters and running statistics and the optimizer's state
+            change in place.  The phases are ``torch.profiler`` ranges
+            (``forward``, ``assignment`` inside ``loss+backward``,
+            ``optimizer``), which ``profile_train`` reads from a trace.
+        """
+        record = torch.profiler.record_function
+
+        def step(batch):
+            with record("forward"):
+                outs, _ = self.apply(batch, train=True)
+            with record("loss+backward"):
+                losses, num_pos = self.loss(outs, batch, with_num_pos=True)
+                total = sum(losses.values())
+                tx.zero_grad(set_to_none=True)
+                total.backward()
+            with record("optimizer"):
+                tx.step()
+            out = {k: v.detach() for k, v in losses.items()}
+            out["num_pos"] = num_pos
+            return out
+
+        return step
 
     # ------------------------------------------------------------------
     # inference

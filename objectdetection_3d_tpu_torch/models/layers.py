@@ -1,4 +1,4 @@
-"""Network building blocks of the port (eval mode).
+"""Network building blocks of the port.
 
 Port of the point-PFN, dense-masked vertical encoder, submanifold RPN and
 head of the JAX package's ``models/layers.py``.  The sparse convolutions
@@ -9,7 +9,8 @@ as in the JAX package:
   by the input activity mask;
 * a strided sparse conv activates every output site that sees an active
   input: the mask dilates like a max-pool with the conv's window/stride;
-* batch norm keeps inactive sites at zero.
+* batch norm keeps inactive sites at zero; in training mode its
+  statistics are those of the active sites.
 
 Layout: the JAX package is channels-last (NDHWC / NHWC); the port keeps
 PyTorch's NCDHW / NCHW logical layout inside the network and returns the
@@ -33,54 +34,89 @@ def _bcast(vec, ndim, dtype):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode batch norm over the active sites of a masked dense tensor.
+    """Batch norm over the active sites of a masked dense tensor.
 
-    ``y = ((x - mean) * rsqrt(var + eps) * scale + bias) * mask``, with the
-    running statistics; inactive sites stay exactly zero.  ``weight`` is
-    the JAX package's ``scale``.
+    ``y = ((x - mean) * rsqrt(var + eps) * scale + bias) * mask``; inactive
+    sites stay exactly zero.  In training mode the statistics are those of
+    the active sites of the batch (computed in float32), and the running
+    statistics move by ``momentum`` towards the batch mean and the
+    *unbiased* batch variance; in eval mode the running statistics are
+    used.  ``weight`` is the JAX package's ``scale``.
     """
 
-    def __init__(self, channels, eps=1e-5):
+    def __init__(self, channels, eps=1e-5, momentum=0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def _affine(self, dtype, ndim):
-        if self.training:
-            raise NotImplementedError(
-                "the port's batch norms are eval-only (training is not "
-                "ported yet); call .eval()")
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (_bcast(self.running_mean, ndim, dtype),
-                _bcast(inv, ndim, dtype),
-                _bcast(self.weight, ndim, dtype),
-                _bcast(self.bias, ndim, dtype))
+    @torch.no_grad()
+    def _update_running(self, mean, var, count):
+        unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+        self.running_mean.copy_((1 - self.momentum) * self.running_mean
+                                + self.momentum * mean)
+        self.running_var.copy_((1 - self.momentum) * self.running_var
+                               + self.momentum * unbiased)
+
+    def _stats(self, x, mask):
+        """(mean, var) of the channels (dim 1) over the active sites."""
+        if not self.training:
+            return self.running_mean, self.running_var
+        m = mask.to(torch.float32)
+        xf = x.float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        count = torch.clamp(m.sum(), min=1.0)
+        mean = (xf * m).sum(dim=dims) / count
+        var = (((xf - _bcast(mean, x.dim(), torch.float32)) ** 2)
+               * m).sum(dim=dims) / count
+        self._update_running(mean.detach(), var.detach(), count)
+        return mean, var
 
     def forward(self, x, mask):
         """x: (B, C, ...); mask: (B, 1, ...) activity, broadcastable."""
-        mean, inv, scale, bias = self._affine(x.dtype, x.dim())
-        y = (x - mean) * inv
-        y = y * scale + bias
-        return y * mask.to(x.dtype)
+        mean, var = self._stats(x, mask)
+        nd, dt = x.dim(), x.dtype
+        inv = torch.rsqrt(var + self.eps)
+        y = (x - _bcast(mean, nd, dt)) * _bcast(inv, nd, dt)
+        y = y * _bcast(self.weight, nd, dt) + _bcast(self.bias, nd, dt)
+        return y * mask.to(dt)
 
 
 class PointMaskedBN(MaskedBatchNorm):
     """MaskedBatchNorm for point-granularity PFN rows (N, C).
 
-    Also returns the per-channel value a padding slot of the reference's
-    padded (V, M, C) buffer takes after normalization: those zero slots
-    take part in the buffer path's max-pool.
+    Training statistics emulate the padded (V, M, C) buffer of the
+    reference: its ``total_slots - P`` zero padding slots add zeros to the
+    sums and ``total_slots`` (valid voxels x M) to the count.  Also
+    returns the per-channel value a padding slot takes after
+    normalization: those zero slots take part in the buffer path's
+    max-pool.
     """
 
-    def forward(self, x, pt_valid):
-        mean, inv, scale, bias = self._affine(x.dtype, 2)
-        y = (x - mean) * inv
+    def forward(self, x, pt_valid, total_slots):
+        m = pt_valid.to(torch.float32)[:, None]
+        if self.training:
+            xf = x.float()
+            count = torch.clamp(total_slots.to(torch.float32), min=1.0)
+            mean = (xf * m).sum(dim=0) / count
+            n_real = m.sum()
+            # the (count - n_real) padding slots are exact zeros
+            var = ((((xf - mean) ** 2) * m).sum(dim=0)
+                   + (count - n_real) * mean ** 2) / count
+            self._update_running(mean.detach(), var.detach(), count)
+        else:
+            mean, var = self.running_mean, self.running_var
+        dt = x.dtype
+        mean_t = mean.to(dt)
+        inv = torch.rsqrt(var + self.eps).to(dt)
+        scale, bias = self.weight.to(dt), self.bias.to(dt)
+        y = (x - mean_t) * inv
         y = y * scale + bias
-        pad_y = (torch.zeros_like(mean) - mean) * inv * scale + bias
-        return y * pt_valid.to(x.dtype)[:, None], pad_y[0]
+        pad_y = (torch.zeros_like(mean_t) - mean_t) * inv * scale + bias
+        return y * m.to(dt), pad_y
 
 
 class PFNLayerPoints(nn.Module):
@@ -95,20 +131,21 @@ class PFNLayerPoints(nn.Module):
         self.max_slots = int(max_slots)
         self.dtype = dtype
         self.linear = nn.Linear(in_channels, units, bias=False)
-        self.norm = PointMaskedBN(units, eps=1e-3)
+        self.norm = PointMaskedBN(units, eps=1e-3, momentum=0.01)
 
-    def forward(self, x, seg, pt_valid, counts):
+    def forward(self, x, seg, pt_valid, counts, total_slots):
         """
         Args:
             x: (N, C) decorated per-point features (invalid rows zeroed).
             seg: (N,) nondecreasing segment (voxel) index per point.
             pt_valid: (N,) bool.
             counts: (S,) capped per-voxel point counts.
+            total_slots: scalar tensor, valid voxels x ``max_slots``.
         Returns:
             (S, units) pooled features.
         """
         y = F.linear(x.to(self.dtype), self.linear.weight.to(self.dtype))
-        y, pad_y = self.norm(y, pt_valid)
+        y, pad_y = self.norm(y, pt_valid, total_slots)
         y = F.relu(y)
         floor = F.relu(pad_y)
         units = y.shape[1]
@@ -183,7 +220,8 @@ class PillarFeatureNet(nn.Module):
         feats = torch.cat([points, centroid_off, px[:, None], py[:, None]],
                           dim=-1).to(self.dtype)
         feats = feats * validf.to(self.dtype)
-        pooled = self.pfn_0(feats, seg, pt_valid, counts)
+        total_slots = voxel_mask.sum() * self.pfn_0.max_slots
+        pooled = self.pfn_0(feats, seg, pt_valid, counts, total_slots)
 
         out = torch.cat([pooled, counts.to(pooled.dtype)[:, None]], dim=-1)
         return out * voxel_mask[:, None].to(out.dtype)
@@ -265,8 +303,8 @@ class SubmanifoldSparseRPN(nn.Module):
                 self.add_module(f"conv_{li}", nn.Conv2d(c, int(ch), 3,
                                                         padding=1,
                                                         bias=False))
-                self.add_module(f"bn_{li}", MaskedBatchNorm(int(ch),
-                                                            eps=1e-3))
+                self.add_module(f"bn_{li}", MaskedBatchNorm(
+                    int(ch), eps=1e-3, momentum=0.01))
                 c = int(ch)
                 li += 1
         self.num_layers = li

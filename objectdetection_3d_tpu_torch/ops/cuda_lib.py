@@ -18,9 +18,14 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("voxel_scan", "grid_scatter")
+KERNEL_SOURCES = ("voxel_scan", "grid_scatter", "assign_geometry",
+                  "iou3d_clip")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# no fused multiply-add contraction: these kernels round operation for
+# operation like their plain PyTorch versions
+SOURCE_FLAGS = {"assign_geometry": ("-fmad=false",),
+                "iou3d_clip": ("-fmad=false",)}
 
 _libs = {}
 _lock = threading.Lock()
@@ -40,10 +45,14 @@ def _nvcc():
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name):
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name):
     """Path of the shared library built from ``csrc/<name>.cu``."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -64,7 +73,8 @@ def build(names=KERNEL_SOURCES):
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

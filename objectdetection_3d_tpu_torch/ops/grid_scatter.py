@@ -1,11 +1,15 @@
 """Single-write dense pseudo-image grid build.
 
 Port of the JAX package's ``ops/grid_scatter.py::scatter_to_grid``
-(kernel K2, forward only).  On a CUDA tensor the wrapper launches the
-hand-written kernel in ``csrc/grid_scatter.cu``, which writes every grid
-cell exactly once; on a CPU tensor it runs the plain version below, a
-zero-fill followed by an index copy (the JAX package's XLA scatter,
+(kernel K2).  On a CUDA tensor the wrapper launches the hand-written
+kernel in ``csrc/grid_scatter.cu``, which writes every grid cell exactly
+once; on a CPU tensor it runs the plain version below, a zero-fill
+followed by an index copy (the JAX package's XLA scatter,
 ``models/network.py``).  A CUDA tensor never takes the plain version.
+
+The gradient is that of the JAX package's custom VJP: a row gather of the
+grid's cotangent at the voxel cells, zero for padding rows.  It is an XLA
+gather there, not a kernel, and plain PyTorch indexing here.
 
 The activity mask is not an output: callers build it with a plain scatter,
 as the JAX package does.
@@ -36,8 +40,57 @@ def scatter_to_grid_plain(feats, cell_flat, grid_dhw):
     return grid.view(b, d, h, w, c)
 
 
+def _scatter_kernel(feats, cell_flat, grid_dhw):
+    """Launch K2 on (B, V, C) CUDA features; returns (B, D, H, W, C)."""
+    if not (feats.is_contiguous() and cell_flat.is_contiguous()):
+        raise ValueError("feats and cell_flat must be contiguous")
+    d, h, w = (int(s) for s in grid_dhw)
+    b, v, c = feats.shape
+    grid = torch.empty((b, d, h, w, c), dtype=feats.dtype,
+                       device=feats.device)
+    fn = cuda_lib.load("grid_scatter").scatter_to_grid
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(feats.data_ptr(), cell_flat.data_ptr(), grid.data_ptr(),
+                 b, v, c, d * h * w, feats.element_size(), stream)
+    if err != 0:
+        raise RuntimeError(f"scatter_to_grid kernel launch failed: CUDA "
+                           f"error {err}")
+    scatter_to_grid.launches += 1
+    return grid
+
+
+class _ScatterToGrid(torch.autograd.Function):
+    """K2 (or its plain version on the CPU) with the row-gather
+    backward."""
+
+    @staticmethod
+    def forward(ctx, feats, cell_flat, grid_dhw):
+        ctx.save_for_backward(cell_flat)
+        ctx.grid_dhw = grid_dhw
+        if feats.device.type == "cpu":
+            return scatter_to_grid_plain(feats, cell_flat, grid_dhw)
+        return _scatter_kernel(feats, cell_flat, grid_dhw)
+
+    @staticmethod
+    def backward(ctx, grid_ct):
+        (cell_flat,) = ctx.saved_tensors
+        d, h, w = ctx.grid_dhw
+        n = d * h * w
+        b, v = cell_flat.shape
+        flat_ct = grid_ct.reshape(b, n, -1)
+        valid = cell_flat < n
+        idx = torch.where(valid, cell_flat, 0).long()
+        rows = torch.arange(b, device=idx.device)[:, None].expand(b, v)
+        dfeats = flat_ct[rows, idx] * valid[..., None].to(grid_ct.dtype)
+        return dfeats, None, None
+
+
 def scatter_to_grid(feats, cell_flat, grid_dhw):
-    """Build the dense (D, H, W, C) pseudo-image grid.
+    """Build the dense (D, H, W, C) pseudo-image grid (differentiable in
+    ``feats``).
 
     Args:
         feats: (V, C) or (B, V, C) voxel features, bfloat16 or float32;
@@ -60,28 +113,10 @@ def scatter_to_grid(feats, cell_flat, grid_dhw):
                          f"{feats.dtype} / {cell_flat.dtype}")
     if feats.device != cell_flat.device:
         raise ValueError("feats and cell_flat lie on different devices")
-    if feats.device.type == "cpu":
-        grid = scatter_to_grid_plain(feats, cell_flat, grid_dhw)
-        return grid[0] if single else grid
-    if feats.device.type != "cuda":
+    if feats.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {feats.device}")
-    if not (feats.is_contiguous() and cell_flat.is_contiguous()):
-        raise ValueError("feats and cell_flat must be contiguous")
-    d, h, w = (int(s) for s in grid_dhw)
-    b, v, c = feats.shape
-    grid = torch.empty((b, d, h, w, c), dtype=feats.dtype,
-                       device=feats.device)
-    fn = cuda_lib.load("grid_scatter").scatter_to_grid
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(feats.data_ptr(), cell_flat.data_ptr(), grid.data_ptr(),
-                 b, v, c, d * h * w, feats.element_size(), stream)
-    if err != 0:
-        raise RuntimeError(f"scatter_to_grid kernel launch failed: CUDA "
-                           f"error {err}")
-    scatter_to_grid.launches += 1
+    grid = _ScatterToGrid.apply(feats, cell_flat,
+                                tuple(int(s) for s in grid_dhw))
     return grid[0] if single else grid
 
 

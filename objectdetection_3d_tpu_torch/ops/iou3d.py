@@ -1,14 +1,213 @@
-"""Rotated 3D box overlap.
+"""Rotated 3D box overlap: the exact volume clipper and the SAT test.
 
-Only the separating-axis intersection test is ported in this slice: it is
-what NMS runs at the flagship ``nms_thresh`` of 1e-5.  The exact
-Sutherland-Hodgman volume clipper (``iou3d`` in the JAX package) comes with
-the training slice.
+The clipper is the Sutherland-Hodgman computation of the JAX package's
+Pallas clipper body (``ops/pallas_iou3d.py::_clip_volumes_blocks``), in
+float32: the boundary of the intersection of two convex boxes A and B is
+the faces of A clipped into B plus the faces of B clipped into A.  Each of
+the 12 quad faces of a pair is clipped by the other box's 6 half-spaces;
+the enclosed volume follows from the divergence theorem over the clipped
+outward-wound polygons.  What the port keeps of that body:
+
+* the ring storage grows per plane (``_RING_SLOTS`` / ``_RING_CAPS``): a
+  convex n-gon clipped by a half-space has at most n + 1 vertices;
+* the candidate order (each kept vertex, then its edge's crossing point),
+  and ``cnt = min(run, cap)``;
+* ``_EPS`` = 1e-6 on the inside test and the crossing denominator, the
+  asymmetric ``_SHRINK`` = 1e-5 (A's faces meet B's planes pulled in, B's
+  faces meet A's pushed out, so a face plane shared by both boxes counts
+  once), and the 1e-6 union guard of the IoU.
+
+Here the slot axis is a tensor dimension, so one clip is a few dozen
+tensor ops over (slots, 12 polygons, pairs); pairs are processed in chunks
+of ``PAIR_CHUNK`` so that memory stays bounded at any pair count.  The
+CUDA kernels of ``ops/gathered_iou3d.py`` run the same arithmetic one pair
+per thread.
 """
 
 import torch
 
-from objectdetection_3d_tpu_torch.ops.boxes import box_axes
+from objectdetection_3d_tpu_torch.ops.boxes import _CORNER_SIGNS, box_axes
+
+_EPS = 1e-6
+_SHRINK = 1e-5
+#: union guard of the IoU ratio
+_UNION_EPS = 1e-6
+#: ring slots entering clip plane p (geometric max is 4 + p; two slack
+#: slots absorb numerically degenerate rings)
+_RING_SLOTS = (4, 7, 8, 9, 10, 11)
+#: ring slots emitted by plane p (the next plane's input)
+_RING_CAPS = (7, 8, 9, 10, 11, 12)
+#: quad faces with outward winding (right-hand rule), as corner indices
+FACES_OUTWARD = (
+    (0, 3, 2, 1),  # bottom (-z)
+    (4, 5, 6, 7),  # top    (+z)
+    (0, 1, 5, 4),  # y-
+    (2, 3, 7, 6),  # y+
+    (0, 4, 7, 3),  # x-
+    (1, 2, 6, 5),  # x+
+)
+#: aligned pairs clipped per chunk of the plain clipper
+PAIR_CHUNK = 1 << 15
+
+
+def _rot_entries(rx, ry, rz):
+    """Rz @ Ry @ Rx entries as a 3x3 nested list of (T,) tensors."""
+    cx, sx = torch.cos(rx), torch.sin(rx)
+    cy, sy = torch.cos(ry), torch.sin(ry)
+    cz, sz = torch.cos(rz), torch.sin(rz)
+    return [
+        [cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx],
+        [sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx],
+        [-sy, cy * sx, cy * cx],
+    ]
+
+
+def _corners(fields, r):
+    """(8, T) x, y and z of the box corners (bottom-anchored boxes)."""
+    x, y, z, dx, dy, dz = fields[:6]
+    xs, ys, zs = [], [], []
+    for sx_, sy_, sz_ in _CORNER_SIGNS:
+        lx = sx_ * dx / 2
+        ly = sy_ * dy / 2
+        lz = sz_ * dz
+        xs.append(x + r[0][0] * lx + r[0][1] * ly + r[0][2] * lz)
+        ys.append(y + r[1][0] * lx + r[1][1] * ly + r[1][2] * lz)
+        zs.append(z + r[2][0] * lx + r[2][1] * ly + r[2][2] * lz)
+    return torch.stack(xs), torch.stack(ys), torch.stack(zs)
+
+
+def _planes(fields, r):
+    """6 outward half-spaces ``n . p <= off`` as (6, T) nx, ny, nz, off,
+    in the order +x, -x, +y, -y, +z, -z."""
+    x, y, z, dx, dy, dz = fields[:6]
+    cxm = x + r[0][2] * dz / 2
+    cym = y + r[1][2] * dz / 2
+    czm = z + r[2][2] * dz / 2
+    out = ([], [], [], [])
+    for axis, half in ((0, dx / 2), (1, dy / 2), (2, dz / 2)):
+        nx, ny, nz = r[0][axis], r[1][axis], r[2][axis]
+        base = nx * cxm + ny * cym + nz * czm
+        for plane in ((nx, ny, nz, base + half),
+                      (-nx, -ny, -nz, -(base - half))):
+            for lst, val in zip(out, plane):
+                lst.append(val)
+    return tuple(torch.stack(lst) for lst in out)
+
+
+def _clip_chunk(b1, b2):
+    """Intersection volumes of aligned (T, 9) float32 pairs -> (T,)."""
+    f1, f2 = b1.unbind(-1), b2.unbind(-1)
+    r1, r2 = _rot_entries(*f1[6:]), _rot_entries(*f2[6:])
+    faces = torch.tensor(FACES_OUTWARD, device=b1.device).t()   # (4, 6)
+    # rows 0-5: faces of box 1; rows 6-11: faces of box 2 -> (4, 12, T)
+    c1, c2 = _corners(f1, r1), _corners(f2, r2)
+    vx, vy, vz = (torch.cat([a[faces], b[faces]], dim=1)
+                  for a, b in zip(c1, c2))
+    t = b1.shape[0]
+    cnt = torch.full((12, t), 4, dtype=torch.int32, device=b1.device)
+
+    # box 1's faces meet box 2's planes pulled in by _SHRINK, box 2's
+    # faces meet box 1's pushed out: (6 planes, 12 rows, T)
+    p1, p2 = _planes(f1, r1), _planes(f2, r2)
+    nrm = [torch.cat([b[:, None].expand(6, 6, t), a[:, None].expand(6, 6, t)],
+                     dim=1) for a, b in zip(p1[:3], p2[:3])]
+    off = torch.cat([(p2[3] - _SHRINK)[:, None].expand(6, 6, t),
+                     (p1[3] + _SHRINK)[:, None].expand(6, 6, t)], dim=1)
+
+    for p, (slots, cap) in enumerate(zip(_RING_SLOTS, _RING_CAPS)):
+        vx, vy, vz = vx[:slots], vy[:slots], vz[:slots]
+        s = nrm[0][p] * vx + nrm[1][p] * vy + nrm[2][p] * vz - off[p]
+        inside = s <= _EPS
+        i = torch.arange(slots, device=b1.device,
+                         dtype=torch.int32)[:, None, None]
+        wrap = cnt[None] == i + 1
+
+        def nxt(a, wrap=wrap):
+            """Ring successor with the dynamic count."""
+            return torch.where(wrap, a[:1], torch.roll(a, -1, 0))
+
+        sn = nxt(s)
+        denom = s - sn
+        denom = torch.where(denom.abs() > _EPS, denom,
+                            torch.full_like(denom, _EPS))
+        tt = torch.clamp(s / denom, 0.0, 1.0)
+        edge_valid = i < cnt[None]
+        # candidate 2i is kept vertex i, candidate 2i+1 the crossing point
+        # of edge (i, i+1)
+        ok = torch.stack([edge_valid & inside,
+                          edge_valid & (inside != (sn <= _EPS))], dim=1)
+        ok = ok.reshape(2 * slots, 12, t)
+        pos = torch.cumsum(ok, 0, dtype=torch.int32) - ok.int()
+        dest = torch.where(ok & (pos < cap), pos, cap).long()
+        new = []
+        for v in (vx, vy, vz):
+            cross = v + tt * (nxt(v) - v)
+            cand = torch.stack([v, cross], dim=1).reshape(2 * slots, 12, t)
+            buf = torch.zeros((cap + 1, 12, t), dtype=v.dtype,
+                              device=v.device)
+            new.append(buf.scatter_(0, dest, cand)[:cap])
+        vx, vy, vz = new
+        cnt = torch.clamp(ok.sum(0, dtype=torch.int32), max=cap)
+
+    # divergence-theorem fan over each clipped polygon, then the sum over
+    # the pair's 12 polygons, both in order
+    total = torch.zeros((12, t), dtype=b1.dtype, device=b1.device)
+    for i in range(1, _RING_CAPS[-1] - 1):
+        crx = vy[i] * vz[i + 1] - vz[i] * vy[i + 1]
+        cry = vz[i] * vx[i + 1] - vx[i] * vz[i + 1]
+        crz = vx[i] * vy[i + 1] - vy[i] * vx[i + 1]
+        contrib = vx[0] * crx + vy[0] * cry + vz[0] * crz
+        total = total + torch.where(i + 1 < cnt, contrib,
+                                    torch.zeros_like(contrib)) / 6.0
+    vol = total[0]
+    for row in range(1, 12):
+        vol = vol + total[row]
+    return vol
+
+
+def intersection_volume_aligned(boxes1, boxes2):
+    """Intersection volumes of aligned (P, 9) box pairs -> (P,) float32,
+    in chunks of ``PAIR_CHUNK`` pairs."""
+    b1 = boxes1.to(torch.float32).reshape(-1, 9)
+    b2 = boxes2.to(torch.float32).reshape(-1, 9)
+    if b1.shape != b2.shape:
+        raise ValueError(f"unaligned pairs {tuple(boxes1.shape)} and "
+                         f"{tuple(boxes2.shape)}")
+    if b1.shape[0] == 0:
+        return b1.new_zeros((0,))
+    return torch.cat([_clip_chunk(b1[i:i + PAIR_CHUNK], b2[i:i + PAIR_CHUNK])
+                      for i in range(0, b1.shape[0], PAIR_CHUNK)])
+
+
+def iou_from_volumes(inter, vol1, vol2, eps=_UNION_EPS):
+    """``inter / (vol1 + vol2 - inter)`` with ``inter`` clipped at 0, and 0
+    where the union is at most ``eps``."""
+    inter = torch.clamp(inter, min=0.0)
+    union = vol1 + vol2 - inter
+    return torch.where(union > eps, inter / torch.clamp(union, min=eps),
+                       torch.zeros_like(union))
+
+
+def _volume(boxes):
+    return boxes[..., 3] * boxes[..., 4] * boxes[..., 5]
+
+
+def iou3d_aligned(boxes1, boxes2):
+    """Exact IoU of aligned rotated boxes (N, 9) x (N, 9) -> (N,)."""
+    inter = intersection_volume_aligned(boxes1, boxes2)
+    return iou_from_volumes(inter, _volume(boxes1.float()),
+                            _volume(boxes2.float()), _EPS)
+
+
+def iou3d(boxes1, boxes2):
+    """Exact pairwise IoU of rotated 3D boxes, (N, 9) x (K, 9) -> (N, K).
+
+    Zero-volume (padding) boxes get IoU 0.
+    """
+    n, k = boxes1.shape[0], boxes2.shape[0]
+    b1 = boxes1.float()[:, None, :].expand(n, k, 9)
+    b2 = boxes2.float()[None, :, :].expand(n, k, 9)
+    return iou3d_aligned(b1.reshape(-1, 9), b2.reshape(-1, 9)).reshape(n, k)
 
 
 def obb_intersect(boxes1, boxes2, margin=0.0):

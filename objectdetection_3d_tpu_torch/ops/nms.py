@@ -17,7 +17,7 @@ from objectdetection_3d_tpu_torch.ops.boxes import (
     iou_aabb_2d,
     rotated_corners_2d_envelope,
 )
-from objectdetection_3d_tpu_torch.ops.iou3d import obb_intersect
+from objectdetection_3d_tpu_torch.ops.iou3d import iou3d, obb_intersect
 
 # at or below this threshold "iou > thr" means "any overlap", which the
 # exact SAT intersection test decides
@@ -54,8 +54,9 @@ def multiclass_nms(boxes, scores, score_thr, iou_thr, nms_dim=3,
         scores: (N, C) per-class scores (already sigmoided).
         score_thr: scalar score threshold.
         iou_thr: scalar IoU suppression threshold.
-        nms_dim: 3 -> rotated-3D overlap; 2 -> rotated-corner AABB
-            envelope IoU.
+        nms_dim: 3 -> rotated-3D IoU (the SAT test at or below 1e-4,
+            the exact clipper above); 2 -> rotated-corner AABB envelope
+            IoU.
         valid_mask: optional (N,) bool of candidate validity.
     Returns:
         (N, C) bool keep matrix.
@@ -64,12 +65,10 @@ def multiclass_nms(boxes, scores, score_thr, iou_thr, nms_dim=3,
     if valid_mask is None:
         valid_mask = torch.ones((n,), dtype=torch.bool, device=boxes.device)
 
-    if nms_dim == 3:
-        if float(iou_thr) > _SAT_THRESH:
-            raise NotImplementedError(
-                "nms_dim=3 with iou_thr > 1e-4 needs the exact rotated-3D "
-                "IoU clipper, which is not ported yet")
+    if nms_dim == 3 and float(iou_thr) <= _SAT_THRESH:
         suppress = obb_intersect(boxes, boxes)
+    elif nms_dim == 3:
+        suppress = iou3d(boxes, boxes) > iou_thr
     else:
         env = rotated_corners_2d_envelope(boxes)
         suppress = iou_aabb_2d(env, env) > iou_thr

@@ -6,7 +6,7 @@ Run from the repository root:
 
 Builds the flagship PointPillars (bf16) with the trained
 ``artifacts/overfit_ckpt.npz``, runs predict on the 40x40 m trunk-column
-clouds of ``chip_smoke.py`` and prints:
+clouds of ``scene.py`` and prints:
 
 * per-stage device time from CUDA events recorded at the network's module
   boundaries (voxelize, PFN, grid build, vertical encoder, RPN, head,
@@ -74,11 +74,14 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("profile_predict: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
-    from chip_smoke import card_line, make_batch, tree_scene
     from objectdetection_3d_tpu_torch import configs
     from objectdetection_3d_tpu_torch.models.detector import PointPillars
     from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.scene import (
+        card_line,
+        make_batch,
+        tree_scene,
+    )
 
     print(f"card: {card_line()}")
     model = PointPillars(configs.flagship_cfg(), device="cuda")

@@ -1,0 +1,158 @@
+"""Breakdown of the port's flagship training step on one CUDA card.
+
+Run from the repository root:
+
+    python3 -m objectdetection_3d_tpu_torch.profile_train [--steps N]
+
+Builds the flagship PointPillars (bf16, B = 1) from the trained
+``artifacts/overfit_ckpt.npz`` with the AdamW settings of
+``chip_smoke.py``, takes one warm-up step on the trunk-column cloud of
+seed 0, then traces ``make_train_step``'s step on seeds 1..N with
+``torch.profiler`` and prints:
+
+* the device time of each phase range the step marks (forward,
+  assignment, loss + backward, optimizer), mean over the steps;
+* host wall time per step and the share of it the device spent in kernels,
+  whose complement is the idle share;
+* the top CUDA kernels by total device time.
+
+The full profiler table goes to ``chiprun_out/profile_train.txt``.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PHASES = ("forward", "assignment", "loss+backward", "optimizer")
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def phase_device_ms(trace, phases=PHASES):
+    """Device time of each phase range in a Chrome trace of train steps.
+
+    Each kernel, copy and fill is charged to the innermost phase range
+    whose host interval holds the runtime call that launched it, from any
+    thread (autograd launches the backward from a thread of its own while
+    the calling thread waits inside its range).
+
+    Args:
+        trace: the trace ``torch.profiler`` exports, as a dict.
+    Returns:
+        {phase: device ms summed over the trace, "other": device ms
+        launched outside every phase}.
+    """
+    events = trace["traceEvents"]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name") in phases)
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in _LAUNCH_CATS
+                and "correlation" in e.get("args", {})}
+    out = dict.fromkeys((*phases, "other"), 0.0)
+    for e in events:
+        if e.get("cat") not in _DEVICE_CATS:
+            continue
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        name = "other"
+        if ts is not None:
+            # ranges are sorted by start: the last that holds ts is the
+            # innermost
+            for start, end, phase in ranges:
+                if start > ts:
+                    break
+                if ts <= end:
+                    name = phase
+        out[name] += e["dur"] / 1e3
+    return out
+
+
+def traced_steps(step, batches, trace_path):
+    """Run ``step`` on each batch under ``torch.profiler``.
+
+    Returns:
+        (profiler, host wall seconds of each step, the exported Chrome
+        trace as a dict; also written to ``trace_path``).
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        trace = json.load(f)
+    return prof, walls, trace
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3,
+                    help="timed steps (clouds of seeds 1..steps)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.scene import (
+        card_line,
+        make_batch,
+        tree_scene,
+    )
+
+    print(f"card: {card_line()}")
+    model = PointPillars(configs.flagship_cfg(), device="cuda")
+    load_npz(model.net, os.path.join(REPO, "artifacts", "overfit_ckpt.npz"))
+    tx = model.get_optimizer(dict(lr=1e-3, betas=(0.95, 0.99),
+                                  weight_decay=0.01), grad_clip_value=2.0)
+    p_max = model.tpu_cfg["max_points_static"]
+    batches = [make_batch(tree_scene(s), p_max)
+               for s in range(args.steps + 1)]
+    step = model.make_train_step(tx)
+    step(batches[0])                        # warm-up (cuDNN plans, build)
+    torch.cuda.synchronize()
+
+    out_dir = os.path.join(REPO, "chiprun_out")
+    prof, walls, trace = traced_steps(
+        step, batches[1:], os.path.join(out_dir, "profile_train_trace.json"))
+    n = len(walls)
+    split = phase_device_ms(trace)
+    print("step split, device ms per step (mean over steps, B=1, bf16):")
+    for k, v in split.items():
+        print(f"  {k:<14} {v / n:9.3f}")
+    dev_ms = sum(split.values())
+    wall_ms = sum(walls) * 1e3
+    busy = dev_ms / wall_ms
+    print(f"profiled wall {wall_ms / n:.3f} ms per step, kernels "
+          f"{dev_ms / n:.3f} ms per step: device busy {busy:.3f}, "
+          f"idle {1 - busy:.3f}")
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in PHASES]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    print("top kernels by device time (ms per step):")
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3 / n:9.3f}  "
+              f"{e.count // n:4d}x  {e.key[:90]}")
+    with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total",
+                             row_limit=40))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

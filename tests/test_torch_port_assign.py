@@ -1,0 +1,244 @@
+"""The port's target assignment and its geometry kernels' plain versions
+against the JAX package, float32 on the CPU.
+
+* K3 / K4 plain (``ops/assign_geometry.py``) against the Pallas kernels in
+  interpret mode on the ``_tiny_layout`` shapes of
+  ``tests/test_assign_geometry.py``: keys rtol 1e-5, atol 1e-6 (the
+  per-GT tables come from einsums summed in another order); integer and
+  flag outputs exact after the combo-major -> flat reorder.
+* ``assign_targets`` against the JAX package's on the layout path with
+  the exact anchor tier: masks, labels and ``num_pos`` exact,
+  ``best_gt`` and the direction targets exact under ``pos_mask``,
+  ``target_deltas`` and ``max_overlap`` 1e-5.  Outside ``pos_mask`` both
+  follow a ``best_gt`` that no loss reads, and a touching pair there may
+  clip to 1e-7 in one clipper and to 0 in the other (the JAX package's
+  CPU path runs its XLA clipper, the port the Pallas body's).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from objectdetection_3d_tpu.models import PointPillars as JaxPointPillars
+from objectdetection_3d_tpu.models.assign import (
+    assign_targets as jax_assign_targets,
+)
+from objectdetection_3d_tpu.ops.assign_geometry import (
+    _combo_table,
+    _pad_cells,
+)
+from objectdetection_3d_tpu.ops.assign_geometry import (
+    chunk_geometry as jax_chunk_geometry,
+)
+from objectdetection_3d_tpu.ops.assign_geometry import (
+    containment_rescue as jax_containment_rescue,
+)
+from objectdetection_3d_tpu.ops.assign_geometry import (
+    top3_merge as jax_top3_merge,
+)
+from objectdetection_3d_tpu_torch import configs
+from objectdetection_3d_tpu_torch.models.assign import (
+    assign_targets,
+    make_anchor_layout,
+    topk_rows_lowest_index,
+)
+from objectdetection_3d_tpu_torch.models.detector import PointPillars
+from objectdetection_3d_tpu_torch.ops import assign_geometry as geo
+from test_assign_geometry import _gt_chunk, _tiny_layout
+from tiny import tiny_batch, tiny_model_cfg
+
+torch.set_num_threads(1)
+
+KEY_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _m_major_to_flat(x, nc):
+    """(..., M, Ncp) combo-major kernel layout -> (..., Nc * M) flat."""
+    x = np.asarray(x)[..., :nc]
+    return np.swapaxes(x, -1, -2).reshape(x.shape[:-2] + (-1,))
+
+
+@pytest.fixture(scope="module")
+def tiny_geometry():
+    rng = np.random.default_rng(0)
+    anchors, layout, m = _tiny_layout(rng)
+    gt, mask = _gt_chunk(rng)
+    # a GT around cell 3, holding its anchors (containment IoUs > 0)
+    cx, cy, cz = layout[0][3]
+    gt[1] = [cx, cy, cz - 0.5, 3.0, 3.0, 5.0, 0.0, 0.0, 0.0]
+    t_layout = make_anchor_layout(torch.from_numpy(anchors), m)
+    return anchors, layout, m, gt, mask, t_layout
+
+
+def test_anchor_layout_matches_jax(tiny_geometry):
+    _, layout, _, _, _, t_layout = tiny_geometry
+    for got, want in zip(t_layout, layout):
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(geo.combo_table(t_layout).numpy(),
+                                  _combo_table(layout))
+
+
+def test_anchor_layout_rejects_unfactorable_grids():
+    anchors = torch.zeros((8, 9))
+    anchors[1, 0] = 1.0      # two combos of cell 0 at different centers
+    with pytest.raises(ValueError):
+        make_anchor_layout(anchors, 2)
+    with pytest.raises(ValueError):
+        make_anchor_layout(anchors, 3)
+
+
+def test_chunk_geometry_plain_matches_interpret(tiny_geometry):
+    _, layout, _, gt, mask, t_layout = tiny_geometry
+    gch = gt.shape[0]
+    nc = layout[0].shape[0]
+    sentinel = 7
+    want = jax_chunk_geometry(
+        jnp.asarray(gt), jnp.asarray(mask), jnp.arange(gch, dtype=jnp.int32),
+        layout, jnp.asarray(_pad_cells(layout[0])[0]),
+        jnp.asarray(_combo_table(layout)), sentinel, interpret=True)
+    ftab, tabs = geo.chunk_tables(torch.from_numpy(gt),
+                                  torch.from_numpy(mask), t_layout)
+    got = geo.chunk_geometry(ftab, torch.arange(gch, dtype=torch.int32),
+                             tabs, geo.combo_table(t_layout), t_layout[0],
+                             sentinel)
+    np.testing.assert_allclose(got["key"].numpy(),
+                               _m_major_to_flat(want["key"], nc), **KEY_TOL)
+    for name in ("cm", "v1", "v2", "v3"):
+        np.testing.assert_allclose(got[name].numpy(),
+                                   _m_major_to_flat(want[name], nc),
+                                   **KEY_TOL, err_msg=name)
+    for name in ("cb", "a1", "a2", "a3", "mb"):
+        assert got[name].dtype == torch.int32
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      _m_major_to_flat(want[name], nc),
+                                      err_msg=name)
+    np.testing.assert_allclose(got["rmax"].numpy(),
+                               np.asarray(want["rmax"])[:, :nc], **KEY_TOL)
+    assert (got["cm"] > 0).any() and (got["mb"] == 0).any()
+
+
+@pytest.mark.parametrize("ok", [(1, 1, 1, 1, 1), (0, 1, 0, 0, 0)])
+def test_containment_rescue_plain_matches_interpret(tiny_geometry, ok):
+    _, layout, _, gt, mask, t_layout = tiny_geometry
+    gch = gt.shape[0]
+    nc = layout[0].shape[0]
+    ftab, tabs = geo.chunk_tables(torch.from_numpy(gt),
+                                  torch.from_numpy(mask), t_layout)
+    combo = geo.combo_table(t_layout)
+    geom = geo.chunk_geometry(ftab, torch.arange(gch, dtype=torch.int32),
+                              tabs, combo, t_layout[0], gch)
+    # each GT's own containment row max: its achievers are the rescues
+    row_max = geom["rmax"].amax(dim=1).numpy()
+    rescue_ok = np.asarray(ok, bool)
+    want = jax_containment_rescue(
+        jnp.asarray(gt), jnp.asarray(mask), jnp.asarray(row_max),
+        jnp.asarray(rescue_ok), layout, jnp.asarray(_pad_cells(layout[0])[0]),
+        jnp.asarray(_combo_table(layout)), interpret=True)
+    rthr = torch.stack([torch.from_numpy(row_max),
+                        torch.from_numpy(rescue_ok).float()], dim=1)
+    got = geo.containment_rescue(ftab, rthr, tabs, combo, t_layout[0])
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _m_major_to_flat(want, nc))
+    assert got.sum() > 0
+
+
+def test_top3_merge_matches_jax():
+    rng = np.random.default_rng(3)
+    n = 64
+    state = [np.full(n, -np.inf, np.float32), np.full(n, 9, np.int32)] * 3
+    t_state = [torch.from_numpy(a.copy()) for a in state]
+    for gid in range(6):
+        # few distinct values: many ties, which keep the incumbent
+        w = rng.integers(0, 3, n).astype(np.float32)
+        gw = np.full(n, gid, np.int32)
+        state = [np.asarray(a) for a in jax_top3_merge(
+            *map(jnp.asarray, state), jnp.asarray(w), jnp.asarray(gw))]
+        t_state = list(geo.top3_merge(*t_state, torch.from_numpy(w),
+                                      torch.from_numpy(gw)))
+    for got, want in zip(t_state, state):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_topk_rows_takes_lowest_index_on_ties():
+    key = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0, 3.0],
+                        [0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+                        [5.0, 4.0, 3.0, 2.0, 1.0, 0.0]])
+    got = topk_rows_lowest_index(key, 3)
+    np.testing.assert_array_equal(got.numpy(),
+                                  [[1, 2, 4], [0, 1, 2], [0, 1, 2]])
+    # the same set as lax.top_k, whose ties also take the lowest index
+    want = jax.lax.top_k(jnp.asarray(key.numpy()), 3)[1]
+    np.testing.assert_array_equal(np.sort(np.asarray(want), axis=1),
+                                  got.numpy())
+
+
+@pytest.fixture(scope="module")
+def models():
+    return (JaxPointPillars(**tiny_model_cfg()),
+            PointPillars(configs.tiny_model_cfg(), device="cpu"))
+
+
+def _assign_pair(models, gt, labels, mask):
+    jm, tm = models
+    k = int(jm.tpu_cfg["assign_candidates_per_gt"])
+    want = jax_assign_targets(
+        jm.anchors, jnp.asarray(gt), jnp.asarray(labels), jnp.asarray(mask),
+        pos_thr=jm._pos_thr, neg_thr=jm._neg_thr, candidates_per_gt=k,
+        num_classes=jm.num_classes, anchor_aabb=jm.anchor_aabb,
+        layout=jm.anchor_layout, exact_anchor_tier=True)
+    got = assign_targets(
+        tm.anchors, torch.from_numpy(gt), torch.from_numpy(labels),
+        torch.from_numpy(mask), tm._pos_thr, tm._neg_thr, tm.anchor_layout,
+        candidates_per_gt=k, num_classes=tm.num_classes,
+        combo_tab=tm.combo_tab)
+    return {k_: np.asarray(v) for k_, v in want.items()}, {
+        k_: v.numpy() for k_, v in got.items()}
+
+
+def _assert_assign_equal(want, got):
+    for name in ("pos_mask", "neg_mask", "target_labels", "num_pos"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    pos = want["pos_mask"]
+    for name in ("best_gt", "dir_targets"):
+        np.testing.assert_array_equal(got[name][pos], want[name][pos],
+                                      err_msg=name)
+    np.testing.assert_allclose(got["target_deltas"], want["target_deltas"],
+                               atol=1e-5)
+    np.testing.assert_allclose(got["max_overlap"], want["max_overlap"],
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("seed,num_gt,max_gt", [(0, 3, 8), (1, 3, 8),
+                                                (2, 4, 8), (3, 5, 20)])
+def test_assign_targets_matches_jax(models, seed, num_gt, max_gt):
+    batch = tiny_batch(batch_size=1, num_gt=num_gt, seed=seed,
+                       max_gt=max_gt)
+    want, got = _assign_pair(models, batch["bboxes"][0], batch["labels"][0],
+                             batch["gt_mask"][0])
+    _assert_assign_equal(want, got)
+    assert 0 < int(want["num_pos"])
+    # some anchors are ignored: neither positive nor negative
+    assert (~want["pos_mask"] & ~want["neg_mask"]).any()
+
+
+def test_assign_targets_all_padding(models):
+    g = 8
+    gt = np.zeros((g, 9), np.float32)
+    labels = np.zeros((g,), np.int32)
+    mask = np.zeros((g,), bool)
+    want, got = _assign_pair(models, gt, labels, mask)
+    _assert_assign_equal(want, got)
+    assert int(got["num_pos"]) == 0
+    assert got["neg_mask"].all()
+    assert np.isfinite(got["target_deltas"]).all()
+
+
+def test_assign_needs_a_layout(models):
+    _, tm = models
+    with pytest.raises(NotImplementedError):
+        assign_targets(tm.anchors, torch.zeros((2, 9)),
+                       torch.zeros(2, dtype=torch.int32),
+                       torch.zeros(2, dtype=torch.bool), 0.2, 0.08, None)

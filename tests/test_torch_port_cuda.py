@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain versions, on a card.
 
+K1, K2, K3 and K4 are held bit-exact; K6 and K7 (the clipper, whose
+sinf/cosf may differ from PyTorch's in the last bit) within 1e-5 of IoU.
+
 Marked ``cuda``: without a CUDA device (or without nvcc) every test skips
 with its reason.  On the card:
 
@@ -15,6 +18,21 @@ import numpy as np
 import pytest
 import torch
 
+from objectdetection_3d_tpu_torch.models.assign import make_anchor_layout
+from objectdetection_3d_tpu_torch.ops.assign_geometry import (
+    chunk_geometry,
+    chunk_geometry_plain,
+    chunk_tables,
+    combo_table,
+    containment_rescue,
+    containment_rescue_plain,
+)
+from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
+    iou_gathered,
+    iou_gathered_pair,
+    iou_gathered_pair_plain,
+    iou_gathered_plain,
+)
 from objectdetection_3d_tpu_torch.ops.grid_scatter import (
     scatter_to_grid,
     scatter_to_grid_plain,
@@ -93,3 +111,99 @@ def test_kernel_wrappers_reject_bad_input(cuda):
     feats = torch.zeros((8, 4), dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError):
         scatter_to_grid(feats, cells[0], (2, 2, 2))
+
+
+def _random_pairs(rng, p):
+    """Random box pairs with identical, face-touching and nested pairs
+    among them (the clipper's degenerate cases)."""
+    b1 = np.zeros((p, 9), np.float32)
+    b1[:, :3] = rng.uniform(-5, 5, (p, 3))
+    b1[:, 3:6] = rng.uniform(0.3, 4.0, (p, 3))
+    b1[:, 6:9] = rng.uniform(-0.6, 0.6, (p, 3))
+    b2 = (b1 + rng.normal(0, 0.8, (p, 9))).astype(np.float32)
+    b2[:, 3:6] = np.abs(b2[:, 3:6]) + 0.2
+    q = p // 8
+    b2[:q] = b1[:q]
+    b2[q:2 * q] = b1[q:2 * q]
+    b2[q:2 * q, 0] += b1[q:2 * q, 3]
+    b2[2 * q:3 * q] = b1[2 * q:3 * q]
+    b2[2 * q:3 * q, 3:6] *= 0.5
+    return b1, b2
+
+
+@pytest.mark.parametrize("p", [1, 1000, 70000])
+def test_gathered_iou_kernels_match_plain(cuda, p):
+    rng = np.random.default_rng(p)
+    g = 37
+    table, boxes2 = _random_pairs(rng, max(p, g))
+    table = torch.from_numpy(table[:g]).to(cuda)
+    boxes2 = torch.from_numpy(boxes2[:p]).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=g) > 0.2).to(cuda)
+    ids_a = torch.from_numpy(rng.integers(0, g, p).astype(np.int32)).to(cuda)
+    ids_b = torch.from_numpy(rng.integers(0, g, p).astype(np.int32)).to(cuda)
+    before = (iou_gathered.launches, iou_gathered_pair.launches)
+    one = iou_gathered(table, valid, ids_a, boxes2)
+    pair = iou_gathered_pair(table, valid, ids_a, ids_b, boxes2)
+    torch.cuda.synchronize()
+    assert (iou_gathered.launches, iou_gathered_pair.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_one = iou_gathered_plain(table, valid, ids_a, boxes2)
+    want_pair = iou_gathered_pair_plain(table, valid, ids_a, ids_b, boxes2)
+    assert (one - want_one).abs().max() <= 1e-5
+    for got, want in zip(pair, want_pair):
+        assert (got - want).abs().max() <= 1e-5
+    assert torch.equal(pair[0], one)
+
+
+def _grid_layout(rng, nc, device):
+    sizes = np.array([[0.75, 0.75, 12], [1.3, 1.3, 17], [1.0, 1.75, 20]],
+                     np.float32)
+    rots = np.array([[0, 0, 0], [0, 0, 1.57], [0.3142, 0, 0],
+                     [-0.3142, 0, 0]], np.float32)
+    cells = rng.uniform(0, 40, (nc, 3)).astype(np.float32)
+    cells[:, 2] = 0.0
+    combos = np.array([np.concatenate([s, r]) for s in sizes for r in rots],
+                      np.float32)
+    anchors = np.concatenate([np.repeat(cells, len(combos), 0),
+                              np.tile(combos, (nc, 1))], 1)
+    anchors = torch.from_numpy(anchors).to(device)
+    return anchors, make_anchor_layout(anchors, len(combos))
+
+
+@pytest.mark.parametrize("nc,gch", [(160000, 16), (1001, 5)])
+def test_assign_geometry_kernels_bit_exact(cuda, nc, gch):
+    rng = np.random.default_rng(nc)
+    anchors, layout = _grid_layout(rng, nc, cuda)
+    gt = np.zeros((gch, 9), np.float32)
+    gt[:, :2] = rng.uniform(0, 40, (gch, 2))
+    gt[:, 2] = rng.uniform(0.2, 1.0, gch)
+    gt[:, 3:5] = rng.uniform(0.5, 1.0, (gch, 1))
+    gt[:, 5] = rng.uniform(10, 14, gch)
+    gt[:, 6:9] = rng.uniform(-0.2, 0.2, (gch, 3))
+    # a thin upright GT on a cell center, inside that cell's larger anchors
+    gt[1] = [*anchors[5, :2].tolist(), 0.5, 0.5, 0.5, 12.0, 0.01, -0.01,
+             0.3]
+    mask = torch.from_numpy(np.arange(gch) != gch - 1).to(cuda)
+    ftab, tabs = chunk_tables(torch.from_numpy(gt).to(cuda), mask, layout)
+    combo = combo_table(layout)
+    gid = torch.arange(3, 3 + gch, dtype=torch.int32, device=cuda)
+    before = chunk_geometry.launches
+    got = chunk_geometry(ftab, gid, tabs, combo, layout[0], 128)
+    want = chunk_geometry_plain(ftab, gid, tabs, combo, layout[0], 128)
+    torch.cuda.synchronize()
+    assert chunk_geometry.launches == before + 1
+    assert set(got) == set(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        assert torch.equal(got[name], want[name]), name
+    assert int((got["cm"] > 0).sum()) > 0
+
+    rthr = torch.stack([got["rmax"].amax(dim=1),
+                        torch.ones(gch, device=cuda)], dim=1).contiguous()
+    before = containment_rescue.launches
+    hit = containment_rescue(ftab, rthr, tabs, combo, layout[0])
+    want_hit = containment_rescue_plain(ftab, rthr, tabs, combo, layout[0])
+    torch.cuda.synchronize()
+    assert containment_rescue.launches == before + 1
+    assert torch.equal(hit, want_hit)
+    assert int(hit.sum()) > 0

@@ -128,9 +128,16 @@ def test_multiclass_nms_matches_jax(nms_dim, thr):
 
 
 def test_nms_exact_3d_iou_is_not_ported_yet():
-    b = torch.from_numpy(_boxes(7, 4))
-    with pytest.raises(NotImplementedError):
-        multiclass_nms(b, torch.rand(4, 1), 0.3, 0.5, nms_dim=3)
+    # the name predates the exact clipper: above 1e-4, nms_dim=3 now runs
+    # the exact rotated-3D IoU (tests/test_torch_port_iou3d.py holds it
+    # against the JAX package at 0.1) instead of raising
+    b = _boxes(7, 4)
+    scores = np.linspace(0.4, 0.9, 4, dtype=np.float32)[:, None]
+    want = np.asarray(jax_nms(jnp.asarray(b), jnp.asarray(scores), 0.3, 0.5,
+                              nms_dim=3))
+    got = multiclass_nms(torch.from_numpy(b), torch.from_numpy(scores), 0.3,
+                         0.5, nms_dim=3)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_nms_ties_rank_lower_index_first():
