@@ -35,10 +35,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    six kernels launched during the timed steps; then one more step of
    the same step function under ``torch.profiler``, its device time split
    by the step's own phase ranges (forward, assignment, loss + backward,
-   optimizer).
+   optimizer);
+10. encoder kernels: K10 (stages 0-1), K9 (stages 0-2, forward, and the
+    backward's dx and dw), K8 (stages 0-2) on cloud 0's real stage inputs
+    with the npz weights, each against its plain version in float32
+    (TF32 off; within 1e-3 of the largest element) and in bf16 (within
+    1e-2), timed beside its bound and cuDNN's conv; and K5 on 1.92 M
+    aligned (GT, anchor) pairs within 1e-5 of the volume scale, then
+    driven once as the JAX package's ``tools/profile_assign.py`` drives
+    it;
+11. predict under the lowering knobs: four clouds with ``fused_stages``
+    (K8 exactly 3 launches per cloud) and four with ``pallas_subm_conv``
+    and ``zfold_pallas`` (K10 2 and K9 1 per cloud), outputs finite;
+    cloud 0 in float32 under each knob set, whose pseudo-image must lie
+    within 1e-3 of the largest element of the default path's; the bf16
+    detections' agreement with the default path (information);
+12. train with ``zfold_pallas``: one warm-up step, then 2 timed steps;
+    losses finite, ``num_pos`` > 0, every parameter and running statistic
+    changed, K9 exactly 3 forward and 3 dx launches per step.
 
-The last lines are the ``kernels`` JSON line, the card line and
-``{"ok": true, "device": {...}}``.
+The last lines are the ``kernels`` JSON line (all ten kernels), the card
+line and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -53,6 +70,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(REPO, "artifacts", "overfit_ckpt.npz")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # float32 operations (arithmetic, compares, min/max) counted from the
 # kernel bodies: per (GT, anchor) pair of K3 and of K4, and per clipped
 # box pair of K6/K7 (12 polygons; per plane slot 23 ops over the 49 slots
@@ -85,14 +103,419 @@ def bytes_ms(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
-    rate and the float32 operations over the card's peak."""
+    rate and the operations over the card's peak for their type (float32
+    unless given)."""
     by_bytes = bytes_ms(nbytes)
-    by_ops = ops / FP32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     if by_ops > by_bytes:
         return by_ops, "operations"
     return by_bytes, "bytes"
+
+
+def centre_matches(out_a, out_b):
+    """How many of ``out_a``'s valid detections of item 0 have one of
+    ``out_b``'s within 0.5 m in xy."""
+    ca = out_a["bbox"][0][out_a["valid"][0]][:, :2]
+    cb = out_b["bbox"][0][out_b["valid"][0]][:, :2]
+    if not (len(ca) and len(cb)):
+        return 0
+    return int((torch.cdist(ca, cb).min(dim=1).values < 0.5).sum())
+
+
+CONV_GATES = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+
+
+def gated(label, pairs):
+    """Hold each (got, want) of ``pairs`` {dtype: [(got, want), ...]}
+    within CONV_GATES[dtype] of want's largest element; returns the bf16
+    max abs error and prints both types' relative errors."""
+    out = {}
+    for dt, items in pairs.items():
+        worst = 0.0
+        for got, want in items:
+            err = max_abs_err(got, want)
+            scale = float(want.double().abs().max())
+            if not err <= CONV_GATES[dt] * scale:
+                raise AssertionError(f"{label} ({dt}) differs from its "
+                                     f"plain version by {err} (scale "
+                                     f"{scale})")
+            worst = max(worst, err / scale)
+            out[dt] = max(out.get(dt, 0.0), err)
+        print(f"  {label} {str(dt)[6:]}: max rel err {worst:.3g}",
+              flush=True)
+    return out[torch.bfloat16]
+
+
+def stage_inputs(model, batch, stages):
+    """Cloud ``batch``'s vertical-encoder inputs (x NCDHW, mask) of the
+    first ``stages`` stages, through the model's own stages."""
+    enc = model.net.pseudoimage_generator
+    seen = {}
+    hook = enc.register_forward_pre_hook(
+        lambda mod, args: seen.setdefault("args", args))
+    try:
+        model.predict(batch)
+    finally:
+        hook.remove()
+    grid, mask = seen["args"]
+    x, mask = grid.to(enc.dtype), mask.to(enc.dtype)
+    out = []
+    with torch.inference_mode():
+        for i in range(stages):
+            out.append((x, mask))
+            x, mask = enc.stage(i, x, mask)
+    return out
+
+
+def encoder_kernels(model, batch):
+    """Phase 10, K8-K10: kernel entries {name: entry} for the JSON line."""
+    import torch.nn.functional as F
+
+    from objectdetection_3d_tpu_torch.models.layers import zfold_operands
+    from objectdetection_3d_tpu_torch.ops.fused_stage import (
+        fused_stage,
+        fused_stage_plain,
+    )
+    from objectdetection_3d_tpu_torch.ops.pallas_conv import (
+        subm_conv3d,
+        subm_conv3d_plain,
+    )
+    from objectdetection_3d_tpu_torch.ops.zfold_conv import (
+        conv2d_3x3,
+        conv2d_3x3_plain,
+    )
+
+    enc = model.net.pseudoimage_generator
+    ins = stage_inputs(model, batch, 3)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dts = (torch.float32, torch.bfloat16)
+    src = "objectdetection_3d_tpu_torch/csrc/"
+    stages = {"subm_conv3d": [], "conv2d_3x3": [], "fused_stage": []}
+
+    # ---- K10: subm conv of stages 0 and 1 -------------------------------
+    for i in (0, 1):
+        x, _ = ins[i]
+        xn = x.permute(0, 2, 3, 4, 1)
+        kern = getattr(enc, f"subm_{i}_kernel").detach()
+        k5 = kern.permute(2, 3, 4, 1, 0)
+        pairs = {}
+        for dt in dts:
+            xi = xn.to(dt)
+            pairs[dt] = [(subm_conv3d(xi, k5), subm_conv3d_plain(xi, k5))]
+        torch.cuda.synchronize()
+        err = gated(f"K10 stage {i}", pairs)
+        del pairs
+        b, d, h, w, c = xn.shape
+        co = k5.shape[-1]
+        klib = kern.to(x.dtype)
+        b_ms, b_by = bound(2 * b * d * h * w * (c + co) + 54 * c * co,
+                           2 * 27 * c * co * b * d * h * w,
+                           BF16_TC_OPS_PER_S)
+        stages["subm_conv3d"].append({
+            "stage": i, "shape": [b, d, h, w, c, co], "max_abs_err": err,
+            "ms": cuda_ms(lambda: subm_conv3d(xn, k5), 10),
+            "plain_ms": cuda_ms(lambda: subm_conv3d_plain(xn, k5), 1),
+            "library_ms": cuda_ms(lambda: F.conv3d(x, klib, padding=1), 10),
+            "bound_ms": b_ms, "bound_by": b_by})
+
+    # ---- K9: folded subm conv of stages 0-2, forward and backward ------
+    for i in (0, 1, 2):
+        x, _ = ins[i]
+        b, c, d, h, w = x.shape
+        zb = enc._zfold_block(c, d)
+        k5 = getattr(enc, f"subm_{i}_kernel").detach().permute(2, 3, 4, 1, 0)
+        xo, kf = zfold_operands(x.permute(0, 2, 3, 4, 1).clone(),
+                                k5.clone(), zb)
+        n, _, _, cf = xo.shape
+        cof = kf.shape[-1]
+        g = torch.randn((n, h, w, cof), generator=gen, device="cuda")
+        pairs = {}
+        for dt in dts:
+            got, want = [], []
+            for fn, out in ((conv2d_3x3, got), (conv2d_3x3_plain, want)):
+                xa = xo.to(dt, copy=True).requires_grad_()
+                ka = kf.clone().requires_grad_()
+                y = fn(xa, ka)
+                y.backward(g.to(dt))
+                out.extend([y.detach(), xa.grad, ka.grad])
+            pairs[dt] = list(zip(got, want))
+        torch.cuda.synchronize()
+        err = gated(f"K9 stage {i} (forward, dx, dw)", pairs)
+        del pairs
+        xb, kb = xo.to(x.dtype), kf.to(x.dtype)
+        gb = g.to(x.dtype)
+        wt = kb.flip(0, 1).transpose(2, 3).contiguous()
+        xl, gl = xb.permute(0, 3, 1, 2), gb.permute(0, 3, 1, 2)
+        kl, wtl = kb.permute(3, 2, 0, 1), wt.permute(3, 2, 0, 1)
+        with torch.no_grad():
+            ms = (cuda_ms(lambda: conv2d_3x3(xb, kb), 10),
+                  cuda_ms(lambda: conv2d_3x3(gb, wt), 10))
+            plain = (cuda_ms(lambda: conv2d_3x3_plain(xb, kb), 1),
+                     cuda_ms(lambda: conv2d_3x3_plain(gb, wt), 1))
+            lib = (cuda_ms(lambda: F.conv2d(xl, kl, padding=1), 10),
+                   cuda_ms(lambda: F.conv2d(gl, wtl, padding=1), 10))
+        # forward and dx: each reads one (n, h, w) image set and writes the
+        # other, with 2 * 9 * cf * cof operations per pixel
+        b_ms, b_by = bound(2 * n * h * w * (cf + cof) + 18 * cf * cof,
+                           2 * 9 * cf * cof * n * h * w, BF16_TC_OPS_PER_S)
+        stages["conv2d_3x3"].append({
+            "stage": i, "shape": [n, h, w, cf, cof], "max_abs_err": err,
+            "ms": sum(ms), "forward_ms": ms[0], "dx_ms": ms[1],
+            "plain_ms": sum(plain), "library_ms": sum(lib),
+            "library_forward_ms": lib[0], "library_dx_ms": lib[1],
+            "bound_ms": 2 * b_ms, "bound_by": b_by})
+        del xo, kf, g, xb, kb, gb, wt
+        torch.cuda.empty_cache()
+
+    # ---- K8: whole eval stages 0-2 ---------------------------------------
+    for i in (0, 1, 2):
+        x, m = ins[i]
+        xn, mn = x.permute(0, 2, 3, 4, 1), m[:, 0]
+        with torch.no_grad():
+            args = [a.detach() for a in enc.fused_stage_args(i)]
+        pairs = {}
+        for dt in dts:
+            xi, mi = xn.to(dt), mn.to(dt)
+            pairs[dt] = [(fused_stage(xi, mi, *args),
+                          fused_stage_plain(xi, mi, *args))]
+        torch.cuda.synchronize()
+        err = gated(f"K8 stage {i}", pairs)
+        del pairs
+        b, d, h, w, c = xn.shape
+        co = args[0].shape[-1]
+        d_out = (d - 3) // 2 + 1
+        b_ms, b_by = bound(
+            2 * (b * d * h * w * (c + 1) + b * d_out * h * w * co)
+            + 2 * 27 * c * co + 4 * 3 * co * co + 16 * co,
+            2 * 27 * c * co * b * d * h * w + 2 * 3 * co * co * b * d_out
+            * h * w, BF16_TC_OPS_PER_S)
+        with torch.inference_mode():
+            unfused = cuda_ms(lambda: enc.stage(i, x, m), 10)
+        stages["fused_stage"].append({
+            "stage": i, "shape": [b, d, h, w, c, co], "max_abs_err": err,
+            "ms": cuda_ms(lambda: fused_stage(xn, mn, *args), 10),
+            "plain_ms": cuda_ms(lambda: fused_stage_plain(xn, mn, *args), 1),
+            "library_ms": None, "unfused_ms": unfused,
+            "bound_ms": b_ms, "bound_by": b_by})
+    del ins
+    torch.cuda.empty_cache()
+
+    replaces = {"subm_conv3d": ("subm_conv3d.cu", "pallas_conv.py:107"),
+                "conv2d_3x3": ("zfold_conv.cu", "zfold_conv.py:93"),
+                "fused_stage": ("fused_stage.cu", "fused_stage.py:156")}
+    entries = {}
+    for name, rows in stages.items():
+        entry = {"name": name, "route": "cuda", "source": src
+                 + replaces[name][0], "replaces": "objectdetection_3d_tpu/"
+                 "ops/" + replaces[name][1],
+                 "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        for key in ("ms", "plain_ms", "bound_ms"):
+            entry[key] = sum(r[key] for r in rows)
+        entry["bound_by"] = ("operations" if any(
+            r["bound_by"] == "operations" for r in rows) else "bytes")
+        lib = [r["library_ms"] for r in rows]
+        entry["library_ms"] = None if None in lib else sum(lib)
+        entry["stages"] = rows
+        entries[name] = entry
+        for r in rows:
+            print(f"{name} stage {r['stage']} {r['shape']}: "
+                  f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, "
+                  f"library {r['library_ms']}, "
+                  + (f"unfused {r['unfused_ms']:.4f} ms, "
+                     if "unfused_ms" in r else "") +
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+                  flush=True)
+    return entries
+
+
+def aligned_clipper(model, batch):
+    """Phase 10, K5: its kernel entry, launches from one drive."""
+    from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
+        intersection_volume_aligned,
+        intersection_volume_aligned_plain,
+    )
+
+    gt = batch["bboxes"][0][batch["gt_mask"][0]]
+    n = model.anchors.shape[0]
+    ridx = np.random.default_rng(0).integers(0, len(gt), n)
+    b1 = torch.as_tensor(gt[ridx], device="cuda").contiguous()
+    b2 = model.anchors
+    got = intersection_volume_aligned(b1, b2)
+    want = intersection_volume_aligned_plain(b1, b2)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    scale = float(want.abs().max())
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"intersection_volume_aligned differs from its "
+                             f"plain version by {err} (scale {scale})")
+    b_ms, b_by = bound(2 * n * 36 + n * 4, CLIP_OPS_PER_PAIR * n)
+    entry = {
+        "name": "intersection_volume_aligned", "route": "cuda",
+        "source": "objectdetection_3d_tpu_torch/csrc/iou3d_clip.cu",
+        "replaces": "objectdetection_3d_tpu/ops/pallas_iou3d.py:341",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: intersection_volume_aligned(b1, b2), 5),
+        "plain_ms": cuda_ms(
+            lambda: intersection_volume_aligned_plain(b1, b2), 1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    # the JAX package's tools/profile_assign.py: the tier's pairs, summed
+    intersection_volume_aligned.launches = 0
+    total = float(intersection_volume_aligned(b1, b2).sum())
+    entry["launches"] = intersection_volume_aligned.launches
+    if entry["launches"] != 1 or not np.isfinite(total):
+        raise AssertionError(f"K5 drive: {entry['launches']} launches, "
+                             f"sum {total}")
+    print(f"K5 intersection_volume_aligned pairs={n}: max abs err {err:.3g}"
+          f" (volume scale {scale:.3g}, {int((got > 0).sum())} pairs "
+          f"overlap); {entry['ms']:.4f} ms vs plain {entry['plain_ms']:.4f}"
+          f" ms, bound {b_ms:.4f} ms", flush=True)
+    return entry
+
+
+def knob_predicts(batches, default_preds):
+    """Phase 11: predict under the lowering knobs.  Returns the launch
+    counts per kernel over the four clouds of each knob set."""
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.ops.fused_stage import fused_stage
+    from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
+    from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
+
+    def knob_model(tpu):
+        model = PointPillars(configs.flagship_cfg(tpu), device="cuda")
+        load_npz(model.net, NPZ)
+        return model
+
+    def counts():
+        return {"fused_stage": fused_stage.launches,
+                "subm_conv3d": subm_conv3d.launches,
+                "conv2d_3x3": conv2d_3x3.launches,
+                "conv2d_3x3_dx": conv2d_3x3.dx_launches}
+
+    knob_sets = (
+        ({"fused_stages": True}, {"fused_stage": 3}),
+        ({"pallas_subm_conv": True, "zfold_pallas": True},
+         {"subm_conv3d": 2, "conv2d_3x3": 1}))
+    launches = {}
+    for tpu, per_cloud in knob_sets:
+        model = knob_model(tpu)
+        predict = model.make_predict_fn()
+        predict(batches[0])                 # warm-up
+        torch.cuda.synchronize()
+        fused_stage.launches = subm_conv3d.launches = 0
+        conv2d_3x3.launches = conv2d_3x3.dx_launches = 0
+        times, outs = [], []
+        for batch in batches:
+            t = time.perf_counter()
+            outs.append(predict(batch))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        got = counts()
+        want = {k: per_cloud.get(k, 0) * len(batches) for k in got}
+        if got != want:
+            raise AssertionError(f"predict under {tpu}: launches {got}, "
+                                 f"expected {want}")
+        for i, out in enumerate(outs):
+            for key in ("bbox", "score"):
+                if not bool(torch.isfinite(out[key]).all()):
+                    raise AssertionError(f"{tpu} cloud {i}: non-finite "
+                                         f"{key}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        agree = centre_matches(default_preds[0], outs[0])
+        print(f"predict {tpu}: median {np.median(times) * 1e3:.1f} ms per "
+              f"cloud over {len(times)} clouds (bf16); launches {got}; "
+              f"valid {[int(o['valid'].sum()) for o in outs]}; cloud 0: "
+              f"{agree} of {int(default_preds[0]['valid'].sum())} default "
+              f"detections have one within 0.5 m", flush=True)
+        del model, predict, outs
+        torch.cuda.empty_cache()
+
+    # cloud 0 in float32 (TF32 off): pseudo-images against the default's
+    def pseudo(tpu):
+        model = knob_model(dict(tpu, compute_dtype="float32"))
+        seen = {}
+        hook = model.net.pseudoimage_generator.register_forward_hook(
+            lambda mod, args, out: seen.setdefault("out", out))
+        model.predict(batches[0])
+        hook.remove()
+        return seen["out"]
+
+    want = pseudo({})
+    scale = float(want.abs().max())
+    for tpu, _ in knob_sets:
+        err = max_abs_err(pseudo(tpu), want)
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"float32 pseudo-image under {tpu} differs "
+                                 f"from the default path's by {err} (scale "
+                                 f"{scale})")
+        print(f"float32 pseudo-image under {tpu}: max abs err {err:.3g} of "
+              f"scale {scale:.3g} against the default path", flush=True)
+    del want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zfold_train(batches, counted):
+    """Phase 12: train steps with ``zfold_pallas``; returns K9's forward
+    and dx launch counts over the 2 timed steps."""
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
+
+    model = PointPillars(configs.flagship_cfg({"zfold_pallas": True}),
+                         device="cuda")
+    load_npz(model.net, NPZ)
+    tx = model.get_optimizer(dict(lr=1e-3, betas=(0.95, 0.99),
+                                  weight_decay=0.01), grad_clip_value=2.0)
+    step = model.make_train_step(tx)
+    before = {k: v.detach().clone() for k, v in
+              model.net.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    step(batches[0])                        # warm-up
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    conv2d_3x3.launches = conv2d_3x3.dx_launches = 0
+    times = []
+    for i in (1, 2):
+        t = time.perf_counter()
+        out = step(batches[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        vals = {k: float(v) for k, v in out.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"zfold step on cloud {i}: non-finite "
+                                 f"{vals}")
+        if vals["num_pos"] <= 0:
+            raise AssertionError(f"zfold step on cloud {i}: no positive "
+                                 f"anchor")
+        print(f"zfold_pallas train step cloud {i}: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in vals.items() if k != "num_pos")
+            + f", num_pos {int(vals['num_pos'])}; {times[-1] * 1e3:.1f} ms",
+            flush=True)
+    k9 = {"forward": conv2d_3x3.launches, "dx": conv2d_3x3.dx_launches}
+    if k9 != {"forward": 6, "dx": 6}:
+        raise AssertionError(f"K9 launches in 2 zfold steps: {k9}, expected "
+                             f"3 forward and 3 dx per step")
+    others = {name: fn.launches for name, fn in counted.items()}
+    if not all(others.values()):
+        raise AssertionError(f"a kernel did not launch in the zfold steps: "
+                             f"{others}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = model.net.state_dict()
+    unchanged = [k for k in before if torch.equal(before[k], after[k])]
+    if unchanged:
+        raise AssertionError(f"zfold steps left {unchanged} unchanged")
+    print(f"zfold_pallas train: median {np.median(times) * 1e3:.1f} ms per "
+          f"step over {len(times)} steps (B=1, bf16, after one warm-up); "
+          f"K9 launches {k9}; others {others}; peak memory {peak:.2f} GiB; "
+          f"all {len(before)} arrays changed", flush=True)
+    return k9
 
 
 def main():
@@ -312,17 +735,11 @@ def main():
     load_npz(model32.net, NPZ)
     out32 = model32.make_predict_fn()(batches[0])
     torch.cuda.synchronize()
-    v32 = out32["valid"][0]
-    v16 = preds[0]["valid"][0]
-    c32 = out32["bbox"][0][v32][:, :3]
-    c16 = preds[0]["bbox"][0][v16][:, :3]
-    matched = 0
-    if len(c32) and len(c16):
-        dist = torch.cdist(c32[:, :2], c16[:, :2])
-        matched = int((dist.min(dim=1).values < 0.5).sum())
-    print(f"float32 vs bf16 on cloud 0: {matched} of {int(v32.sum())} "
-          f"float32 detections have a bf16 detection within 0.5 m "
-          f"(bf16 has {int(v16.sum())})", flush=True)
+    matched = centre_matches(out32, preds[0])
+    print(f"float32 vs bf16 on cloud 0: {matched} of "
+          f"{int(out32['valid'][0].sum())} float32 detections have a bf16 "
+          f"detection within 0.5 m (bf16 has "
+          f"{int(preds[0]['valid'][0].sum())})", flush=True)
     del model32, out32
 
     # ---- assignment kernels at flagship shapes, cloud 0 ---------------
@@ -525,6 +942,29 @@ def main():
         f"{k_} {v:.2f}" for k_, v in split.items())
         + f"; total {sum(split.values()):.2f} of {walls[0] * 1e3:.1f} ms "
         f"wall (device busy {busy:.3f})", flush=True)
+
+    del step, tx, before, after
+    torch.cuda.empty_cache()
+
+    # ---- encoder kernels and K5 at flagship shapes ----------------------
+    load_npz(model.net, NPZ)                # the npz weights, untrained
+    kernels.update(encoder_kernels(model, batches[0]))
+    kernels["intersection_volume_aligned"] = aligned_clipper(model,
+                                                             batches[0])
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- predict and train under the lowering knobs ---------------------
+    launches = knob_predicts(batches, preds)
+    kernels["fused_stage"]["launches"] = launches["fused_stage"]
+    kernels["subm_conv3d"]["launches"] = launches["subm_conv3d"]
+    kernels["conv2d_3x3"]["launches_predict"] = launches["conv2d_3x3"]
+    k9 = zfold_train(batches, counted)
+    kernels["conv2d_3x3"]["launches"] = k9["forward"] + k9["dx"]
+    kernels["conv2d_3x3"]["launches_forward"] = k9["forward"]
+    kernels["conv2d_3x3"]["launches_dx"] = k9["dx"]
+    if len(kernels) != 10:
+        raise AssertionError(f"{len(kernels)} kernels in the line, not 10")
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())

@@ -12,6 +12,7 @@ entry points take an explicit ``device=`` argument instead.
 """
 
 import copy
+import re
 
 DEFAULT_TPU_CFG = {
     # padded per-cloud point budget fed to the voxelizer
@@ -144,3 +145,22 @@ def tiny_model_cfg():
                  max_detections=32, compute_dtype="float32"),
         seed=0,
     )
+
+
+def parse_tpu_overrides(items):
+    """``["key=value", ...]`` -> a ``tpu`` override dict for
+    :func:`flagship_cfg`; ``true``/``false`` become booleans and integers
+    ints (``decompose_convs=2``), anything else stays a string."""
+    out = {}
+    for item in items:
+        key, sep, val = item.partition("=")
+        if not sep or not key:
+            raise ValueError(f"expected key=value, got {item!r}")
+        low = val.lower()
+        if low in ("true", "false"):
+            out[key] = low == "true"
+        elif re.fullmatch(r"-?\d+", val):
+            out[key] = int(val)
+        else:
+            out[key] = val
+    return out

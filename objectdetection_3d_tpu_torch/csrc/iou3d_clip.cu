@@ -1,12 +1,14 @@
-// Exact rotated-3D IoU of gathered box pairs (kernels K6 and K7) for
+// Exact rotated-3D intersection of box pairs (kernels K5, K6 and K7) for
 // Hopper, sm_90a.
 //
 // Replaces: objectdetection_3d_tpu/ops/pallas_iou3d.py
+//   * intersection_volume_aligned_pallas (`_kernel`: intersection volumes
+//     of aligned pairs (boxes1[p], boxes2[p]), no gather),
 //   * iou_gathered_pallas      (`_gathered_kernel`: IoU of (table[ids[p]],
 //     boxes2[p]) with the table row gathered in the kernel), and
 //   * iou_gathered_pair_pallas (`_gathered_pair_kernel`: the same for two
 //     id streams against one box stream, in one pass).
-// Both run `_clip_volumes_blocks`: every one of the 12 faces of a pair (6 of
+// All run `_clip_volumes_blocks`: every one of the 12 faces of a pair (6 of
 // box 1 clipped by box 2's half-spaces, 6 of box 2 clipped by box 1's) is
 // clipped by Sutherland-Hodgman, and the intersection volume follows from
 // the divergence theorem over the clipped polygons.
@@ -28,8 +30,8 @@
 // kernel agrees with its plain PyTorch version (ops/iou3d.py) up to the
 // last bits of sinf/cosf.
 //
-// The clipper is the one __device__ function `pair_volume`, so a kernel of
-// intersection volumes without a gather is a short extra entry.
+// The clipper is the one __device__ function `pair_volume`; K5 is its
+// entry without a gather or an IoU.
 
 #include <cuda_runtime.h>
 
@@ -285,6 +287,20 @@ iou_gathered_kernel(const float* __restrict__ table, int g,
   }
 }
 
+// boxes1, boxes2: (p, 9); out: (p,) raw intersection volumes
+__global__ void __launch_bounds__(kThreads)
+aligned_volume_kernel(const float* __restrict__ boxes1,
+                      const float* __restrict__ boxes2,
+                      float* __restrict__ out, long long p) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (t >= p) return;
+  Frame b1, b2;
+  load_frame(boxes1 + t * 9, b1);
+  load_frame(boxes2 + t * 9, b2);
+  out[t] = pair_volume(b1, b2);
+}
+
 int launch(int streams, const void* table, int g, const void* ids_a,
            const void* ids_b, const void* boxes2, void* out, long long p,
            void* stream) {
@@ -326,4 +342,20 @@ extern "C" int iou_gathered_pair(const void* table, int g, const void* ids_a,
                                  const void* ids_b, const void* boxes2,
                                  void* out, long long p, void* stream) {
   return launch(2, table, g, ids_a, ids_b, boxes2, out, p, stream);
+}
+
+// K5.  boxes1, boxes2: (p, 9) float32; out: (p,) float32 intersection
+// volumes (not clamped at 0); stream: cudaStream_t.  Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int intersection_volume_aligned(const void* boxes1,
+                                           const void* boxes2, void* out,
+                                           long long p, void* stream) {
+  if (p <= 0) return 0;
+  const long long blocks = (p + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  aligned_volume_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(boxes1), static_cast<const float*>(boxes2),
+      static_cast<float*>(out), p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -195,6 +195,13 @@ class PointPillars:
                 box_params_num=self.box_params_num,
                 dtype=self.compute_dtype,
                 sparse_middle=bool(self.tpu_cfg.get("sparse_middle", False)),
+                # the vertical encoder's lowering knobs; bool = all
+                # stages, int n = the first n stages only
+                decompose_convs=self.tpu_cfg.get("decompose_convs", False),
+                pallas_subm=bool(self.tpu_cfg.get("pallas_subm_conv", False)),
+                zfold_convs=bool(self.tpu_cfg.get("zfold_convs", False)),
+                zfold_pallas=bool(self.tpu_cfg.get("zfold_pallas", False)),
+                fused_stages=bool(self.tpu_cfg.get("fused_stages", False)),
             )
         self.net = net.to(self.device).eval()
 

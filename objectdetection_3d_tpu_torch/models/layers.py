@@ -15,10 +15,17 @@ as in the JAX package:
 Layout: the JAX package is channels-last (NDHWC / NHWC); the port keeps
 PyTorch's NCDHW / NCHW logical layout inside the network and returns the
 head outputs in the JAX package's NHWC layout.  Parameters stay float32;
-each op casts them to the module's compute ``dtype`` as flax does.  The
-z-fold, decomposed and Pallas conv lowerings of the JAX package compute
-the same convs and are not ported: the convs here are
-``torch.nn.functional.conv3d`` / ``conv2d``.
+each op casts them to the module's compute ``dtype`` as flax does.
+
+The vertical encoder reads the JAX package's lowering knobs and sends the
+same stages through the same kernels: ``pallas_subm_conv`` (K10,
+``ops/pallas_conv.py``), ``zfold_convs`` with ``zfold_pallas`` (the z-fold
+and K9, ``ops/zfold_conv.py``) and ``fused_stages`` (K8,
+``ops/fused_stage.py``).  The lowerings that are XLA convs in the JAX
+package and compute the same conv are ``torch.nn.functional.conv3d``
+here: ``decompose_convs`` (z-shifted 2D convs), the z-fold without
+``zfold_pallas``, and the folded down conv under every knob.  All
+lowerings share one parameter tree.
 """
 
 import math
@@ -26,6 +33,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from objectdetection_3d_tpu_torch.ops.fused_stage import fused_stage
+from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
+from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
 
 
 def _bcast(vec, ndim, dtype):
@@ -74,6 +85,14 @@ class MaskedBatchNorm(nn.Module):
                * m).sum(dim=dims) / count
         self._update_running(mean.detach(), var.detach(), count)
         return mean, var
+
+    def eval_affine(self):
+        """The eval-mode batch norm as ``y = a * x + b`` at active sites:
+        ``a = weight * rsqrt(running_var + eps)``,
+        ``b = bias - running_mean * a``, float32 (K8's epilogue)."""
+        a = self.weight.float() * torch.rsqrt(self.running_var.float()
+                                              + self.eps)
+        return a, self.bias.float() - self.running_mean.float() * a
 
     def forward(self, x, mask):
         """x: (B, C, ...); mask: (B, 1, ...) activity, broadcastable."""
@@ -231,6 +250,53 @@ def _lecun_normal(shape, fan_in):
     return torch.randn(shape) * (1.0 / math.sqrt(fan_in))
 
 
+def zfold_operands(x, kernel, zb):
+    """The operands of the z-folded subm conv.
+
+    The D axis of the (B, D, H, W, C) grid ``x`` is cut into blocks of
+    ``zb`` slices; each block and one halo slice on each side fold into
+    the channels.  A banded weight built from the (3, 3, 3, C, Co)
+    ``kernel`` computes the z taps inside a 3x3 2D conv: output sub-block
+    a reads folded slices a..a+2 with the weights of taps dz = 0..2.
+
+    Returns:
+        ((B*dblk, H, W, (zb+2)*C) folded input,
+         (3, 3, (zb+2)*C, zb*Co) banded weight), dblk = ceil(D / zb).
+    """
+    b, d, h, w, c = x.shape
+    co = kernel.shape[-1]
+    dblk = -(-d // zb)
+    xp = F.pad(x, (0, 0, 0, 0, 0, 0, 1, dblk * zb - d + 1))
+    xo = torch.stack([xp[:, k * zb:k * zb + zb + 2] for k in range(dblk)],
+                     dim=1)
+    xo = xo.permute(0, 1, 3, 4, 2, 5).reshape(b * dblk, h, w, (zb + 2) * c)
+    kf = kernel.new_zeros((3, 3, (zb + 2) * c, zb * co))
+    for a in range(zb):
+        for dz in range(3):
+            j = a + dz
+            kf[:, :, j * c:(j + 1) * c, a * co:(a + 1) * co] = kernel[dz]
+    return xo, kf
+
+
+def zfold_unfold(y, b, d, zb):
+    """(B*dblk, H, W, zb*Co) folded conv output -> (B, D, H, W, Co)."""
+    n, h, w, cf = y.shape
+    co = cf // zb
+    y = y.reshape(b, n // b, h, w, zb, co).permute(0, 1, 4, 2, 3, 5)
+    return y.reshape(b, n // b * zb, h, w, co)[:, :d]
+
+
+def _ndhwc(x):
+    """(B, C, D, H, W) -> (B, D, H, W, C); no copy for channels_last_3d
+    memory, which the grid build and the kernels produce."""
+    return x.permute(0, 2, 3, 4, 1)
+
+
+def _ncdhw(x):
+    """(B, D, H, W, C) -> (B, C, D, H, W) view (channels_last_3d)."""
+    return x.permute(0, 4, 1, 2, 3)
+
+
 class SparseMiddleExtractor(nn.Module):
     """Vertical encoder: per stage a 3x3x3 submanifold conv (active set
     unchanged) then a (3,1,1)-kernel (2,1,1)-stride sparse conv (active
@@ -240,12 +306,37 @@ class SparseMiddleExtractor(nn.Module):
 
     Parameters keep the JAX package's names: ``subm_{i}_kernel`` as
     (Cout, Cin, 3, 3, 3) and ``down_{i}_kernel`` as (Cout, Cout, 3, 1, 1).
+
+    The knobs are the JAX package's ``SparseMiddleExtractor`` fields, with
+    its gates (``models/layers.py``), so the same stages take the same
+    kernels:
+
+    * ``pallas_subm``: in eval mode, a stage with C <= 24, H % 8 == 0 and
+      W >= 8 runs its subm conv through K10 (checked first);
+    * ``zfold_convs`` and ``zfold_pallas``: a stage whose z block zb (the
+      largest with (zb+2)*C <= 128) is at least 2 and whose folded widths
+      (zb+2)*C and zb*Co are at most 128 runs its subm conv as the z-fold
+      through K9, in train and eval mode.  ``zfold_convs`` alone is the
+      same conv as ``F.conv3d`` (the JAX package's XLA fold), and so is
+      the folded down conv;
+    * ``fused_stages``: in eval mode, a stage whose fused z block
+      (:meth:`_fused_zb`) is nonzero runs whole through K8;
+    * ``decompose_convs`` (bool, or the number of leading stages) keeps a
+      stage off the z-fold and K8, as in the JAX package; its z-shifted 2D
+      convs compute ``F.conv3d``'s conv.
     """
 
-    def __init__(self, in_channels, out_channels, dtype=torch.float32):
+    def __init__(self, in_channels, out_channels, dtype=torch.float32,
+                 decompose_convs=False, pallas_subm=False, zfold_convs=False,
+                 zfold_pallas=False, fused_stages=False):
         super().__init__()
         self.out_channels = tuple(int(c) for c in out_channels)
         self.dtype = dtype
+        self.decompose_convs = decompose_convs
+        self.pallas_subm = bool(pallas_subm)
+        self.zfold_convs = bool(zfold_convs)
+        self.zfold_pallas = bool(zfold_pallas)
+        self.fused_stages = bool(fused_stages)
         c = int(in_channels)
         for i, ch in enumerate(self.out_channels):
             self.register_parameter(f"subm_{i}_kernel", nn.Parameter(
@@ -262,6 +353,79 @@ class SparseMiddleExtractor(nn.Module):
             d = (d - 3) // 2 + 1
         return d
 
+    def _decompose_stage(self, stage):
+        if isinstance(self.decompose_convs, bool):
+            return self.decompose_convs
+        return stage < int(self.decompose_convs)
+
+    @staticmethod
+    def _zfold_block(c_in, d):
+        """The z block of the subm z-fold: the largest zb with
+        (zb+2)*c_in <= 128, at most d."""
+        return min(max(1, 128 // c_in - 2), d)
+
+    @staticmethod
+    def _fused_zb(c, ch, d):
+        """The JAX fused stage's z block: even zb with (zb+2)*c <= 128 and
+        zb*ch <= 128; 0 = the stage does not take K8."""
+        zb = min(128 // c - 2, 128 // ch)
+        zb -= zb % 2
+        if zb < 2 or d < 3:
+            return 0
+        return zb
+
+    def _subm_conv3d_zfold(self, x, kernel, zb):
+        """3x3x3 SAME conv of NCDHW ``x`` as the z-folded 3x3 2D conv
+        (K9); ``kernel`` in the port's (Co, C, 3, 3, 3) layout."""
+        b, _, d = x.shape[:3]
+        xo, kf = zfold_operands(_ndhwc(x), kernel.permute(2, 3, 4, 1, 0), zb)
+        return _ncdhw(zfold_unfold(conv2d_3x3(xo, kf), b, d, zb))
+
+    def _subm_conv3d(self, x, i):
+        """Stage ``i``'s 3x3x3 SAME subm conv of NCDHW ``x``."""
+        kernel = getattr(self, f"subm_{i}_kernel")
+        _, c, d, h, w = x.shape
+        co = kernel.shape[0]
+        if (self.pallas_subm and not self.training and c <= 24
+                and h % 8 == 0 and w >= 8):
+            return _ncdhw(subm_conv3d(_ndhwc(x),
+                                      kernel.permute(2, 3, 4, 1, 0)))
+        zb = self._zfold_block(c, d)
+        if (self.zfold_convs and self.zfold_pallas
+                and not self._decompose_stage(i) and zb >= 2
+                and (zb + 2) * c <= 128 and zb * co <= 128):
+            return self._subm_conv3d_zfold(x, kernel, zb)
+        return F.conv3d(x, kernel.to(self.dtype), padding=1)
+
+    def fused_stage_args(self, i):
+        """K8's weights for stage ``i`` in the JAX layouts: the
+        (3, 3, 3, C, Co) subm and (3, Co, Co) down kernels, and the eval
+        affines a_s, b_s, a_d, b_d of the two batch norms."""
+        a_s, b_s = getattr(self, f"subm_bn_{i}").eval_affine()
+        a_d, b_d = getattr(self, f"down_bn_{i}").eval_affine()
+        kd = getattr(self, f"down_{i}_kernel")[:, :, :, 0, 0]
+        return (getattr(self, f"subm_{i}_kernel").permute(2, 3, 4, 1, 0),
+                kd.permute(2, 1, 0), a_s, b_s, a_d, b_d)
+
+    def stage(self, i, x, mask):
+        """Stage ``i`` on NCDHW ``x`` of the compute type and its
+        (B, 1, D, H, W) mask -> (x, mask) of the next stage."""
+        ch = self.out_channels[i]
+        if (self.fused_stages and not self.training
+                and not self._decompose_stage(i)
+                and self._fused_zb(x.shape[1], ch, x.shape[2])):
+            y = fused_stage(_ndhwc(x), mask[:, 0], *self.fused_stage_args(i))
+            return _ncdhw(y), F.max_pool3d(mask, (3, 1, 1), (2, 1, 1))
+        x = self._subm_conv3d(x, i)
+        x = x * mask
+        x = F.relu(getattr(self, f"subm_bn_{i}")(x, mask))
+
+        wd = getattr(self, f"down_{i}_kernel").to(self.dtype)
+        x = F.conv3d(x, wd, stride=(2, 1, 1))
+        mask = F.max_pool3d(mask, (3, 1, 1), (2, 1, 1))
+        x = F.relu(getattr(self, f"down_bn_{i}")(x, mask))
+        return x, mask
+
     def forward(self, grid, mask):
         """
         Args:
@@ -270,20 +434,10 @@ class SparseMiddleExtractor(nn.Module):
         Returns:
             (B, C_out * D_final, H, W) pseudo-image.
         """
-        dt = self.dtype
-        x = grid.to(dt)
-        mask = mask.to(dt)
+        x = grid.to(self.dtype)
+        mask = mask.to(self.dtype)
         for i in range(len(self.out_channels)):
-            w = getattr(self, f"subm_{i}_kernel").to(dt)
-            x = F.conv3d(x, w, padding=1)
-            x = x * mask
-            x = F.relu(getattr(self, f"subm_bn_{i}")(x, mask))
-
-            wd = getattr(self, f"down_{i}_kernel").to(dt)
-            x = F.conv3d(x, wd, stride=(2, 1, 1))
-            mask = F.max_pool3d(mask, (3, 1, 1), (2, 1, 1))
-            x = F.relu(getattr(self, f"down_bn_{i}")(x, mask))
-
+            x, mask = self.stage(i, x, mask)
         b, c, d, h, w = x.shape
         return x.reshape(b, c * d, h, w)
 

@@ -22,14 +22,17 @@ from objectdetection_3d_tpu_torch.ops.grid_scatter import scatter_to_grid
 
 class PointPillarsNet(nn.Module):
     """End-to-end PointPillars network over point-granularity voxel
-    batches."""
+    batches.  ``decompose_convs`` .. ``fused_stages`` are the vertical
+    encoder's lowering knobs (``SparseMiddleExtractor``)."""
 
     def __init__(self, grid, in_channels, pfn_channels, voxel_size,
                  point_cloud_range, max_slots, middle_channels,
                  middle_in_channels, rpn_channels, rpn_layer_nums,
                  num_classes, num_anchors, box_params_num=9,
                  dtype=torch.float32, use_dense_backbone=False,
-                 sparse_middle=False):
+                 sparse_middle=False, decompose_convs=False,
+                 pallas_subm=False, zfold_convs=False, zfold_pallas=False,
+                 fused_stages=False):
         super().__init__()
         if use_dense_backbone:
             raise NotImplementedError(
@@ -48,7 +51,10 @@ class PointPillarsNet(nn.Module):
             raise ValueError("vertical_encoder.in_channels must equal the "
                              "PFN's output width")
         self.pseudoimage_generator = SparseMiddleExtractor(
-            middle_in_channels, middle_channels, dtype=dtype)
+            middle_in_channels, middle_channels, dtype=dtype,
+            decompose_convs=decompose_convs, pallas_subm=pallas_subm,
+            zfold_convs=zfold_convs, zfold_pallas=zfold_pallas,
+            fused_stages=fused_stages)
         d_out = SparseMiddleExtractor.out_depth(self.grid[0],
                                                 len(middle_channels))
         self.sparse_rpn = SubmanifoldSparseRPN(

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/torch_kernels/`` at the repository root (listed in .gitignore) and
 loaded with ``ctypes``.  The library's file name carries a hash of its
-source, so an edited kernel is rebuilt and a stale build is never loaded.
-Nothing is compiled when a module is imported.
+source, of the shared headers (``csrc/*.cuh``) and of its flags, so an
+edited kernel is rebuilt and a stale build is never loaded.  Nothing is
+compiled when a module is imported.
 """
 
 import ctypes
@@ -16,14 +17,17 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES = ("voxel_scan", "grid_scatter", "assign_geometry",
-                  "iou3d_clip")
+                  "iou3d_clip", "subm_conv3d", "zfold_conv", "fused_stage")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # no fused multiply-add contraction: these kernels round operation for
-# operation like their plain PyTorch versions
+# operation like their plain PyTorch versions (the conv kernels are held
+# to a tolerance instead and keep the contraction)
 SOURCE_FLAGS = {"assign_geometry": ("-fmad=false",),
                 "iou3d_clip": ("-fmad=false",)}
 
@@ -52,6 +56,8 @@ def _flags(name):
 def library_path(name):
     """Path of the shared library built from ``csrc/<name>.cu``."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -103,3 +109,18 @@ def load(name):
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
+
+
+def launch(name, fn_name, argtypes, args, device):
+    """Call ``fn_name`` of kernel library ``name`` with ``args`` and the
+    current CUDA stream of ``device`` as its last argument; raises if it
+    returns a CUDA error."""
+    fn = getattr(load(name), fn_name)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error "
+                           f"{err}")

@@ -1,15 +1,18 @@
-"""Exact rotated-3D IoU of (table row, box) pairs: kernels K6 and K7.
+"""Exact rotated-3D intersections of box pairs: kernels K5, K6 and K7.
 
-Port of the JAX package's ``ops/pallas_iou3d.py``: ``iou_gathered`` (K6,
+Port of the JAX package's ``ops/pallas_iou3d.py``:
+``intersection_volume_aligned`` (K5, the backend-dispatched
+``intersection_volume_aligned_pallas``), ``iou_gathered`` (K6,
 ``iou_gathered_pallas``) and ``iou_gathered_pair`` (K7,
-``iou_gathered_pair_pallas``).  Target assignment runs both: K6 on the
-(G, K) candidate pairs of stage 2, K7 on every anchor against its top-2
-GTs (the exact anchor tier).
+``iou_gathered_pair_pallas``).  Target assignment runs K6 on the (G, K)
+candidate pairs of stage 2 and K7 on every anchor against its top-2 GTs
+(the exact anchor tier); K5 is the aligned clipper that the JAX
+package's ``tools/profile_assign.py`` times over the tier's pairs.
 
 On a CUDA tensor a wrapper launches the hand-written kernel in
-``csrc/iou3d_clip.cu``; on a CPU tensor it runs the plain version below,
-the row gather followed by the plain clipper of ``ops/iou3d.py``.  A CUDA
-tensor never takes the plain version.
+``csrc/iou3d_clip.cu``; on a CPU tensor it runs the plain version, the
+plain clipper of ``ops/iou3d.py`` (after the row gather, for K6/K7).  A
+CUDA tensor never takes the plain version.
 """
 
 import ctypes
@@ -19,26 +22,29 @@ import torch
 from objectdetection_3d_tpu_torch.ops import cuda_lib
 from objectdetection_3d_tpu_torch.ops.iou3d import (
     _UNION_EPS,
-    intersection_volume_aligned,
     iou_from_volumes,
+)
+from objectdetection_3d_tpu_torch.ops.iou3d import (
+    intersection_volume_aligned as intersection_volume_aligned_plain,
 )
 
 #: table rows the kernels hold in shared memory (10 floats each)
 MAX_TABLE_ROWS = 1024
 
 _ARGS_ONE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+_ARGS_ALIGNED = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_longlong]
 _ARGS_PAIR = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_longlong, ctypes.c_void_p]
+              ctypes.c_longlong]
 
 
 def iou_gathered_plain(table, valid, ids, boxes2):
     """Plain PyTorch version of :func:`iou_gathered`."""
     b1 = table.float()[ids.long()]
     b2 = boxes2.float()
-    inter = intersection_volume_aligned(b1, b2)
+    inter = intersection_volume_aligned_plain(b1, b2)
     vol1 = b1[:, 3] * b1[:, 4] * b1[:, 5]
     vol2 = b2[:, 3] * b2[:, 4] * b2[:, 5]
     iou = iou_from_volumes(inter, vol1, vol2, _UNION_EPS)
@@ -81,17 +87,6 @@ def _table10(table, valid):
                      dim=1).contiguous()
 
 
-def _launch(name, argtypes, args, device):
-    fn = getattr(cuda_lib.load("iou3d_clip"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def iou_gathered(table, valid, ids, boxes2):
     """Masked IoU of the pairs ``(table[ids[p]], boxes2[p])``.
 
@@ -111,9 +106,9 @@ def iou_gathered(table, valid, ids, boxes2):
     ids = ids.contiguous()
     b2 = boxes2.float().contiguous()
     out = torch.empty((p,), dtype=torch.float32, device=dev)
-    _launch("iou_gathered", _ARGS_ONE,
-            (tab.data_ptr(), tab.shape[0], ids.data_ptr(), b2.data_ptr(),
-             out.data_ptr(), p), dev)
+    cuda_lib.launch("iou3d_clip", "iou_gathered", _ARGS_ONE,
+                    (tab.data_ptr(), tab.shape[0], ids.data_ptr(),
+                     b2.data_ptr(), out.data_ptr(), p), dev)
     iou_gathered.launches += 1
     return out
 
@@ -133,12 +128,44 @@ def iou_gathered_pair(table, valid, ids_a, ids_b, boxes2):
     ids_a, ids_b = ids_a.contiguous(), ids_b.contiguous()
     b2 = boxes2.float().contiguous()
     out = torch.empty((2, p), dtype=torch.float32, device=dev)
-    _launch("iou_gathered_pair", _ARGS_PAIR,
-            (tab.data_ptr(), tab.shape[0], ids_a.data_ptr(),
-             ids_b.data_ptr(), b2.data_ptr(), out.data_ptr(), p), dev)
+    cuda_lib.launch("iou3d_clip", "iou_gathered_pair", _ARGS_PAIR,
+                    (tab.data_ptr(), tab.shape[0], ids_a.data_ptr(),
+                     ids_b.data_ptr(), b2.data_ptr(), out.data_ptr(), p),
+                    dev)
     iou_gathered_pair.launches += 1
     return out[0], out[1]
 
 
+def intersection_volume_aligned(boxes1, boxes2):
+    """Intersection volumes of the aligned pairs ``(boxes1[p], boxes2[p])``.
+
+    Args:
+        boxes1, boxes2: (P, 9) boxes.
+    Returns:
+        (P,) float32 volumes, not clamped at 0 (the clipper's rounding
+        can leave a touching pair slightly negative).
+    """
+    if boxes1.dim() != 2 or boxes1.shape[1] != 9 or \
+            boxes2.shape != boxes1.shape:
+        raise ValueError(f"boxes must be two (P, 9) arrays, got "
+                         f"{tuple(boxes1.shape)} / {tuple(boxes2.shape)}")
+    dev = boxes1.device
+    if boxes2.device != dev or dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"boxes must lie on one CPU or CUDA device, got "
+                         f"{dev} and {boxes2.device}")
+    if dev.type == "cpu":
+        return intersection_volume_aligned_plain(boxes1, boxes2)
+    p = boxes1.shape[0]
+    b1 = boxes1.float().contiguous()
+    b2 = boxes2.float().contiguous()
+    out = torch.empty((p,), dtype=torch.float32, device=dev)
+    cuda_lib.launch("iou3d_clip", "intersection_volume_aligned",
+                    _ARGS_ALIGNED,
+                    (b1.data_ptr(), b2.data_ptr(), out.data_ptr(), p), dev)
+    intersection_volume_aligned.launches += 1
+    return out
+
+
+intersection_volume_aligned.launches = 0
 iou_gathered.launches = 0
 iou_gathered_pair.launches = 0

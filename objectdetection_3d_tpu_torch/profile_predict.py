@@ -2,9 +2,11 @@
 
 Run from the repository root:
 
-    python3 -m objectdetection_3d_tpu_torch.profile_predict [--reps N]
+    python3 -m objectdetection_3d_tpu_torch.profile_predict [--reps N] \
+        [--tpu KEY=VALUE ...]
 
-Builds the flagship PointPillars (bf16) with the trained
+Builds the flagship PointPillars (bf16; ``--tpu`` overrides keys of its
+``tpu`` section, e.g. ``--tpu fused_stages=true``) with the trained
 ``artifacts/overfit_ckpt.npz``, runs predict on the 40x40 m trunk-column
 clouds of ``scene.py`` and prints:
 
@@ -70,6 +72,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=4,
                     help="clouds (seeds 0..reps-1) to time")
+    ap.add_argument("--tpu", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="override a key of the flagship's tpu section "
+                         "(repeatable), e.g. fused_stages=true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_predict: no CUDA device", file=sys.stderr)
@@ -83,8 +89,9 @@ def main(argv=None):
         tree_scene,
     )
 
-    print(f"card: {card_line()}")
-    model = PointPillars(configs.flagship_cfg(), device="cuda")
+    tpu = configs.parse_tpu_overrides(args.tpu)
+    print(f"card: {card_line()}; tpu overrides {tpu}")
+    model = PointPillars(configs.flagship_cfg(tpu), device="cuda")
     load_npz(model.net, os.path.join(REPO, "artifacts", "overfit_ckpt.npz"))
     p_max = model.tpu_cfg["max_points_static"]
     batches = [make_batch(tree_scene(s), p_max) for s in range(args.reps)]

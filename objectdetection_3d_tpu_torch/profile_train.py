@@ -2,9 +2,11 @@
 
 Run from the repository root:
 
-    python3 -m objectdetection_3d_tpu_torch.profile_train [--steps N]
+    python3 -m objectdetection_3d_tpu_torch.profile_train [--steps N] \
+        [--tpu KEY=VALUE ...]
 
-Builds the flagship PointPillars (bf16, B = 1) from the trained
+Builds the flagship PointPillars (bf16, B = 1; ``--tpu`` overrides keys
+of its ``tpu`` section, e.g. ``--tpu zfold_pallas=true``) from the trained
 ``artifacts/overfit_ckpt.npz`` with the AdamW settings of
 ``chip_smoke.py``, takes one warm-up step on the trunk-column cloud of
 seed 0, then traces ``make_train_step``'s step on seeds 1..N with
@@ -100,6 +102,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3,
                     help="timed steps (clouds of seeds 1..steps)")
+    ap.add_argument("--tpu", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="override a key of the flagship's tpu section "
+                         "(repeatable), e.g. zfold_pallas=true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -113,8 +119,9 @@ def main(argv=None):
         tree_scene,
     )
 
-    print(f"card: {card_line()}")
-    model = PointPillars(configs.flagship_cfg(), device="cuda")
+    tpu = configs.parse_tpu_overrides(args.tpu)
+    print(f"card: {card_line()}; tpu overrides {tpu}")
+    model = PointPillars(configs.flagship_cfg(tpu), device="cuda")
     load_npz(model.net, os.path.join(REPO, "artifacts", "overfit_ckpt.npz"))
     tx = model.get_optimizer(dict(lr=1e-3, betas=(0.95, 0.99),
                                   weight_decay=0.01), grad_clip_value=2.0)

@@ -1,7 +1,12 @@
 """The port's CUDA kernels against their plain versions, on a card.
 
-K1, K2, K3 and K4 are held bit-exact; K6 and K7 (the clipper, whose
-sinf/cosf may differ from PyTorch's in the last bit) within 1e-5 of IoU.
+K1, K2, K3 and K4 are held bit-exact; K5, K6 and K7 (the clipper, whose
+sinf/cosf may differ from PyTorch's in the last bit) within 1e-5 of IoU
+or of the volume scale.  The conv kernels K8, K9 (forward, and the
+backward's dx and dw) and K10 sum in float32 in another order than their
+plain versions: in float32 within 1e-4 of the largest element (with TF32
+off), in bf16 within 1e-2 (a few bf16 roundings of the output, or of
+K8's intermediate, land on the other side).
 
 Marked ``cuda``: without a CUDA device (or without nvcc) every test skips
 with its reason.  On the card:
@@ -27,7 +32,13 @@ from objectdetection_3d_tpu_torch.ops.assign_geometry import (
     containment_rescue,
     containment_rescue_plain,
 )
+from objectdetection_3d_tpu_torch.ops.fused_stage import (
+    fused_stage,
+    fused_stage_plain,
+)
 from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
+    intersection_volume_aligned,
+    intersection_volume_aligned_plain,
     iou_gathered,
     iou_gathered_pair,
     iou_gathered_pair_plain,
@@ -37,9 +48,17 @@ from objectdetection_3d_tpu_torch.ops.grid_scatter import (
     scatter_to_grid,
     scatter_to_grid_plain,
 )
+from objectdetection_3d_tpu_torch.ops.pallas_conv import (
+    subm_conv3d,
+    subm_conv3d_plain,
+)
 from objectdetection_3d_tpu_torch.ops.voxel_scan import (
     postsort_scan,
     postsort_scan_plain,
+)
+from objectdetection_3d_tpu_torch.ops.zfold_conv import (
+    conv2d_3x3,
+    conv2d_3x3_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -207,3 +226,136 @@ def test_assign_geometry_kernels_bit_exact(cuda, nc, gch):
     assert containment_rescue.launches == before + 1
     assert torch.equal(hit, want_hit)
     assert int(hit.sum()) > 0
+
+
+@pytest.mark.parametrize("p", [1, 1000, 70000])
+def test_aligned_volume_kernel_matches_plain(cuda, p):
+    b1, b2 = _random_pairs(np.random.default_rng(p + 1), p)
+    b1 = torch.from_numpy(b1).to(cuda)
+    b2 = torch.from_numpy(b2).to(cuda)
+    before = intersection_volume_aligned.launches
+    got = intersection_volume_aligned(b1, b2)
+    torch.cuda.synchronize()
+    assert intersection_volume_aligned.launches == before + 1
+    want = intersection_volume_aligned_plain(b1, b2)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.fixture
+def exact_fp32():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _assert_rel(got, want, dtype):
+    """got within CONV_TOL[dtype] of want's largest element, where dtype
+    is the type the kernel computed in."""
+    assert got.dtype == want.dtype
+    err = (got.double() - want.double()).abs().max()
+    assert err <= CONV_TOL[dtype] * want.double().abs().max(), float(err)
+
+
+def _normal(rng, shape, scale, device, dtype=torch.float32):
+    return torch.from_numpy(rng.normal(0, scale, shape).astype(
+        np.float32)).to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 7, 16, 24, 20, 20),
+                                   (2, 5, 13, 9, 3, 32),
+                                   (1, 4, 8, 40, 24, 64)])
+def test_subm_conv3d_kernel_matches_plain(cuda, exact_fp32, dtype, shape):
+    b, d, h, w, c, co = shape
+    rng = np.random.default_rng(sum(shape))
+    x = _normal(rng, (b, d, h, w, c), 1.0, cuda, dtype)
+    k = _normal(rng, (3, 3, 3, c, co), 0.1, cuda)
+    before = subm_conv3d.launches
+    got = subm_conv3d(x, k)
+    torch.cuda.synchronize()
+    assert subm_conv3d.launches == before + 1
+    assert got.dtype == dtype
+    _assert_rel(got, subm_conv3d_plain(x, k), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 16, 24, 120, 80),
+                                   (2, 9, 13, 128, 128),
+                                   (1, 8, 33, 7, 20), (2, 5, 5, 40, 64)])
+def test_conv2d_3x3_kernel_and_backward_match_plain(cuda, exact_fp32, dtype,
+                                                    shape):
+    n, h, w, c, co = shape
+    rng = np.random.default_rng(sum(shape))
+    x = _normal(rng, (n, h, w, c), 1.0, cuda, dtype)
+    k = _normal(rng, (3, 3, c, co), 0.05, cuda)
+    g = _normal(rng, (n, h, w, co), 1.0, cuda, dtype)
+    before = (conv2d_3x3.launches, conv2d_3x3.dx_launches)
+    xa, ka = x.clone().requires_grad_(), k.clone().requires_grad_()
+    got = conv2d_3x3(xa, ka)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert (conv2d_3x3.launches, conv2d_3x3.dx_launches) == (
+        before[0] + 1, before[1] + 1)
+    xb, kb = x.clone().requires_grad_(), k.clone().requires_grad_()
+    want = conv2d_3x3_plain(xb, kb)
+    want.backward(g)
+    _assert_rel(got.detach(), want.detach(), dtype)
+    _assert_rel(xa.grad, xb.grad, dtype)
+    assert got.dtype == dtype and ka.grad.dtype == torch.float32
+    _assert_rel(ka.grad, kb.grad, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 9, 16, 24, 20, 20),
+                                   (2, 7, 13, 9, 20, 32),
+                                   (1, 6, 8, 40, 32, 64), (1, 3, 5, 5, 3, 7)])
+def test_fused_stage_kernel_matches_plain(cuda, exact_fp32, dtype, shape):
+    b, d, h, w, c, co = shape
+    rng = np.random.default_rng(sum(shape))
+    mask = torch.from_numpy(rng.uniform(size=(b, d, h, w)) < 0.4).to(
+        cuda, dtype)
+    x = _normal(rng, (b, d, h, w, c), 1.0, cuda, dtype) * mask[..., None]
+    ks = _normal(rng, (3, 3, 3, c, co), 0.1, cuda)
+    kd = _normal(rng, (3, co, co), 0.2, cuda)
+    vecs = [torch.from_numpy(v.astype(np.float32)).to(cuda) for v in (
+        rng.uniform(0.5, 1.5, co), rng.normal(0, 0.2, co),
+        rng.uniform(0.5, 1.5, co), rng.normal(0, 0.2, co))]
+    before = fused_stage.launches
+    got = fused_stage(x, mask, ks, kd, *vecs)
+    torch.cuda.synchronize()
+    assert fused_stage.launches == before + 1
+    assert tuple(got.shape) == (b, (d - 3) // 2 + 1, h, w, co)
+    assert got.dtype == dtype
+    _assert_rel(got, fused_stage_plain(x, mask, ks, kd, *vecs), dtype)
+
+
+def test_conv_wrappers_reject_bad_input(cuda):
+    x = torch.zeros((1, 4, 8, 8, 20), device=cuda)
+    k3 = torch.zeros((3, 3, 3, 20, 20), device=cuda)
+    with pytest.raises(ValueError):            # C > 24
+        subm_conv3d(torch.zeros((1, 4, 8, 8, 32), device=cuda),
+                    torch.zeros((3, 3, 3, 32, 20), device=cuda))
+    with pytest.raises(ValueError):            # float16
+        subm_conv3d(x.half(), k3)
+    with pytest.raises(ValueError):            # C > 128
+        conv2d_3x3(torch.zeros((1, 8, 8, 130), device=cuda),
+                   torch.zeros((3, 3, 130, 8), device=cuda))
+    with pytest.raises(ValueError):            # kernel on the CPU
+        conv2d_3x3(x[0], torch.zeros((3, 3, 20, 8)))
+    mask = torch.zeros((1, 4, 8, 8), device=cuda)
+    kd = torch.zeros((3, 20, 20), device=cuda)
+    vec = torch.zeros((20,), device=cuda)
+    with pytest.raises(ValueError):            # D < 3
+        fused_stage(x[:, :2], mask[:, :2], k3, kd, vec, vec, vec, vec)
+    with pytest.raises(ValueError):            # mask of another shape
+        fused_stage(x, mask[:, :3], k3, kd, vec, vec, vec, vec)
+    boxes = torch.zeros((5, 9), device=cuda)
+    with pytest.raises(ValueError):            # unaligned pairs
+        intersection_volume_aligned(boxes, boxes[:4])

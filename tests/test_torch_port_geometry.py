@@ -127,10 +127,10 @@ def test_multiclass_nms_matches_jax(nms_dim, thr):
     np.testing.assert_array_equal(got, want)
 
 
-def test_nms_exact_3d_iou_is_not_ported_yet():
-    # the name predates the exact clipper: above 1e-4, nms_dim=3 now runs
-    # the exact rotated-3D IoU (tests/test_torch_port_iou3d.py holds it
-    # against the JAX package at 0.1) instead of raising
+def test_nms_exact_3d_iou_matches_jax():
+    # above 1e-4, nms_dim=3 runs the exact rotated-3D IoU
+    # (tests/test_torch_port_iou3d.py holds it against the JAX package at
+    # 0.1)
     b = _boxes(7, 4)
     scores = np.linspace(0.4, 0.9, 4, dtype=np.float32)[:, None]
     want = np.asarray(jax_nms(jnp.asarray(b), jnp.asarray(scores), 0.3, 0.5,
