@@ -12,7 +12,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. build: compiles every CUDA kernel of the path from ``csrc/`` (one
    ``nvcc`` per source, all started together) and prints the build time;
 3. kernels: at flagship shapes, each kernel against its plain PyTorch
-   version on the same inputs, bit-exact, with both timed by CUDA events;
+   version on the same inputs, bit-exact, with both timed by CUDA events
+   (K2 in bf16 and float32);
 4. voxelizer: the kernel path on the card against the plain path on the
    CPU for one cloud, every output exact;
 5. predict: the flagship ``PointPillars`` (100x400x400 grid, 12 anchors per
@@ -40,7 +41,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     backward's dx and dw), K8 (stages 0-2) on cloud 0's real stage inputs
     with the npz weights, each against its plain version in float32
     (TF32 off; within 1e-3 of the largest element) and in bf16 (within
-    1e-2), timed beside its bound and cuDNN's conv; and K5 on 1.92 M
+    1e-2), timed beside its bound and cuDNN's conv (K9 per stage and
+    direction, with its share of the bound); and K5 on 1.92 M
     aligned (GT, anchor) pairs within 1e-5 of the volume scale, then
     driven once as the JAX package's ``tools/profile_assign.py`` drives
     it;
@@ -265,7 +267,10 @@ def encoder_kernels(model, batch):
             "ms": sum(ms), "forward_ms": ms[0], "dx_ms": ms[1],
             "plain_ms": sum(plain), "library_ms": sum(lib),
             "library_forward_ms": lib[0], "library_dx_ms": lib[1],
-            "bound_ms": 2 * b_ms, "bound_by": b_by})
+            "bound_ms": 2 * b_ms, "bound_forward_ms": b_ms,
+            "bound_dx_ms": b_ms, "bound_by": b_by,
+            "share": 2 * b_ms / sum(ms), "share_forward": b_ms / ms[0],
+            "share_dx": b_ms / ms[1]})
         del xo, kf, g, xb, kb, gb, wt
         torch.cuda.empty_cache()
 
@@ -315,6 +320,7 @@ def encoder_kernels(model, batch):
             entry[key] = sum(r[key] for r in rows)
         entry["bound_by"] = ("operations" if any(
             r["bound_by"] == "operations" for r in rows) else "bytes")
+        entry["share"] = entry["bound_ms"] / entry["ms"]
         lib = [r["library_ms"] for r in rows]
         entry["library_ms"] = None if None in lib else sum(lib)
         entry["stages"] = rows
@@ -325,7 +331,12 @@ def encoder_kernels(model, batch):
                   f"library {r['library_ms']}, "
                   + (f"unfused {r['unfused_ms']:.4f} ms, "
                      if "unfused_ms" in r else "") +
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                  + (f"; forward {r['forward_ms']:.4f} (cuDNN "
+                     f"{r['library_forward_ms']:.4f}, share of bound "
+                     f"{r['share_forward']:.3f}), dx {r['dx_ms']:.4f} "
+                     f"(cuDNN {r['library_dx_ms']:.4f}, share "
+                     f"{r['share_dx']:.3f})" if "dx_ms" in r else ""),
                   flush=True)
     return entries
 
@@ -629,6 +640,7 @@ def main():
     rows = torch.zeros_like(cell, dtype=torch.long)[valid]
     cells_l = cell[valid].long()
     n_active = int(valid.sum())
+    k2_dtypes = []
     for dtype in (torch.bfloat16, torch.float32):
         feats = torch.randn((1, v_max, c_pfn), generator=gen, device="cuda",
                             dtype=torch.float32).to(dtype)
@@ -664,14 +676,20 @@ def main():
             "bound_by": "bytes",
             "library_ms": cuda_ms(library, 20),
         }
+        entry["share"] = entry["bound_ms"] / entry["ms"]
         print(f"K2 scatter_to_grid {str(dtype)[6:]} V={v_max} C={c_pfn} "
               f"grid={d}x{h}x{w} active={n_active}: bit-exact; "
               f"{entry['ms']:.4f} ms vs plain {entry['plain_ms']:.4f} ms, "
               f"zeros+index_put_ {entry['library_ms']:.4f} ms, bound "
-              f"{entry['bound_ms']:.4f} ms", flush=True)
+              f"{entry['bound_ms']:.4f} ms (share {entry['share']:.3f})",
+              flush=True)
+        k2_dtypes.append({"dtype": str(dtype)[6:], **{
+            key: entry[key] for key in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "share")}})
         if dtype == model.compute_dtype:
             kernels["scatter_to_grid"] = entry
         del feats, vals
+    kernels["scatter_to_grid"]["dtypes"] = k2_dtypes
     torch.cuda.empty_cache()
 
     # ---- voxelizer: kernel path on the card vs plain path on the CPU ---

@@ -1,6 +1,6 @@
 // Shared body of the direct 3x3(x3) convolution kernels for Hopper,
-// sm_90a: K8 (fused_stage.cu), K9 (zfold_conv.cu) and K10
-// (subm_conv3d.cu).
+// sm_90a: K8 (fused_stage.cu) and K10 (subm_conv3d.cu), and K9's float32
+// body (zfold_conv.cu; its bf16 body is its own, over wgmma.cuh).
 //
 // Layout: channels last.  An input plane is (H, W, C), an output plane
 // (H, W, Co), in float32 or bf16; weights are (taps, C, Co) with the taps

@@ -1,11 +1,12 @@
-"""Single-write dense pseudo-image grid build.
+"""Dense pseudo-image grid build.
 
 Port of the JAX package's ``ops/grid_scatter.py::scatter_to_grid``
 (kernel K2).  On a CUDA tensor the wrapper launches the hand-written
-kernel in ``csrc/grid_scatter.cu``, which writes every grid cell exactly
-once; on a CPU tensor it runs the plain version below, a zero-fill
-followed by an index copy (the JAX package's XLA scatter,
-``models/network.py``).  A CUDA tensor never takes the plain version.
+kernels in ``csrc/grid_scatter.cu``: a streaming zero fill of the grid,
+then a copy of the voxel rows over it.  On a CPU tensor it runs the plain
+version below, a zero-fill followed by an index copy (the JAX package's
+XLA scatter, ``models/network.py``).  A CUDA tensor never takes the plain
+version.
 
 The gradient is that of the JAX package's custom VJP: a row gather of the
 grid's cotangent at the voxel cells, zero for padding rows.  It is an XLA
@@ -23,7 +24,7 @@ from objectdetection_3d_tpu_torch.ops import cuda_lib
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int]
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -48,16 +49,9 @@ def _scatter_kernel(feats, cell_flat, grid_dhw):
     b, v, c = feats.shape
     grid = torch.empty((b, d, h, w, c), dtype=feats.dtype,
                        device=feats.device)
-    fn = cuda_lib.load("grid_scatter").scatter_to_grid
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(feats.data_ptr(), cell_flat.data_ptr(), grid.data_ptr(),
-                 b, v, c, d * h * w, feats.element_size(), stream)
-    if err != 0:
-        raise RuntimeError(f"scatter_to_grid kernel launch failed: CUDA "
-                           f"error {err}")
+    cuda_lib.launch("grid_scatter", "scatter_to_grid", _ARGTYPES,
+                    (feats.data_ptr(), cell_flat.data_ptr(), grid.data_ptr(),
+                     b, v, c, d * h * w, feats.element_size()), feats.device)
     scatter_to_grid.launches += 1
     return grid
 

@@ -16,9 +16,11 @@ seed 0, then traces ``make_train_step``'s step on seeds 1..N with
   assignment, loss + backward, optimizer), mean over the steps;
 * host wall time per step and the share of it the device spent in kernels,
   whose complement is the idle share;
-* the top CUDA kernels by total device time.
+* the top CUDA kernels by total device time, over the step and within
+  its loss + backward range.
 
-The full profiler table goes to ``chiprun_out/profile_train.txt``.
+The full profiler table, and every kernel of the loss + backward range,
+go to ``profile_train.txt`` in the trace's output directory.
 """
 
 import argparse
@@ -35,6 +37,33 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
+def _charged(trace, phases):
+    """(phase or "other", device event) for each kernel, copy and fill of
+    a Chrome trace: the innermost phase range whose host interval holds
+    the runtime call that launched it, from any thread."""
+    events = trace["traceEvents"]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name") in phases)
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in _LAUNCH_CATS
+                and "correlation" in e.get("args", {})}
+    for e in events:
+        if e.get("cat") not in _DEVICE_CATS:
+            continue
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        name = "other"
+        if ts is not None:
+            # ranges are sorted by start: the last that holds ts is the
+            # innermost
+            for start, end, phase in ranges:
+                if start > ts:
+                    break
+                if ts <= end:
+                    name = phase
+        yield name, e
+
+
 def phase_device_ms(trace, phases=PHASES):
     """Device time of each phase range in a Chrome trace of train steps.
 
@@ -49,28 +78,20 @@ def phase_device_ms(trace, phases=PHASES):
         {phase: device ms summed over the trace, "other": device ms
         launched outside every phase}.
     """
-    events = trace["traceEvents"]
-    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                    if e.get("cat") == "user_annotation"
-                    and e.get("name") in phases)
-    launched = {e["args"]["correlation"]: e["ts"] for e in events
-                if e.get("cat") in _LAUNCH_CATS
-                and "correlation" in e.get("args", {})}
     out = dict.fromkeys((*phases, "other"), 0.0)
-    for e in events:
-        if e.get("cat") not in _DEVICE_CATS:
-            continue
-        ts = launched.get(e.get("args", {}).get("correlation"))
-        name = "other"
-        if ts is not None:
-            # ranges are sorted by start: the last that holds ts is the
-            # innermost
-            for start, end, phase in ranges:
-                if start > ts:
-                    break
-                if ts <= end:
-                    name = phase
+    for name, e in _charged(trace, phases):
         out[name] += e["dur"] / 1e3
+    return out
+
+
+def phase_kernel_ms(trace, phase, phases=PHASES):
+    """{kernel name: device ms summed over the trace} of the kernels,
+    copies and fills charged to ``phase`` as :func:`phase_device_ms`
+    charges them."""
+    out = {}
+    for name, e in _charged(trace, phases):
+        if name == phase:
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e3
     return out
 
 
@@ -155,9 +176,16 @@ def main(argv=None):
     for e in top:
         print(f"  {e.self_device_time_total / 1e3 / n:9.3f}  "
               f"{e.count // n:4d}x  {e.key[:90]}")
+    per_kernel = sorted(phase_kernel_ms(trace, "loss+backward").items(),
+                        key=lambda kv: -kv[1])
+    print("top kernels of loss+backward (ms per step):")
+    for name, ms in per_kernel[:25]:
+        print(f"  {ms / n:9.3f}  {name[:90]}")
     with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=40))
+        f.write("\nloss+backward, every kernel (ms per step):\n")
+        f.writelines(f"{ms / n:9.3f}  {name}\n" for name, ms in per_kernel)
     return 0
 
 

@@ -100,17 +100,39 @@ def test_postsort_scan_kernel_matches_plain(cuda, b, p):
     assert torch.equal(rank, want_rank)
 
 
+# bytes of grid that one block of K2's zero fill writes
+_FILL_BLOCK_BYTES = 512 * 4 * 16
+
+
+def _fill_edge_ids(n, row_bytes, v):
+    """The cells on both sides of every other boundary between K2's fill
+    blocks (the blocks between hold no voxel), then padding."""
+    ids = set()
+    for edge in range(_FILL_BLOCK_BYTES, n * row_bytes,
+                      2 * _FILL_BLOCK_BYTES):
+        ids.update({(edge - 1) // row_bytes, edge // row_bytes})
+    ids = sorted(ids)[:v]
+    return np.array(ids + [n] * (v - len(ids)), np.int32)
+
+
+# (b, d, h, w, c, V, occupied voxels; -1: the cells on the edges of the
+# fill's blocks, _fill_edge_ids)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(1, 100, 40, 40, 20, 4096, 3000),
                                    (3, 3, 7, 5, 3, 40, 17),
-                                   (2, 2, 8, 8, 4, 16, 0)])
+                                   (2, 2, 8, 8, 4, 16, 0),
+                                   (1, 4, 16, 16, 20, 1024, 1024),
+                                   (2, 8, 64, 64, 20, 700, -1)])
 def test_scatter_to_grid_kernel_matches_plain(cuda, dtype, shape):
     b, d, h, w, c, v, na = shape
     rng = np.random.default_rng(sum(shape))
     n = d * h * w
     ids = np.full((b, v), n, np.int32)
     for i in range(b):
-        ids[i, :na] = np.sort(rng.choice(n, na, replace=False))
+        if na < 0:
+            ids[i] = _fill_edge_ids(n, c * torch.finfo(dtype).bits // 8, v)
+        else:
+            ids[i, :na] = np.sort(rng.choice(n, na, replace=False))
     feats = torch.from_numpy(rng.normal(0, 1, (b, v, c)).astype(np.float32))
     feats = feats.to(cuda, dtype)
     ids = torch.from_numpy(ids).to(cuda)
@@ -121,6 +143,10 @@ def test_scatter_to_grid_kernel_matches_plain(cuda, dtype, shape):
     assert torch.equal(got, scatter_to_grid_plain(feats, ids, (d, h, w)))
     one = scatter_to_grid(feats[0], ids[0], (d, h, w))
     assert torch.equal(one, got[0])
+    # features one element off 16-byte alignment: narrower copy pieces
+    shifted = torch.empty(feats.numel() + 1, dtype=dtype, device=cuda)
+    shifted = shifted[1:].view_as(feats).copy_(feats)
+    assert torch.equal(scatter_to_grid(shifted, ids, (d, h, w)), got)
 
 
 def test_kernel_wrappers_reject_bad_input(cuda):
@@ -285,10 +311,18 @@ def test_subm_conv3d_kernel_matches_plain(cuda, exact_fp32, dtype, shape):
     _assert_rel(got, subm_conv3d_plain(x, k), dtype)
 
 
+# (N, H, W, C, Co): the bf16 kernel's slice widths 80, 64 x 2, 24, 8
+# (Co = 7 and 20 of the dx pass), 40, 72; C not a multiple of 16 (120, 7,
+# 20, 24, 40) or of 8 (7, 20: no TMA); H, W not multiples of the tile
+# (13 x 7, W < 16); N = 1; and 70 images of 2 x 3 tiles, 420 tiles that
+# leave the persistent blocks a ragged last round.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 16, 24, 120, 80),
                                    (2, 9, 13, 128, 128),
-                                   (1, 8, 33, 7, 20), (2, 5, 5, 40, 64)])
+                                   (1, 8, 33, 7, 20), (2, 5, 5, 40, 64),
+                                   (1, 13, 7, 24, 40),
+                                   (2, 11, 19, 128, 72),
+                                   (70, 17, 33, 64, 24)])
 def test_conv2d_3x3_kernel_and_backward_match_plain(cuda, exact_fp32, dtype,
                                                     shape):
     n, h, w, c, co = shape
@@ -349,6 +383,13 @@ def test_conv_wrappers_reject_bad_input(cuda):
                    torch.zeros((3, 3, 130, 8), device=cuda))
     with pytest.raises(ValueError):            # kernel on the CPU
         conv2d_3x3(x[0], torch.zeros((3, 3, 20, 8)))
+    with pytest.raises(ValueError):            # float32 N > 65535
+        conv2d_3x3(torch.zeros((65536, 1, 1, 8), device=cuda),
+                   torch.zeros((3, 3, 8, 8), device=cuda))
+    # bf16 counts tiles, not images: N = 65536 runs
+    xb = torch.ones((65536, 1, 1, 8), device=cuda, dtype=torch.bfloat16)
+    kb = torch.full((3, 3, 8, 8), 0.5, device=cuda)
+    assert bool((conv2d_3x3(xb, kb) == 4.0).all())
     mask = torch.zeros((1, 4, 8, 8), device=cuda)
     kd = torch.zeros((3, 20, 20), device=cuda)
     vec = torch.zeros((20,), device=cuda)

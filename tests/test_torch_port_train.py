@@ -57,6 +57,7 @@ from objectdetection_3d_tpu_torch.ops.grid_scatter import (
 from objectdetection_3d_tpu_torch.profile_train import (
     PHASES,
     phase_device_ms,
+    phase_kernel_ms,
 )
 from test_torch_port_model import _leaves, _random_variables
 from tiny import tiny_batch, tiny_model_cfg
@@ -343,14 +344,14 @@ def test_train_step_marks_its_phases(models, tmp_path):
     assert set(PHASES) <= names
 
 
-def test_phase_device_ms_charges_the_innermost_range_of_each_launch():
+def _toy_trace():
     def ev(cat, name, ts, dur, corr=None):
         e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
         if corr is not None:
             e["args"] = {"correlation": corr}
         return e
 
-    trace = {"traceEvents": [
+    return {"traceEvents": [
         ev("user_annotation", "forward", 0, 10),
         ev("user_annotation", "loss+backward", 10, 30),
         ev("user_annotation", "assignment", 12, 5),
@@ -362,12 +363,24 @@ def test_phase_device_ms_charges_the_innermost_range_of_each_launch():
         ev("cuda_driver", "cuLaunchKernel", 25, 1, corr=3),
         ev("cuda_runtime", "cudaMemsetAsync", 41, 1, corr=4),
         ev("cuda_runtime", "cudaLaunchKernel", 50, 1, corr=5),
+        ev("cuda_runtime", "cudaLaunchKernel", 30, 1, corr=6),
         ev("kernel", "k_fwd", 20, 2000, corr=1),
         ev("kernel", "k_assign", 30, 500, corr=2),
         ev("kernel", "k_bwd", 60, 3000, corr=3),
         ev("gpu_memset", "zero", 70, 250, corr=4),
         ev("kernel", "k_after", 80, 1000, corr=5),
+        ev("kernel", "k_bwd", 90, 1500, corr=6),
     ]}
-    got = phase_device_ms(trace)
-    assert got == {"forward": 2.0, "assignment": 0.5, "loss+backward": 3.0,
+
+
+def test_phase_device_ms_charges_the_innermost_range_of_each_launch():
+    got = phase_device_ms(_toy_trace())
+    assert got == {"forward": 2.0, "assignment": 0.5, "loss+backward": 4.5,
                    "optimizer": 0.25, "other": 1.0}
+
+
+def test_phase_kernel_ms_splits_a_phase_by_kernel():
+    trace = _toy_trace()
+    assert phase_kernel_ms(trace, "loss+backward") == {"k_bwd": 4.5}
+    assert phase_kernel_ms(trace, "optimizer") == {"zero": 0.25}
+    assert phase_kernel_ms(trace, "other") == {"k_after": 1.0}
