@@ -25,6 +25,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 7. assignment kernels: K3 and K4 bit-exact, K6 and K7 within 1e-5 of
    IoU, each against its plain version on cloud 0's real assignment
    inputs (128 padded GT boxes, 1.92 M anchors, K = 512), both timed;
+   every pair that the plain separating-plane test clears is exactly 0
+   from K6/K7 and from their plain versions, and their bounds count the
+   test plus the clips it leaves (beside the bound of clipping all);
 8. assignment: the flagship assignment of cloud 0 through the kernels
    and through their plain versions, both on the card: masks, labels,
    direction targets and ``best_gt`` under ``pos_mask`` equal, and
@@ -81,6 +84,10 @@ BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 K3_OPS_PER_PAIR = 128
 K4_OPS_PER_PAIR = 53
 CLIP_OPS_PER_PAIR = 12 * (49 * 23 + 10 * 16) + 560
+# K6/K7's separating-plane test: per pair, 2 directions x 6 planes x 8
+# corners x 7 (a 3-term dot product, the offset, the compare); a direction
+# it cannot clear costs half a clip (6 of the 12 polygons)
+TEST_OPS_PER_PAIR = 2 * 6 * 8 * 7
 
 
 def cuda_ms(fn, reps):
@@ -298,12 +305,13 @@ def encoder_kernels(model, batch):
             * h * w, BF16_TC_OPS_PER_S)
         with torch.inference_mode():
             unfused = cuda_ms(lambda: enc.stage(i, x, m), 10)
+        ms = cuda_ms(lambda: fused_stage(xn, mn, *args), 10)
         stages["fused_stage"].append({
             "stage": i, "shape": [b, d, h, w, c, co], "max_abs_err": err,
-            "ms": cuda_ms(lambda: fused_stage(xn, mn, *args), 10),
+            "ms": ms,
             "plain_ms": cuda_ms(lambda: fused_stage_plain(xn, mn, *args), 1),
             "library_ms": None, "unfused_ms": unfused,
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms})
     del ins
     torch.cuda.empty_cache()
 
@@ -329,8 +337,8 @@ def encoder_kernels(model, batch):
             print(f"{name} stage {r['stage']} {r['shape']}: "
                   f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, "
                   f"library {r['library_ms']}, "
-                  + (f"unfused {r['unfused_ms']:.4f} ms, "
-                     if "unfused_ms" in r else "") +
+                  + (f"unfused {r['unfused_ms']:.4f} ms, share of bound "
+                     f"{r['share']:.3f}, " if "unfused_ms" in r else "") +
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                   + (f"; forward {r['forward_ms']:.4f} (cuDNN "
                      f"{r['library_forward_ms']:.4f}, share of bound "
@@ -567,6 +575,7 @@ def main():
         scatter_to_grid,
         scatter_to_grid_plain,
     )
+    from objectdetection_3d_tpu_torch.ops.iou3d import separated_directions
     from objectdetection_3d_tpu_torch.ops.voxel_scan import (
         postsort_scan,
         postsort_scan_plain,
@@ -844,25 +853,45 @@ def main():
             raise AssertionError(f"{name} differs from its plain version "
                                  f"by {err}")
         n_ids = len(args) - 3
-        b_ms, b_by = bound(args[-1].numel() * 4 + n_pairs * 4
-                           + args[-1].shape[0] * 4 * n_ids + MAX_GT * 40,
-                           CLIP_OPS_PER_PAIR * n_pairs)
+        # the plain separating-plane test on the same pairs: what it clears
+        # must come out exactly 0 from the kernel and the plain version
+        ids = torch.cat([a.long() for a in args[2:-1]])
+        sep = torch.cat([separated_directions(gt[a.long()], args[-1])
+                         for a in args[2:-1]])
+        both = sep.all(-1)
+        if not (bool((got.reshape(-1)[both] == 0).all())
+                and bool((want.reshape(-1)[both] == 0).all())):
+            raise AssertionError(f"{name}: a pair the separating-plane test "
+                                 f"clears is not exactly 0")
+        row_ok = gt_mask[ids]
+        cleared = int((both | ~row_ok).sum())
+        open_dirs = int(((~sep) & row_ok[:, None]).sum())
+        nbytes = (args[-1].numel() * 4 + n_pairs * 4
+                  + args[-1].shape[0] * 4 * n_ids + MAX_GT * 40)
+        all_ms, _ = bound(nbytes, CLIP_OPS_PER_PAIR * n_pairs)
+        b_ms, b_by = bound(nbytes, TEST_OPS_PER_PAIR * n_pairs
+                           + CLIP_OPS_PER_PAIR / 2 * open_dirs)
+        ms = cuda_ms(lambda fn=fn, args=args: fn(*args), 5)
         kernels[name] = {
             "name": name, "route": "cuda",
             "source": "objectdetection_3d_tpu_torch/csrc/iou3d_clip.cu",
             "replaces": f"objectdetection_3d_tpu/ops/pallas_iou3d.py:"
                         f"{src_line}",
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda fn=fn, args=args: fn(*args), 5),
+            "max_abs_err": err, "ms": ms,
             "plain_ms": cuda_ms(lambda plain=plain, args=args: plain(*args),
                                 1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_all_pairs_ms": all_ms, "share": b_ms / ms,
+            "pairs": n_pairs, "cleared_pairs": cleared,
+            "uncleared_directions": open_dirs,
         }
         print(f"{'K6' if n_ids == 1 else 'K7'} {name} pairs={n_pairs}: max "
               f"abs IoU err {err:.3g} ({n_diff} of {got.numel()} differ); "
-              f"{kernels[name]['ms']:.4f} ms vs plain "
-              f"{kernels[name]['plain_ms']:.4f} ms, bound "
-              f"{b_ms:.4f} ms", flush=True)
+              f"{ms:.4f} ms vs plain {kernels[name]['plain_ms']:.4f} ms; "
+              f"test clears {cleared} pairs ({open_dirs} of {2 * n_pairs} "
+              f"directions left to clip), all exactly 0; bound {b_ms:.4f} "
+              f"ms (share {b_ms / ms:.3f}), all pairs clipped "
+              f"{all_ms:.4f} ms", flush=True)
         del got, want
     del geom, g6, g7, cand_boxes
     torch.cuda.empty_cache()

@@ -25,44 +25,69 @@
 // intermediate: conv output, mask and BN multiplies, ReLU, each a read
 // and a write of 0.64 GB.
 //
-// Design: the TPU kernel folds z blocks into its 128 lanes; here the
-// layout stays unfolded.  A block owns a 16x16 (or 8x16) pixel tile of one
-// output slice z' and all its output channels.  For t = 0, 1, 2 it runs
-// the subm conv of slice 2z'+t over the tile (conv_tile.cuh: in bf16 on
-// the tensor cores, mma.sync m16n8k16 over 16-channel chunks; in float32
-// on the CUDA cores), applies the mask, affine and ReLU to the float32
-// sums, rounds to T, and parks the slice in shared memory; every thread
-// then adds that slice's down-conv products (CUDA-core FFMA) to a second
-// register accumulator.  Only the stage output is written.  The subm
-// slice 2z'+2 is computed again by the block of z'+1 (1.5x the subm
-// products), which keeps blocks independent.  The down conv on the CUDA
-// cores and one block per SM at 64 channels (141 KB of shared memory)
-// keep it far above the bound; later work.
+// Design (bf16, the flagship): a block owns an 8 x 16 pixel tile and a run
+// of consecutive output slices [z0', z1'), and walks the subm slices
+// s = 2z0' .. 2z1' in order; each is computed once (slice 2z'+2 is tap 2
+// of z' and tap 0 of z'+1), so only the first slice of a run repeats the
+// neighbouring run's last.
+// - Weights resident: the block copies the packed subm weights (all taps
+//   and input channels, at most 111 KB at 32 -> 64 channels) and the bf16
+//   down weights into shared memory once, for its whole life.
+// - Input planes: a ring of 4 halo windows (10 x 18 pixels, all input
+//   channels as 16-channel chunks); slice s reads planes s-1, s, s+1 while
+//   plane s+2 arrives by cp.async (16- or 8-byte pieces; TMA cannot take
+//   C = 20, whose 40-byte pixels break its 16-byte strides).  A 16-byte
+//   half of a pixel's chunk sits at position half ^ bit 2 of the pixel
+//   index (the weights' rows likewise), so ldmatrix is free of bank
+//   conflicts without padding.
+// - Subm conv on the tensor cores: warp w owns tile row w, one m16 operand;
+//   per (chunk, tap) one ldmatrix.x4 of A and, per n8 fragment of the
+//   output channels, one ldmatrix.x2 of B and one mma.sync m16n8k16.
+// - Down conv on the tensor cores: the warp applies mask, affine and ReLU
+//   to its float32 sums, rounds them to bf16 and packs them straight into
+//   A fragments (an m16n8 accumulator pair is an m16k16 operand), then adds
+//   y[s] @ wd[t] to one float32 output accumulator in registers: tap 2 of
+//   z' = s/2 - 1 (finishing it) and tap 0 of z' = s/2 for even s, tap 1
+//   for odd s.  The products of bf16 values are exact, so the result
+//   differs from the plain version only in the order of the float32 sums.
+// - Mask: read once per pixel and slice, a slice ahead, into registers,
+//   where the pooled mask is kept as a running max.
+// - Epilogue: each finished output slice is rounded to bf16, staged per
+//   warp (in the ring slot just freed, or beside the ring when it does not
+//   fit) and written in 16-byte pieces: a warp's 16 pixels are contiguous.
+// Blocks are not persistent: a block's one copy of its weights is small
+// beside its walk over D'.  The z runs are cut only where that evens
+// out the last wave of blocks.
+// float32 keeps the CUDA-core body of conv_tile.cuh (one output slice per
+// block, the subm slice 2z'+2 computed again by the block of z'+1, the
+// down conv in FFMA).
+
+#include <climits>
+#include <cstdint>
 
 #include "conv_tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
+using conv_tile::bf16;
 using conv_tile::kThreads;
-using conv_tile::round_to;
-using conv_tile::to_float;
 
-// NT = 0: the CUDA-core subm body (float32); NT > 0: the tensor-core
-// body with NT n8 fragments (bf16, weights packed as conv_tile.cuh says)
-template <typename T, int CT, int CPT, int NT>
+// ---- float32: CUDA cores ------------------------------------------------
+
+template <int CT, int CPT>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_stage_kernel(const T* __restrict__ x, const T* __restrict__ mask,
-                   const T* __restrict__ ws_g, const float* __restrict__ wd,
-                   const float* __restrict__ vec, T* __restrict__ out, int D,
-                   int Dout, int H, int W, int C, int Co) {
+fused_stage_f32_kernel(const float* __restrict__ x,
+                       const float* __restrict__ mask,
+                       const float* __restrict__ ws_g,
+                       const float* __restrict__ wd,
+                       const float* __restrict__ vec, float* __restrict__ out,
+                       int D, int Dout, int H, int W, int C, int Co) {
   using G = conv_tile::Tile<3, CT, CPT, 4, 4>;
-  using M = conv_tile::MmaTile<3, G::kTH, NT == 0 ? 1 : NT>;
-  constexpr bool kMma = NT > 0;
   extern __shared__ float4 smem4[];
-  // subm staging, then one subm slice of the tile as float [c][pixel]
-  float* ys = reinterpret_cast<float*>(
-      reinterpret_cast<char*>(smem4) +
-      (kMma ? M::kBytes : (G::kHalo + G::kW) * sizeof(float)));
+  float* hs = reinterpret_cast<float*>(smem4);
+  // one subm slice of the tile as float [c][pixel], after the staging
+  float* ys = hs + G::kHalo + G::kW;
   const int plane = blockIdx.z;
   const int b = plane / Dout;
   const int zo = plane - b * Dout;
@@ -72,20 +97,7 @@ fused_stage_kernel(const T* __restrict__ x, const T* __restrict__ mask,
   conv_tile::thread_place<G>(row, col, ct);
   const long long hw = static_cast<long long>(H) * W;
   const long long psz = hw * C;
-  const T* mplane = mask + static_cast<long long>(b) * D * hw;
-  // mask, affine, ReLU and rounding of subm output (pixel, channel) of
-  // slice z, into ys
-  auto park = [&](int z, int r, int c, int n, float v) {
-    const int h = h0 + r;
-    const int w = w0 + c;
-    if (n >= Co) return;
-    const float m = (h < H && w < W)
-                        ? to_float<T>(mplane[z * hw + static_cast<long long>(h)
-                                             * W + w])
-                        : 0.f;
-    ys[n * G::kPix + r * G::kTW + c] = round_to<T>(
-        fmaxf(v * __ldg(vec + n) + __ldg(vec + Co + n), 0.f) * m);
-  };
+  const float* mplane = mask + static_cast<long long>(b) * D * hw;
 
   float dd[G::kPX][CPT];
 #pragma unroll
@@ -97,7 +109,7 @@ fused_stage_kernel(const T* __restrict__ x, const T* __restrict__ mask,
 #pragma unroll 1
   for (int t = 0; t < 3; ++t) {
     const int z = 2 * zo + t;
-    const T* planes[3];
+    const float* planes[3];
 #pragma unroll
     for (int kz = 0; kz < 3; ++kz) {
       const int zz = z + kz - 1;
@@ -107,24 +119,24 @@ fused_stage_kernel(const T* __restrict__ x, const T* __restrict__ mask,
     }
     // the barriers inside the conv separate these ys writes from the
     // previous slice's reads
-    if constexpr (kMma) {
-      auto* hs = reinterpret_cast<conv_tile::bf16*>(smem4);
-      float acc[M::kMT][M::kNT][4];
-      conv_tile::conv_tile_mma<M>(hs, hs + M::kHalo, planes, ws_g, H, W, C,
-                                  h0, w0, acc);
-      conv_tile::for_each_mma<M>(acc, [&](int r, int c, int n, float v) {
-        park(z, r, c, n, v);
-      });
-    } else {
-      float* hs = reinterpret_cast<float*>(smem4);
-      float acc[G::kPX][CPT];
-      conv_tile::conv_tile<G>(hs, hs + G::kHalo, planes, ws_g, H, W, C, Co,
-                              h0, w0, acc);
+    float acc[G::kPX][CPT];
+    conv_tile::conv_tile<G>(hs, hs + G::kHalo, planes, ws_g, H, W, C, Co, h0,
+                            w0, acc);
+    const int h = h0 + row;
 #pragma unroll
-      for (int p = 0; p < G::kPX; ++p) {
+    for (int p = 0; p < G::kPX; ++p) {
+      const int w = w0 + col + p;
+      const float m = (h < H && w < W)
+                          ? mplane[z * hw + static_cast<long long>(h) * W + w]
+                          : 0.f;
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) park(z, row, col + p, ct * CPT + j,
-                                           acc[p][j]);
+      for (int j = 0; j < CPT; ++j) {
+        const int n = ct * CPT + j;
+        if (n < Co) {
+          ys[n * G::kPix + row * G::kTW + col + p] =
+              fmaxf(acc[p][j] * __ldg(vec + n) + __ldg(vec + Co + n), 0.f) *
+              m;
+        }
       }
     }
     __syncthreads();
@@ -150,89 +162,497 @@ fused_stage_kernel(const T* __restrict__ x, const T* __restrict__ mask,
 
   const int h = h0 + row;
   if (h >= H) return;
-  T* o = out + (static_cast<long long>(b) * Dout + zo) * hw * Co;
+  float* o = out + (static_cast<long long>(b) * Dout + zo) * hw * Co;
 #pragma unroll
   for (int p = 0; p < G::kPX; ++p) {
     const int w = w0 + col + p;
     if (w >= W) continue;
-    const T* mp = mplane + static_cast<long long>(h) * W + w;
-    const float md = fmaxf(to_float<T>(mp[2 * zo * hw]),
-                           fmaxf(to_float<T>(mp[(2 * zo + 1) * hw]),
-                                 to_float<T>(mp[(2 * zo + 2) * hw])));
+    const float* mp = mplane + static_cast<long long>(h) * W + w;
+    const float md = fmaxf(mp[2 * zo * hw],
+                           fmaxf(mp[(2 * zo + 1) * hw], mp[(2 * zo + 2) * hw]));
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int co = ct * CPT + j;
       if (co < Co) {
-        const float v = fmaxf(dd[p][j] * __ldg(vec + 2 * Co + co) +
-                                  __ldg(vec + 3 * Co + co),
-                              0.f) *
-                        md;
         o[(static_cast<long long>(h) * W + w) * Co + co] =
-            conv_tile::from_float<T>(v);
+            fmaxf(dd[p][j] * __ldg(vec + 2 * Co + co) +
+                      __ldg(vec + 3 * Co + co),
+                  0.f) *
+            md;
       }
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* mask, const void* ws, const void* wd,
-           const void* vec, void* out, int B, int D, int H, int W, int C,
-           int Co, int np, void* stream) {
+int launch_f32(const void* x, const void* mask, const void* ws,
+               const void* wd, const void* vec, void* out, int B, int D,
+               int H, int W, int C, int Co, void* stream) {
   const int dout = (D - 3) / 2 + 1;
+  if (static_cast<long long>(B) * dout > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return conv_tile::by_out_channels<64>(Co, [&](auto ct, auto cpt) {
     constexpr int kCT = decltype(ct)::value;
     constexpr int kCPT = decltype(cpt)::value;
     using G = conv_tile::Tile<3, kCT, kCPT, 4, 4>;
     const dim3 grid((W + G::kTW - 1) / G::kTW, (H + G::kTH - 1) / G::kTH,
                     B * dout);
-    const size_t ys_bytes = static_cast<size_t>(Co) * G::kPix * sizeof(float);
-    auto go = [&](auto kern, size_t staging) {
-      return conv_tile::launch(
-          kern, grid, staging + ys_bytes, stream, static_cast<const T*>(x),
-          static_cast<const T*>(mask), static_cast<const T*>(ws),
-          static_cast<const float*>(wd), static_cast<const float*>(vec),
-          static_cast<T*>(out), D, dout, H, W, C, Co);
-    };
-    if constexpr (std::is_same<T, float>::value) {
-      return go(fused_stage_kernel<T, kCT, kCPT, 0>,
-                (G::kHalo + G::kW) * sizeof(float));
+    const size_t smem =
+        (G::kHalo + G::kW) * sizeof(float) + Co * G::kPix * sizeof(float);
+    return conv_tile::launch(
+        fused_stage_f32_kernel<kCT, kCPT>, grid, smem, stream,
+        static_cast<const float*>(x), static_cast<const float*>(mask),
+        static_cast<const float*>(ws), static_cast<const float*>(wd),
+        static_cast<const float*>(vec), static_cast<float*>(out), D, dout, H,
+        W, C, Co);
+  });
+}
+
+// ---- bf16: tensor cores, z walked inside the block ------------------------
+
+constexpr int kTH = 8;                    // tile rows: one per warp
+constexpr int kTW = 16;                   // tile columns: one m16 operand
+constexpr int kWinW = kTW + 2;
+constexpr int kWin = (kTH + 2) * kWinW;   // halo pixels of a plane
+constexpr int kRing = 4;                  // staged input planes
+constexpr int kVec = 4 * 64;              // staged affines, float
+constexpr int kMaxSmem = 232448;          // a block's shared memory, bytes
+
+// Byte offsets of a block's shared memory: the subm weights at 0, then
+// the down weights, the affines, the ring of kRing plane slots and, when
+// it does not fit in a slot, the output staging.
+struct Layout {
+  int wd, vec, ring, slot, stride, stg, total;
+};
+
+__host__ __device__ inline Layout layout(int chunks, int np, int co) {
+  Layout l;
+  const int kd = (np + 15) / 16 * 16;
+  l.wd = chunks * 27 * np * 32;
+  l.vec = l.wd + 3 * np * (kd + 8) * 2;
+  l.ring = l.vec + kVec * 4;
+  l.slot = chunks * kWin * 32;
+  // a staged output pixel, bf16: padded by 16 bytes where the 16-byte
+  // pieces allow it (no bank conflicts), else packed flat
+  l.stride = co % 8 == 0 ? co + 8 : co;
+  l.total = l.ring + kRing * l.slot;
+  const int stg = kTH * kTW * l.stride * 2;
+  l.stg = -1;                             // staged in the freed ring slot
+  if (stg > l.slot) {
+    l.stg = l.total;
+    l.total += stg;
+  }
+  return l;
+}
+
+// cp.async of a PB-byte piece (PB = 16 or 8); zero-fills when !valid.
+template <int PB>
+__device__ __forceinline__ void cp_piece(void* dst, const void* src,
+                                         bool valid) {
+  const unsigned d = conv_tile::smem_addr(dst);
+  const int n = valid ? PB : 0;
+  if constexpr (PB == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&a)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned& b0, unsigned& b1,
+                                        unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// NT: n8 fragments of the padded output channels (np = 8 * NT); PB: the
+// halo's cp.async piece in bytes (16: C % 8 == 0, 8: C % 4 == 0), or 0 for
+// synchronous 2-byte loads.  Subm weights (ceil(C/16), 27, np, 16), down
+// weights (3, np, kd) as ops/fused_stage.py::down_weights packs them.
+template <int NT, int PB>
+__global__ void __launch_bounds__(kThreads, NT <= 4 ? 2 : 1)
+fused_stage_mma_kernel(const bf16* __restrict__ x,
+                       const bf16* __restrict__ mask,
+                       const bf16* __restrict__ wsub,
+                       const bf16* __restrict__ wdn,
+                       const float* __restrict__ vec, bf16* __restrict__ out,
+                       int D, int Dout, int H, int W, int C, int Co, int zpc,
+                       int nzc, Layout L) {
+  constexpr int kNP = NT * 8;
+  constexpr int kKD = (NT + 1) / 2;       // k16 steps of the down conv
+  constexpr int kKRow = kKD * 16 + 8;     // staged down-weight row, bf16
+  extern __shared__ uint4 smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_raw);
+  unsigned char* ring = smem + L.ring;
+  float* vs = reinterpret_cast<float*>(smem + L.vec);
+  const int chunks = (C + 15) / 16;
+  const int b = blockIdx.z / nzc;
+  const int zo0 = (blockIdx.z - b * nzc) * zpc;
+  const int zo1 = min(Dout, zo0 + zpc);
+  if (zo0 >= zo1) return;
+  const int s0 = 2 * zo0;                 // subm slices s0 .. s1
+  const int s1 = 2 * zo1;
+  const int h0 = blockIdx.y * kTH;
+  const int w0 = blockIdx.x * kTW;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long hw = static_cast<long long>(H) * W;
+  const bf16* xb = x + static_cast<long long>(b) * D * hw * C;
+
+  // resident weights: subm rows of 32 bytes (16 channels) with their two
+  // halves swapped on rows with bit 2 set; down rows padded to kKRow
+  for (int i = tid; i < chunks * 27 * kNP * 2; i += kThreads) {
+    const int r = i >> 1;
+    cp_piece<16>(smem + r * 32 + ((((i & 1) ^ (r >> 2)) & 1) << 4),
+                 wsub + static_cast<long long>(i) * 8, true);
+  }
+  for (int i = tid; i < 3 * kNP * kKD * 2; i += kThreads) {
+    const int r = i / (kKD * 2);
+    const int q = i - r * kKD * 2;
+    cp_piece<16>(smem + L.wd + (r * kKRow + q * 8) * 2,
+                 wdn + static_cast<long long>(i) * 8, true);
+  }
+  for (int i = tid; i < kVec; i += kThreads) {
+    const int n = i & 63;
+    vs[i] = n < Co ? vec[(i >> 6) * Co + n] : 0.f;
+  }
+
+  // plane z (zeros outside 0..D-1) into its ring slot, [chunk][pixel][16
+  // channels], the 16-byte half h of pixel p at h ^ (bit 2 of p)
+  auto load_plane = [&](int z) {
+    unsigned char* slot = ring + ((z + 4) & 3) * L.slot;
+    const bool zin = z >= 0 && z < D;
+    const bf16* xp = xb + static_cast<long long>(zin ? z : 0) * hw * C;
+    if constexpr (PB > 0) {
+      constexpr int kPE = PB / 2;         // channels per piece
+      const int per_px = chunks * 16 / kPE;
+      for (int i = tid; i < kWin * per_px; i += kThreads) {
+        const int px = i / per_px;
+        const int c = (i - px * per_px) * kPE;
+        const int hy = px / kWinW;
+        const int h = h0 + hy - 1;
+        const int w = w0 + px - hy * kWinW - 1;
+        const bool ok = zin && h >= 0 && h < H && w >= 0 && w < W && c < C;
+        const bf16* src =
+            ok ? xp + (static_cast<long long>(h) * W + w) * C + c : xp;
+        const int k = c & 15;
+        cp_piece<PB>(slot + ((c >> 4) * kWin + px) * 32 +
+                         ((((k >> 3) ^ (px >> 2)) & 1) << 4) + (k & 7) * 2,
+                     src, ok);
+      }
     } else {
-      if (Co > np) return static_cast<int>(cudaErrorInvalidValue);
-      return conv_tile::by_packed_width<8>(np, [&](auto nt) {
-        constexpr int kNT = decltype(nt)::value;
-        return go(fused_stage_kernel<T, kCT, kCPT, kNT>,
-                  conv_tile::MmaTile<3, G::kTH, kNT>::kBytes);
-      });
+      const unsigned short* xs = reinterpret_cast<const unsigned short*>(xp);
+      const int per_px = chunks * 16;
+      for (int i = tid; i < kWin * per_px; i += kThreads) {
+        const int px = i / per_px;
+        const int c = i - px * per_px;
+        const int hy = px / kWinW;
+        const int h = h0 + hy - 1;
+        const int w = w0 + px - hy * kWinW - 1;
+        const bool ok = zin && h >= 0 && h < H && w >= 0 && w < W && c < C;
+        const int k = c & 15;
+        *reinterpret_cast<unsigned short*>(
+            slot + ((c >> 4) * kWin + px) * 32 +
+            ((((k >> 3) ^ (px >> 2)) & 1) << 4) + (k & 7) * 2) =
+            ok ? xs[(static_cast<long long>(h) * W + w) * C + c] : 0;
+      }
     }
+  };
+  load_plane(s0 - 1);
+  load_plane(s0);
+  load_plane(s0 + 1);
+  wgmma::cp_async_commit();
+
+  // this thread's tile row, pixel columns pc and pc + 8, and mask there
+  const int row = h0 + warp;
+  const int pc = lane >> 2;
+  const bf16* mrow = mask + static_cast<long long>(b) * D * hw +
+                     static_cast<long long>(min(row, H - 1)) * W + w0;
+  auto mask_at = [&](int z, int c) {
+    return (row < H && w0 + c < W) ? __bfloat162float(mrow[z * hw + c])
+                                   : 0.f;
+  };
+  // ldmatrix lanes: A pixel am, channel half ah; B row bn, half bh
+  const int am = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int ah = lane >> 4;
+  const int bn = lane & 7;
+  const int bh = (lane >> 3) & 1;
+  const unsigned ws0 = conv_tile::smem_addr(smem);
+  const unsigned wd0 = conv_tile::smem_addr(smem + L.wd);
+  const unsigned ring0 = conv_tile::smem_addr(ring);
+
+  float o[NT][4];                         // the output slice's sums
+  unsigned yp[NT][2];                     // y[s] as bf16 pairs
+  float md[2] = {0.f, 0.f};               // pooled mask
+  float mnext[2] = {mask_at(s0, pc), mask_at(s0, pc + 8)};
+
+  // o += y[s] @ wd[t]: the k16 step kc of A is y's fragments 2kc, 2kc+1
+  auto down = [&](int t) {
+#pragma unroll
+    for (int kc = 0; kc < kKD; ++kc) {
+      const int hi = min(2 * kc + 1, NT - 1);
+      const bool has_hi = 2 * kc + 1 < NT;
+      const unsigned a[4] = {yp[2 * kc][0], yp[2 * kc][1],
+                             has_hi ? yp[hi][0] : 0u,
+                             has_hi ? yp[hi][1] : 0u};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        unsigned b0, b1;
+        ldsm_x2(b0, b1,
+                wd0 + ((t * kNP + nt * 8 + bn) * kKRow + kc * 16 + bh * 8) *
+                          2);
+        conv_tile::mma_bf16(o[nt], a, b0, b1);
+      }
+    }
+  };
+
+#pragma unroll 1
+  for (int s = s0; s <= s1; ++s) {
+    __syncthreads();                      // the slot of plane s-2 is free
+    if (s + 2 <= s1 + 1) load_plane(s + 2);
+    wgmma::cp_async_commit();
+    wgmma::cp_async_wait<1>();            // planes up to s+1 have landed
+    __syncthreads();
+    const float m[2] = {mnext[0], mnext[1]};
+    if (s < s1) {
+      mnext[0] = mask_at(s + 1, pc);
+      mnext[1] = mask_at(s + 1, pc + 8);
+    }
+
+    // subm slice s of this warp's row
+    float acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
+    }
+#pragma unroll 1
+    for (int ch = 0; ch < chunks; ++ch) {
+#pragma unroll 1
+      for (int kz = 0; kz < 3; ++kz) {
+        const unsigned plane =
+            ring0 + ((s + 3 + kz) & 3) * L.slot + ch * kWin * 32;
+        const unsigned wt = ws0 + (ch * 27 + kz * 9) * kNP * 32;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const int px = (warp + dy) * kWinW + am + dx;
+            unsigned a[4];
+            ldsm_x4(a, plane + px * 32 + (((ah ^ (px >> 2)) & 1) << 4));
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              // row (tap, nt*8 + bn); its bit 2 is bn's
+              const int r = (dy * 3 + dx) * kNP + nt * 8 + bn;
+              unsigned b0, b1;
+              ldsm_x2(b0, b1, wt + r * 32 + (((bh ^ (bn >> 2)) & 1) << 4));
+              conv_tile::mma_bf16(acc[nt], a, b0, b1);
+            }
+          }
+        }
+      }
+    }
+
+    // y = round(relu(acc * a_s + b_s) * mask), packed as A fragments
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = nt * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        yp[nt][hh] = pack_bf16(
+            fmaxf(acc[nt][2 * hh] * vs[n] + vs[64 + n], 0.f) * m[hh],
+            fmaxf(acc[nt][2 * hh + 1] * vs[n + 1] + vs[65 + n], 0.f) * m[hh]);
+      }
+    }
+
+    if (s & 1) {
+      down(1);
+      md[0] = fmaxf(md[0], m[0]);
+      md[1] = fmaxf(md[1], m[1]);
+      continue;
+    }
+    if (s > s0) {
+      // tap 2 finishes output slice s/2 - 1
+      down(2);
+      md[0] = fmaxf(md[0], m[0]);
+      md[1] = fmaxf(md[1], m[1]);
+      __syncthreads();                    // every warp is done with the ring
+      bf16* sg = reinterpret_cast<bf16*>(
+          (L.stg < 0 ? ring + ((s + 3) & 3) * L.slot : smem + L.stg) +
+          warp * kTW * L.stride * 2);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = nt * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          bf16* d = sg + (pc + 8 * hh) * L.stride + n;
+          if (n < Co) {
+            d[0] = __float2bfloat16_rn(
+                fmaxf(o[nt][2 * hh] * vs[128 + n] + vs[192 + n], 0.f) *
+                md[hh]);
+          }
+          if (n + 1 < Co) {
+            d[1] = __float2bfloat16_rn(
+                fmaxf(o[nt][2 * hh + 1] * vs[129 + n] + vs[193 + n], 0.f) *
+                md[hh]);
+          }
+        }
+      }
+      __syncwarp();
+      if (row < H) {
+        const int npx = min(kTW, W - w0);
+        bf16* g = out + ((static_cast<long long>(b) * Dout + s / 2 - 1) * hw +
+                         static_cast<long long>(row) * W + w0) *
+                            Co;
+        if (Co % 8 == 0) {
+          const int q = Co / 8;
+          for (int i = lane; i < npx * q; i += 32) {
+            const int p = i / q;
+            const int k = i - p * q;
+            *reinterpret_cast<uint4*>(g + p * Co + 8 * k) =
+                *reinterpret_cast<const uint4*>(sg + p * L.stride + 8 * k);
+          }
+        } else {
+          // staged flat: the warp's npx pixels are one contiguous span
+          const int n = npx * Co;
+          if ((reinterpret_cast<uintptr_t>(g) & 15) == 0 && n % 8 == 0) {
+            for (int i = lane; i < n / 8; i += 32) {
+              reinterpret_cast<uint4*>(g)[i] =
+                  reinterpret_cast<const uint4*>(sg)[i];
+            }
+          } else {
+            for (int i = lane; i < n; i += 32) g[i] = sg[i];
+          }
+        }
+      }
+    }
+    if (s < s1) {
+      // tap 0 starts output slice s/2
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[nt][j] = 0.f;
+      }
+      down(0);
+      md[0] = m[0];
+      md[1] = m[1];
+    }
+  }
+  wgmma::cp_async_wait<0>();
+}
+
+int launch_mma(const void* x, const void* mask, const void* ws,
+               const void* wd, const void* vec, void* out, int B, int D,
+               int H, int W, int C, int Co, int np, void* stream) {
+  const int dout = (D - 3) / 2 + 1;
+  const Layout L = layout((C + 15) / 16, np, Co);
+  const long long tiles_h = (H + kTH - 1) / kTH;
+  const long long tiles_w = (W + kTW - 1) / kTW;
+  if (Co > np || L.total > kMaxSmem || tiles_h > 65535 ||
+      tiles_w > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const int pb = (C % 8 == 0 && xa % 16 == 0)  ? 16
+                 : (C % 4 == 0 && xa % 8 == 0) ? 8
+                                               : 0;
+  return conv_tile::by_packed_width<8>(np, [&](auto nt) {
+    constexpr int kNT = decltype(nt)::value;
+    auto go = [&](auto kern) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+      int dev = 0;
+      int sms = 0;
+      int per_sm = 0;
+      if (err == cudaSuccess) err = cudaGetDevice(&dev);
+      if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      }
+      if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                            kThreads, L.total);
+      }
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+      // z runs of zpc output slices: the fewest waves of blocks times the
+      // subm slices a run computes (2 zpc + 1)
+      const long long tiles = tiles_h * tiles_w * B;
+      const long long slots = static_cast<long long>(sms) * per_sm;
+      long long best = LLONG_MAX;
+      int zpc = dout;
+      for (int nz = 1; nz <= dout && nz <= 16; ++nz) {
+        const int run = (dout + nz - 1) / nz;
+        const long long used = (dout + run - 1) / run;
+        if (B * used > 65535) break;
+        const long long cost = (tiles * used + slots - 1) / slots *
+                               (2 * run + 1);
+        if (cost < best) {
+          best = cost;
+          zpc = run;
+        }
+      }
+      if (best == LLONG_MAX) return static_cast<int>(cudaErrorInvalidValue);
+      const int nzc = (dout + zpc - 1) / zpc;
+      const dim3 grid(static_cast<unsigned>(tiles_w),
+                      static_cast<unsigned>(tiles_h), B * nzc);
+      kern<<<grid, kThreads, L.total, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(mask),
+          static_cast<const bf16*>(ws), static_cast<const bf16*>(wd),
+          static_cast<const float*>(vec), static_cast<bf16*>(out), D, dout,
+          H, W, C, Co, zpc, nzc, L);
+      return static_cast<int>(cudaGetLastError());
+    };
+    if (pb == 16) return go(fused_stage_mma_kernel<kNT, 16>);
+    if (pb == 8) return go(fused_stage_mma_kernel<kNT, 8>);
+    return go(fused_stage_mma_kernel<kNT, 0>);
   });
 }
 
 }  // namespace
 
-// K8.  x: (B, D, H, W, C) and mask: (B, D, H, W) of one type; wd:
-// (3, Co, Co) down weights and vec: (4, Co) rows a_s, b_s, a_d, b_d,
-// float32; out: (B, (D-3)/2+1, H, W, Co) of the input type.  float32
-// (dtype 0): ws is the (3, 3, 3, C, Co) float32 subm weight and the
-// CUDA-core subm body runs.  bf16 (dtype 1): ws is the bf16 subm weight
-// packed as (ceil(C/16), 27, np, 16) (conv_tile.cuh), np in {24, 32, 64}
-// and >= Co, and the tensor-core subm body runs.  All contiguous; D >= 3,
-// 1 <= Co <= 64, B * ((D-3)/2+1) <= 65535.  Returns cudaGetLastError()
-// after the launch (0 on success).
+// K8.  x: (B, D, H, W, C) and mask: (B, D, H, W) of one type; vec: (4, Co)
+// rows a_s, b_s, a_d, b_d, float32; out: (B, (D-3)/2+1, H, W, Co) of the
+// input type.  float32 (dtype 0): ws is the (3, 3, 3, C, Co) subm weight
+// and wd the (3, Co, Co) down weight, both float32, the CUDA-core body
+// runs, and B * ((D-3)/2+1) <= 65535.  bf16 (dtype 1): ws is the subm
+// weight packed as (ceil(C/16), 27, np, 16) (conv_tile.cuh) and wd the down
+// weight packed as (3, np, 16 * ceil(np/16)) by
+// ops/fused_stage.py::down_weights, np in {24, 32, 64} and >= Co; the
+// tensor-core body runs, its weights must fit in shared memory (C <= 32 at
+// np 64), B <= 65535 and ceil(H/8) <= 65535.  All contiguous; D >= 3,
+// 1 <= Co <= 64.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int fused_stage(const void* x, const void* mask, const void* ws,
                            const void* wd, const void* vec, void* out, int B,
                            int D, int H, int W, int C, int Co, int np,
                            int dtype, void* stream) {
-  if (B <= 0 || D < 3 || H <= 0 || W <= 0 || C <= 0 ||
-      B * ((D - 3) / 2 + 1) > 65535) {
+  if (B <= 0 || D < 3 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || Co > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0) {
-    return launch<float>(x, mask, ws, wd, vec, out, B, D, H, W, C, Co, np,
-                         stream);
+    return launch_f32(x, mask, ws, wd, vec, out, B, D, H, W, C, Co, stream);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, mask, ws, wd, vec, out, B, D, H, W, C,
-                                 Co, np, stream);
+    return launch_mma(x, mask, ws, wd, vec, out, B, D, H, W, C, Co, np,
+                      stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

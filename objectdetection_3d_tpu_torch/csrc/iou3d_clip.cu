@@ -17,21 +17,26 @@
 // (12 polygons x 6 planes x the ring compaction below) against 40 bytes of
 // traffic, far above the card's 20 flops per byte for float32.
 //
-// Design: one thread per pair (K7: one thread per anchor, clipping both of
-// its GTs in turn).  The (G, 10) table -- 9 box fields and a validity flag
-// per row -- sits in shared memory, and the gather is a plain load from it
-// (the TPU kernel's one-hot matrix product exists only because the TPU has
-// no cheap gather).  Each polygon's ring lives in registers: every loop is
-// unrolled, so ring slots have compile-time indices.  The ring schedule is
-// the TPU body's: kSlots[p] slots enter plane p and kCaps[p] leave it; each
-// slot's kept vertex, then its edge's crossing point, is placed at its
-// running position, and the count is min(run, cap).  The arithmetic is the
-// body's operation for operation (the build passes -fmad=false), so the
-// kernel agrees with its plain PyTorch version (ops/iou3d.py) up to the
-// last bits of sinf/cosf.
-//
-// The clipper is the one __device__ function `pair_volume`; K5 is its
-// entry without a gather or an IoU.
+// Design.  The clipper is one thread per pair with the ring in registers:
+// every loop is unrolled, so ring slots have compile-time indices.  The
+// ring schedule is the TPU body's: kSlots[p] slots enter plane p and
+// kCaps[p] leave it; each slot's kept vertex, then its edge's crossing
+// point, is placed at its running position, and the count is min(run,
+// cap).  The arithmetic is the body's operation for operation (the build
+// passes -fmad=false), so the kernels agree with their plain PyTorch
+// versions (ops/iou3d.py) up to the last bits of sinf/cosf.
+// K6 and K7 (the gather of a (G, 10) table row -- 9 box fields and a
+// validity flag -- against an aligned box) skip the clips that provably
+// add nothing: at the flagship most anchors lie metres from both of their
+// top-2 trees.  Three launches: (1) one thread per table row computes its
+// frame, corners and pushed-out planes once (a pair no longer pays the
+// row's sinf/cosf); (2) one thread per pair runs a separating-plane test
+// per direction (below) and writes 0 for every pair it clears, appending
+// the rest to a list through one atomic per warp; (3) a grid of resident
+// blocks clips the listed (pair, stream) items densely, so warps do not
+// idle on cleared lanes.  Outputs are indexed by pair, so the list's order
+// does not matter.
+// K5 is the clipper's entry without a gather, test or IoU (`pair_volume`).
 
 #include <cuda_runtime.h>
 
@@ -243,47 +248,174 @@ __device__ float pair_volume(const Frame& b1, const Frame& b2) {
   return vol;
 }
 
-__device__ __forceinline__ float gathered_iou(const float* row,
-                                              const Frame& b2,
-                                              float vol2) {
-  Frame b1;
-  load_frame(row, b1);
-  float inter = fmaxf(pair_volume(b1, b2), 0.f);
-  const float vol1 = b1.f[3] * b1.f[4] * b1.f[5];
-  const float uni = vol1 + vol2 - inter;
-  const float iou = uni > kUnionEps ? inter / fmaxf(uni, kUnionEps) : 0.f;
-  return iou * row[9];
+// ---- K6, K7: the separating-plane test, then the clip of what it leaves --
+//
+// A face ring of box 1 entering plane P of box 2 (pulled in by kShrink)
+// holds box 1's corners and clamped convex combinations of them.  If all 8
+// corners lie beyond P by more than kEps + kMargin, every ring vertex does
+// too -- the crossing points' rounding, at coordinates of tens of metres,
+// moves them by ~1e-5, and the plain version's sinf/cosf move the corners
+// and planes by less -- so P keeps no vertex and crosses no edge, the ring
+// leaves empty, and the 6 faces add exactly 0.0f, here and in the plain
+// version alike.  The same holds for box 2's faces against box 1's planes
+// pushed out.  A pair cleared both ways has inter = 0 and IoU exactly 0; a
+// pair cleared one way clips only the other (adding +0.0f changes no sum).
+constexpr float kMargin = 1e-3f;
+// a table row's record: frame f[9], r[9], validity, pad, corners x[8],
+// y[8], z[8], the 6 planes pushed out by kShrink, pad
+constexpr int kRec = 72;
+constexpr int kRecValid = 18;
+constexpr int kRecCorners = 20;
+constexpr int kRecPlanes = 44;
+
+// the per-row work of every pair, once per row; thread 0 zeroes the count
+__global__ void __launch_bounds__(kThreads)
+row_records_kernel(const float* __restrict__ table, int g,
+                   float* __restrict__ rec, int* __restrict__ count) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i == 0) *count = 0;
+  if (i >= g) return;
+  Frame b;
+  load_frame(table + i * 10, b);
+  float* o = rec + static_cast<long long>(i) * kRec;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    o[k] = b.f[k];
+    o[9 + k] = b.r[k / 3][k % 3];
+  }
+  o[kRecValid] = table[i * 10 + 9];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    corner(b, k, o[kRecCorners + k], o[kRecCorners + 8 + k],
+           o[kRecCorners + 16 + k]);
+  }
+  float pl[6][4];
+  planes(b, kShrink, pl);
+#pragma unroll
+  for (int k = 0; k < 24; ++k) o[kRecPlanes + k] = pl[k / 4][k % 4];
 }
 
-__device__ __forceinline__ void load_table(const float* table, int g,
-                                           float* tab) {
-  for (int k = threadIdx.x; k < g * 10; k += blockDim.x) tab[k] = table[k];
-  __syncthreads();
+// some plane of pl has all 8 corners beyond it by more than kEps + kMargin
+__device__ __forceinline__ bool separated(const float (&pl)[6][4],
+                                          const float* cx, const float* cy,
+                                          const float* cz) {
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    bool all = true;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      all = all && pl[k][0] * cx[c] + pl[k][1] * cy[c] + pl[k][2] * cz[c] -
+                           pl[k][3] >
+                       kEps + kMargin;
+    }
+    any = any || all;
+  }
+  return any;
 }
 
-// table: (g, 10) rows of 9 box fields + validity; ids: (p,) and, for the
-// pair kernel, a second (p,) stream; boxes2: (p, 9); out: (nstreams, p)
+// One thread per pair p: for each stream, IoU 0 where the id is out of
+// range, the row invalid or the test clears both directions; every other
+// (pair, stream) is appended to `list` as p << 3 | stream << 2 | (box 2's
+// faces cleared) << 1 | (box 1's faces cleared), through one atomic per
+// warp.
 template <int kStreams>
 __global__ void __launch_bounds__(kThreads)
-iou_gathered_kernel(const float* __restrict__ table, int g,
-                    const int* __restrict__ ids_a,
-                    const int* __restrict__ ids_b,
-                    const float* __restrict__ boxes2,
-                    float* __restrict__ out, long long p) {
-  extern __shared__ float tab[];
-  load_table(table, g, tab);
+separation_kernel(const float* __restrict__ rec, int g,
+                  const int* __restrict__ ids_a, const int* __restrict__ ids_b,
+                  const float* __restrict__ boxes2, float* __restrict__ out,
+                  long long p, int* __restrict__ count,
+                  unsigned* __restrict__ list) {
   const long long t = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
-  if (t >= p) return;
+  const bool live = t < p;
+  const int lane = threadIdx.x & 31;
   Frame b2;
-  load_frame(boxes2 + t * 9, b2);
-  const float vol2 = b2.f[3] * b2.f[4] * b2.f[5];
+  load_frame(boxes2 + (live ? t : 0) * 9, b2);
+  float cx[8], cy[8], cz[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) corner(b2, k, cx[k], cy[k], cz[k]);
+  float pl2[6][4];
+  planes(b2, -kShrink, pl2);
 #pragma unroll 1
   for (int st = 0; st < kStreams; ++st) {
-    const int id = st == 0 ? ids_a[t] : ids_b[t];
-    out[st * p + t] = (id >= 0 && id < g)
-                          ? gathered_iou(tab + id * 10, b2, vol2)
-                          : 0.f;
+    bool need = false;
+    unsigned item = 0;
+    if (live) {
+      const int id = st == 0 ? ids_a[t] : ids_b[t];
+      if (id >= 0 && id < g && __ldg(rec + id * kRec + kRecValid) != 0.f) {
+        const float* r = rec + id * kRec;
+        float pl1[6][4];
+#pragma unroll
+        for (int k = 0; k < 24; ++k) {
+          pl1[k / 4][k % 4] = __ldg(r + kRecPlanes + k);
+        }
+        float rx[8], ry[8], rz[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          rx[k] = __ldg(r + kRecCorners + k);
+          ry[k] = __ldg(r + kRecCorners + 8 + k);
+          rz[k] = __ldg(r + kRecCorners + 16 + k);
+        }
+        const bool c1 = separated(pl2, rx, ry, rz);
+        const bool c2 = separated(pl1, cx, cy, cz);
+        need = !(c1 && c2);
+        item = static_cast<unsigned>(t) << 3 | st << 2 | (c2 ? 2u : 0u) |
+               (c1 ? 1u : 0u);
+      }
+      if (!need) out[st * p + t] = 0.f;
+    }
+    const unsigned want = __ballot_sync(0xffffffffu, need);
+    if (want != 0) {
+      const int leader = __ffs(want) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(count, __popc(want));
+      base = __shfl_sync(0xffffffffu, base, leader);
+      if (need) list[base + __popc(want & ((1u << lane) - 1u))] = item;
+    }
+  }
+}
+
+// The clips the test left, densely: list items i, i + stride, ... of the
+// count the test wrote.
+__global__ void __launch_bounds__(kThreads)
+clip_kernel(const float* __restrict__ rec, const int* __restrict__ ids_a,
+            const int* __restrict__ ids_b, const float* __restrict__ boxes2,
+            float* __restrict__ out, long long p,
+            const int* __restrict__ count,
+            const unsigned* __restrict__ list) {
+  const int n = *count;
+#pragma unroll 1
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += gridDim.x * kThreads) {
+    const unsigned item = list[i];
+    const long long t = item >> 3;
+    const int st = (item >> 2) & 1;
+    const float* r = rec + (st == 0 ? ids_a[t] : ids_b[t]) * kRec;
+    Frame b1, b2;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      b1.f[k] = r[k];
+      b1.r[k / 3][k % 3] = r[9 + k];
+    }
+    load_frame(boxes2 + t * 9, b2);
+    // pair_volume, without the directions the test cleared
+    float pl[6][4];
+    float vol = 0.f;
+    if (!(item & 1u)) {
+      planes(b2, -kShrink, pl);
+      add_face_volumes(b1, pl, vol);
+    }
+    if (!(item & 2u)) {
+      planes(b1, kShrink, pl);
+      add_face_volumes(b2, pl, vol);
+    }
+    const float inter = fmaxf(vol, 0.f);
+    const float vol1 = b1.f[3] * b1.f[4] * b1.f[5];
+    const float vol2 = b2.f[3] * b2.f[4] * b2.f[5];
+    const float uni = vol1 + vol2 - inter;
+    const float iou = uni > kUnionEps ? inter / fmaxf(uni, kUnionEps) : 0.f;
+    out[st * p + t] = iou * r[kRecValid];
   }
 }
 
@@ -301,13 +433,14 @@ aligned_volume_kernel(const float* __restrict__ boxes1,
   out[t] = pair_volume(b1, b2);
 }
 
+// K6 (streams 1) and K7 (streams 2): the row records, the test, then the
+// clips on a grid of as many blocks as fit on the card at once.
 int launch(int streams, const void* table, int g, const void* ids_a,
            const void* ids_b, const void* boxes2, void* out, long long p,
-           void* stream) {
+           void* rec, void* work, void* stream) {
   if (p <= 0) return 0;
-  const long long blocks = (p + kThreads - 1) / kThreads;
-  const size_t smem = static_cast<size_t>(g) * 10 * sizeof(float);
-  if (g <= 0 || smem > 48 * 1024 || blocks > 0x7fffffffLL) {
+  // list items hold p << 3
+  if (g <= 0 || p >= (1LL << 29)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -316,32 +449,59 @@ int launch(int streams, const void* table, int g, const void* ids_a,
   const int* ib = static_cast<const int*>(ids_b);
   const float* b2 = static_cast<const float*>(boxes2);
   float* o = static_cast<float*>(out);
+  float* rc = static_cast<float*>(rec);
+  int* count = static_cast<int*>(work);
+  unsigned* list = reinterpret_cast<unsigned*>(count + 1);
+  row_records_kernel<<<(g + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      tb, g, rc, count);
+  const unsigned blocks = static_cast<unsigned>((p + kThreads - 1) / kThreads);
   if (streams == 1) {
-    iou_gathered_kernel<1><<<static_cast<unsigned>(blocks), kThreads, smem,
-                             s>>>(tb, g, ia, ia, b2, o, p);
+    separation_kernel<1><<<blocks, kThreads, 0, s>>>(rc, g, ia, ia, b2, o, p,
+                                                     count, list);
   } else {
-    iou_gathered_kernel<2><<<static_cast<unsigned>(blocks), kThreads, smem,
-                             s>>>(tb, g, ia, ib, b2, o, p);
+    separation_kernel<2><<<blocks, kThreads, 0, s>>>(rc, g, ia, ib, b2, o, p,
+                                                     count, list);
   }
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, clip_kernel,
+                                                        kThreads, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long most = (streams * p + kThreads - 1) / kThreads;
+  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  grid = grid < most ? grid : most;
+  clip_kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+      rc, ia, streams == 1 ? ia : ib, b2, o, p, count, list);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K6.  table: (g, 10) float32; ids: (p,) int32; boxes2: (p, 9) float32;
-// out: (p,) float32; stream: cudaStream_t.  Returns cudaGetLastError()
-// after the launch (0 on success).
+// K6.  table: (g, 10) float32, 9 box fields and validity per row; ids:
+// (p,) int32; boxes2: (p, 9) float32; out: (p,) float32; rec: (g, 72)
+// float32 and work: (1 + p) int32 scratch; stream: cudaStream_t.  p <
+// 2^29.  Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int iou_gathered(const void* table, int g, const void* ids,
                             const void* boxes2, void* out, long long p,
-                            void* stream) {
-  return launch(1, table, g, ids, ids, boxes2, out, p, stream);
+                            void* rec, void* work, void* stream) {
+  return launch(1, table, g, ids, ids, boxes2, out, p, rec, work, stream);
 }
 
-// K7.  As K6 with two id streams; out: (2, p) float32.
+// K7.  As K6 with two id streams; out: (2, p) float32; work: (1 + 2p)
+// int32.
 extern "C" int iou_gathered_pair(const void* table, int g, const void* ids_a,
                                  const void* ids_b, const void* boxes2,
-                                 void* out, long long p, void* stream) {
-  return launch(2, table, g, ids_a, ids_b, boxes2, out, p, stream);
+                                 void* out, long long p, void* rec,
+                                 void* work, void* stream) {
+  return launch(2, table, g, ids_a, ids_b, boxes2, out, p, rec, work,
+                stream);
 }
 
 // K5.  boxes1, boxes2: (p, 9) float32; out: (p,) float32 intersection

@@ -12,7 +12,10 @@ package's ``tools/profile_assign.py`` times over the tier's pairs.
 On a CUDA tensor a wrapper launches the hand-written kernel in
 ``csrc/iou3d_clip.cu``; on a CPU tensor it runs the plain version, the
 plain clipper of ``ops/iou3d.py`` (after the row gather, for K6/K7).  A
-CUDA tensor never takes the plain version.
+CUDA tensor never takes the plain version.  K6 and K7 first run a
+separating-plane test per pair (``ops/iou3d.separated_directions`` is its
+plain version) and clip only what it cannot clear; the wrappers allocate
+the kernels' scratch (per-row records and the list of pairs to clip).
 """
 
 import ctypes
@@ -28,16 +31,19 @@ from objectdetection_3d_tpu_torch.ops.iou3d import (
     intersection_volume_aligned as intersection_volume_aligned_plain,
 )
 
-#: table rows the kernels hold in shared memory (10 floats each)
+#: table rows the kernels take
 MAX_TABLE_ROWS = 1024
+#: floats of a table row's record in the kernels' scratch
+_ROW_RECORD = 72
 
 _ARGS_ONE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_void_p]
 _ARGS_ALIGNED = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_longlong]
 _ARGS_PAIR = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_longlong]
+              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def iou_gathered_plain(table, valid, ids, boxes2):
@@ -78,7 +84,16 @@ def _check(table, valid, id_streams, boxes2):
     if dev.type == "cuda" and not 0 < g <= MAX_TABLE_ROWS:
         raise ValueError(f"the kernels hold 1..{MAX_TABLE_ROWS} table rows, "
                          f"got {g}")
+    if dev.type == "cuda" and p >= 2 ** 29:
+        raise ValueError(f"the kernels take fewer than 2^29 pairs, got {p}")
     return dev
+
+
+def _scratch(g, streams, p, dev):
+    """The kernels' scratch: (g, 72) float32 row records, and an int32
+    count followed by room for ``streams * p`` list items."""
+    return (torch.empty((g, _ROW_RECORD), dtype=torch.float32, device=dev),
+            torch.empty((1 + streams * p,), dtype=torch.int32, device=dev))
 
 
 def _table10(table, valid):
@@ -106,9 +121,11 @@ def iou_gathered(table, valid, ids, boxes2):
     ids = ids.contiguous()
     b2 = boxes2.float().contiguous()
     out = torch.empty((p,), dtype=torch.float32, device=dev)
+    rec, work = _scratch(tab.shape[0], 1, p, dev)
     cuda_lib.launch("iou3d_clip", "iou_gathered", _ARGS_ONE,
                     (tab.data_ptr(), tab.shape[0], ids.data_ptr(),
-                     b2.data_ptr(), out.data_ptr(), p), dev)
+                     b2.data_ptr(), out.data_ptr(), p, rec.data_ptr(),
+                     work.data_ptr()), dev)
     iou_gathered.launches += 1
     return out
 
@@ -128,10 +145,11 @@ def iou_gathered_pair(table, valid, ids_a, ids_b, boxes2):
     ids_a, ids_b = ids_a.contiguous(), ids_b.contiguous()
     b2 = boxes2.float().contiguous()
     out = torch.empty((2, p), dtype=torch.float32, device=dev)
+    rec, work = _scratch(tab.shape[0], 2, p, dev)
     cuda_lib.launch("iou3d_clip", "iou_gathered_pair", _ARGS_PAIR,
                     (tab.data_ptr(), tab.shape[0], ids_a.data_ptr(),
-                     ids_b.data_ptr(), b2.data_ptr(), out.data_ptr(), p),
-                    dev)
+                     ids_b.data_ptr(), b2.data_ptr(), out.data_ptr(), p,
+                     rec.data_ptr(), work.data_ptr()), dev)
     iou_gathered_pair.launches += 1
     return out[0], out[1]
 

@@ -48,6 +48,10 @@ FACES_OUTWARD = (
 )
 #: aligned pairs clipped per chunk of the plain clipper
 PAIR_CHUNK = 1 << 15
+#: how far (metres) beyond ``_EPS`` every corner must lie for the
+#: separating-plane test to clear a direction: it covers the rounding of
+#: crossing points at tens of metres and sinf/cosf's last bits
+SEPARATION_MARGIN = 1e-3
 
 
 def _rot_entries(rx, ry, rz):
@@ -163,6 +167,42 @@ def _clip_chunk(b1, b2):
     for row in range(1, 12):
         vol = vol + total[row]
     return vol
+
+
+def _beyond(corners, planes, shift):
+    """(T,) bool: all 8 corners lie beyond one of the 6 planes (offsets
+    moved by ``shift``) by more than ``_EPS + SEPARATION_MARGIN``."""
+    nx, ny, nz, off = planes
+    s = (nx[:, None] * corners[0][None] + ny[:, None] * corners[1][None]
+         + nz[:, None] * corners[2][None] - (off + shift)[:, None])
+    return (s > _EPS + SEPARATION_MARGIN).all(dim=1).any(dim=0)
+
+
+def separated_directions(boxes1, boxes2):
+    """The separating-plane test that the K6/K7 kernels run before the
+    clip, for aligned (P, 9) pairs -> (P, 2) bool.
+
+    Column 0: all 8 corners of box 1 lie beyond one of box 2's planes
+    pulled in by ``_SHRINK`` by more than ``_EPS + SEPARATION_MARGIN``, so
+    the clipper keeps no vertex of box 1's faces there and they add
+    exactly 0.  Column 1: the same for box 2's corners against box 1's
+    planes pushed out.  A pair cleared in both columns has intersection
+    volume exactly 0.
+    """
+    b1 = boxes1.to(torch.float32).reshape(-1, 9)
+    b2 = boxes2.to(torch.float32).reshape(-1, 9)
+    out = []
+    for i in range(0, b1.shape[0], 8 * PAIR_CHUNK):
+        f1 = b1[i:i + 8 * PAIR_CHUNK].unbind(-1)
+        f2 = b2[i:i + 8 * PAIR_CHUNK].unbind(-1)
+        r1, r2 = _rot_entries(*f1[6:]), _rot_entries(*f2[6:])
+        out.append(torch.stack([
+            _beyond(_corners(f1, r1), _planes(f2, r2), -_SHRINK),
+            _beyond(_corners(f2, r2), _planes(f1, r1), _SHRINK)],
+            dim=-1))
+    if not out:
+        return torch.zeros((0, 2), dtype=torch.bool, device=b1.device)
+    return torch.cat(out)
 
 
 def intersection_volume_aligned(boxes1, boxes2):

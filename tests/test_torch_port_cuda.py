@@ -48,6 +48,7 @@ from objectdetection_3d_tpu_torch.ops.grid_scatter import (
     scatter_to_grid,
     scatter_to_grid_plain,
 )
+from objectdetection_3d_tpu_torch.ops.iou3d import separated_directions
 from objectdetection_3d_tpu_torch.ops.pallas_conv import (
     subm_conv3d,
     subm_conv3d_plain,
@@ -176,16 +177,67 @@ def _random_pairs(rng, p):
     return b1, b2
 
 
-@pytest.mark.parametrize("p", [1, 1000, 70000])
-def test_gathered_iou_kernels_match_plain(cuda, p):
-    rng = np.random.default_rng(p)
+def _separation_cases(rng, g):
+    """A (g, 9) table of trunk-like boxes (rows 0-3 upright) and, per row
+    id in ids, an aligned box: far apart, 1.2 mm and 0.8 mm beyond a face
+    (just outside and inside the separating-plane test's 1 mm margin),
+    touching a face, nested, and in each 32-pair run (a warp) alternately
+    identical and 20 m away."""
+    table = np.zeros((g, 9), np.float32)
+    table[:, :2] = rng.uniform(0, 40, (g, 2))
+    table[:, 2] = rng.uniform(0, 0.5, g)
+    table[:, 3:5] = rng.uniform(0.3, 1.5, (g, 2))
+    table[:, 5] = rng.uniform(5, 20, g)
+    table[:, 6:9] = rng.uniform(-0.3, 0.3, (g, 3))
+    table[:4, 6:9] = 0
+    ids, boxes = [], []
+    for k in range(8 * 64):
+        case = k % 8
+        i = int(rng.integers(0, 4 if case in (1, 2, 3) else g))
+        b = table[i].copy()
+        if case == 0:                          # far apart
+            b[:2] += rng.choice([-1, 1], 2) * rng.uniform(10, 30, 2)
+        elif case in (1, 2, 3):                # a face gap of 1.2, 0.8, 0 mm
+            b[0] += b[3] + (1.2e-3, 0.8e-3, 0.0)[case - 1]
+        elif case == 4:                        # nested
+            b[3:6] *= 0.5
+        elif case == 5:                        # overlapping
+            b[:3] += rng.normal(0, 0.3, 3)
+            b[6:9] += rng.normal(0, 0.1, 3)
+        ids.append(i)
+        boxes.append(b)
+    # a warp of alternating identical and far-apart pairs
+    for lane in range(32):
+        i = int(rng.integers(0, g))
+        b = table[i].copy()
+        if lane % 2:
+            b[1] += 20.0
+        ids.append(i)
+        boxes.append(b)
+    return table, np.array(ids, np.int32), np.stack(boxes)
+
+
+@pytest.mark.parametrize("case", ["random-1", "random-1000", "random-70000",
+                                  "separation"])
+def test_gathered_iou_kernels_match_plain(cuda, case):
     g = 37
-    table, boxes2 = _random_pairs(rng, max(p, g))
-    table = torch.from_numpy(table[:g]).to(cuda)
-    boxes2 = torch.from_numpy(boxes2[:p]).to(cuda)
+    if case == "separation":
+        rng = np.random.default_rng(5)
+        table, ids_a, boxes2 = _separation_cases(rng, g)
+        p = len(ids_a)
+        ids_b = rng.integers(0, g, p).astype(np.int32)
+    else:
+        p = int(case.split("-")[1])
+        rng = np.random.default_rng(p)
+        table, boxes2 = _random_pairs(rng, max(p, g))
+        table, boxes2 = table[:g], boxes2[:p]
+        ids_a = rng.integers(0, g, p).astype(np.int32)
+        ids_b = rng.integers(0, g, p).astype(np.int32)
+    table = torch.from_numpy(table).to(cuda)
+    boxes2 = torch.from_numpy(boxes2).to(cuda)
     valid = torch.from_numpy(rng.uniform(size=g) > 0.2).to(cuda)
-    ids_a = torch.from_numpy(rng.integers(0, g, p).astype(np.int32)).to(cuda)
-    ids_b = torch.from_numpy(rng.integers(0, g, p).astype(np.int32)).to(cuda)
+    ids_a = torch.from_numpy(ids_a).to(cuda)
+    ids_b = torch.from_numpy(ids_b).to(cuda)
     before = (iou_gathered.launches, iou_gathered_pair.launches)
     one = iou_gathered(table, valid, ids_a, boxes2)
     pair = iou_gathered_pair(table, valid, ids_a, ids_b, boxes2)
@@ -198,6 +250,14 @@ def test_gathered_iou_kernels_match_plain(cuda, p):
     for got, want in zip(pair, want_pair):
         assert (got - want).abs().max() <= 1e-5
     assert torch.equal(pair[0], one)
+    # pairs the separating-plane test clears are exactly 0 in both
+    for ids, got, want in zip((ids_a, ids_b), pair, want_pair):
+        cleared = separated_directions(table[ids.long()], boxes2).all(-1)
+        assert bool((got[cleared] == 0).all())
+        assert bool((want[cleared] == 0).all())
+        if case == "separation" and ids is ids_a:
+            assert 0 < int(cleared.sum()) < p
+            assert int((want > 0).sum()) > 0
 
 
 def _grid_layout(rng, nc, device):
@@ -346,10 +406,24 @@ def test_conv2d_3x3_kernel_and_backward_match_plain(cuda, exact_fp32, dtype,
     _assert_rel(ka.grad, kb.grad, dtype)
 
 
+# (B, D, H, W, C, Co): Co 20, 32, 64 (and 7) over C 20, 32, 3 (and 24,
+# 12: 16- and 8-byte halo pieces, and C = 3 loaded element by element);
+# D = 3, even and odd; H, W not multiples of the 8 x 16 tile; D = 100 on
+# one tile, which the bf16 kernel cuts into z runs of 4 output slices,
+# the last of 1; and 200 tiles of 64 channels, more than one wave of
+# blocks.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 9, 16, 24, 20, 20),
                                    (2, 7, 13, 9, 20, 32),
-                                   (1, 6, 8, 40, 32, 64), (1, 3, 5, 5, 3, 7)])
+                                   (1, 6, 8, 40, 32, 64), (1, 3, 5, 5, 3, 7),
+                                   (1, 3, 9, 17, 20, 20),
+                                   (1, 8, 16, 16, 20, 32),
+                                   (2, 11, 9, 21, 32, 64),
+                                   (1, 5, 8, 16, 3, 64),
+                                   (1, 6, 11, 35, 24, 20),
+                                   (1, 7, 10, 18, 12, 32),
+                                   (1, 100, 8, 16, 20, 20),
+                                   (1, 7, 160, 160, 32, 64)])
 def test_fused_stage_kernel_matches_plain(cuda, exact_fp32, dtype, shape):
     b, d, h, w, c, co = shape
     rng = np.random.default_rng(sum(shape))
@@ -397,6 +471,10 @@ def test_conv_wrappers_reject_bad_input(cuda):
         fused_stage(x[:, :2], mask[:, :2], k3, kd, vec, vec, vec, vec)
     with pytest.raises(ValueError):            # mask of another shape
         fused_stage(x, mask[:, :3], k3, kd, vec, vec, vec, vec)
+    with pytest.raises(ValueError):            # C > 32
+        fused_stage(torch.zeros((1, 4, 8, 8, 33), device=cuda), mask,
+                    torch.zeros((3, 3, 3, 33, 20), device=cuda), kd, vec,
+                    vec, vec, vec)
     boxes = torch.zeros((5, 9), device=cuda)
     with pytest.raises(ValueError):            # unaligned pairs
         intersection_volume_aligned(boxes, boxes[:4])
