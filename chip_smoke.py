@@ -3,7 +3,11 @@
 
 Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--quick]
+
+``--quick`` runs phases 1-2, then K10 on cloud 0's stage 0-1 inputs and
+K3/K4 on its GT chunks 0-1 against their plain versions (phases 7 and
+10), and stops: the short first call after a kernel change.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -24,14 +28,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    detections the bf16 run matches (information, not a gate);
 7. assignment kernels: K3 and K4 bit-exact, K6 and K7 within 1e-5 of
    IoU, each against its plain version on cloud 0's real assignment
-   inputs (128 padded GT boxes, 1.92 M anchors, K = 512), both timed;
+   inputs (128 padded GT boxes, 1.92 M anchors, K = 512), both timed
+   (K3 on GT chunk 0, with 12 trees, and on chunk 1, whose 16 rows are
+   all padding, and over the step's 8 chunks back to back);
    every pair that the plain separating-plane test clears is exactly 0
    from K6/K7 and from their plain versions, and their bounds count the
    test plus the clips it leaves (beside the bound of clipping all);
 8. assignment: the flagship assignment of cloud 0 through the kernels
    and through their plain versions, both on the card: masks, labels,
    direction targets and ``best_gt`` under ``pos_mask`` equal, and
-   ``num_pos`` > 0;
+   ``num_pos`` > 0; then again with ``assign_exact_anchor_tier: false``:
+   equal, K7 not launched, and no more positives than the default;
 9. train: the flagship (bf16, B = 1) from the trained npz with AdamW (lr
    1e-3, betas (0.95, 0.99), weight decay 0.01, gradient value clip 2.0):
    one warm-up step, then 3 timed steps on clouds 1-3; every loss finite,
@@ -45,13 +52,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     with the npz weights, each against its plain version in float32
     (TF32 off; within 1e-3 of the largest element) and in bf16 (within
     1e-2), timed beside its bound and cuDNN's conv (K9 per stage and
-    direction, with its share of the bound); and K5 on 1.92 M
+    direction, with its share of the bound; K10 per stage beside K8 on
+    the same stage); and K5 on 1.92 M
     aligned (GT, anchor) pairs within 1e-5 of the volume scale, then
     driven once as the JAX package's ``tools/profile_assign.py`` drives
     it;
 11. predict under the lowering knobs: four clouds with ``fused_stages``
     (K8 exactly 3 launches per cloud) and four with ``pallas_subm_conv``
-    and ``zfold_pallas`` (K10 2 and K9 1 per cloud), outputs finite;
+    and ``zfold_pallas`` (K10 2 and K9 1 per cloud), outputs finite,
+    and whether K10's inputs there are contiguous (its wrapper's
+    ``contiguous()`` then copies nothing);
     cloud 0 in float32 under each knob set, whose pseudo-image must lie
     within 1e-3 of the largest element of the default path's; the bf16
     detections' agreement with the default path (information);
@@ -71,6 +81,8 @@ import time
 import numpy as np
 import torch
 
+from objectdetection_3d_tpu_torch.timing import cuda_ms, graph_ms
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(REPO, "artifacts", "overfit_ckpt.npz")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -88,20 +100,6 @@ CLIP_OPS_PER_PAIR = 12 * (49 * 23 + 10 * 16) + 560
 # corners x 7 (a 3-term dot product, the offset, the compare); a direction
 # it cannot clear costs half a clip (6 of the 12 polygons)
 TEST_OPS_PER_PAIR = 2 * 6 * 8 * 7
-
-
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def max_abs_err(a, b):
@@ -178,39 +176,26 @@ def stage_inputs(model, batch, stages):
     return out
 
 
-def encoder_kernels(model, batch):
-    """Phase 10, K8-K10: kernel entries {name: entry} for the JSON line."""
+def subm_conv_stages(enc, ins):
+    """K10 on the subm convs of stages 0 and 1, on cloud 0's real stage
+    inputs ``ins``: each held against its plain version in float32 (TF32
+    off) and bf16, then timed beside its bound and cuDNN's conv.  Returns
+    the per-stage rows."""
     import torch.nn.functional as F
 
-    from objectdetection_3d_tpu_torch.models.layers import zfold_operands
-    from objectdetection_3d_tpu_torch.ops.fused_stage import (
-        fused_stage,
-        fused_stage_plain,
-    )
     from objectdetection_3d_tpu_torch.ops.pallas_conv import (
         subm_conv3d,
         subm_conv3d_plain,
     )
-    from objectdetection_3d_tpu_torch.ops.zfold_conv import (
-        conv2d_3x3,
-        conv2d_3x3_plain,
-    )
 
-    enc = model.net.pseudoimage_generator
-    ins = stage_inputs(model, batch, 3)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    dts = (torch.float32, torch.bfloat16)
-    src = "objectdetection_3d_tpu_torch/csrc/"
-    stages = {"subm_conv3d": [], "conv2d_3x3": [], "fused_stage": []}
-
-    # ---- K10: subm conv of stages 0 and 1 -------------------------------
+    rows = []
     for i in (0, 1):
         x, _ = ins[i]
         xn = x.permute(0, 2, 3, 4, 1)
         kern = getattr(enc, f"subm_{i}_kernel").detach()
         k5 = kern.permute(2, 3, 4, 1, 0)
         pairs = {}
-        for dt in dts:
+        for dt in (torch.float32, torch.bfloat16):
             xi = xn.to(dt)
             pairs[dt] = [(subm_conv3d(xi, k5), subm_conv3d_plain(xi, k5))]
         torch.cuda.synchronize()
@@ -222,12 +207,138 @@ def encoder_kernels(model, batch):
         b_ms, b_by = bound(2 * b * d * h * w * (c + co) + 54 * c * co,
                            2 * 27 * c * co * b * d * h * w,
                            BF16_TC_OPS_PER_S)
-        stages["subm_conv3d"].append({
+        ms = cuda_ms(lambda: subm_conv3d(xn, k5), 10)
+        rows.append({
             "stage": i, "shape": [b, d, h, w, c, co], "max_abs_err": err,
-            "ms": cuda_ms(lambda: subm_conv3d(xn, k5), 10),
+            "ms": ms,
             "plain_ms": cuda_ms(lambda: subm_conv3d_plain(xn, k5), 1),
             "library_ms": cuda_ms(lambda: F.conv3d(x, klib, padding=1), 10),
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+            # the wrapper's x.contiguous() copies nothing when this holds
+            "input_contiguous": xn.is_contiguous()})
+    return rows
+
+
+def geometry_kernels(model, geom, gt_mask):
+    """K3 and K4 on cloud 0's flagship tables (``geometry_tier``'s
+    ``geom``): K3 bit-exact on chunk 0 (12 trees and 4 masked rows) and
+    chunk 1 (16 masked rows) and timed on both and on the step's 8 chunks
+    back to back; K4 bit-exact on chunk 0.  Returns their kernel
+    entries."""
+    from objectdetection_3d_tpu_torch.ops.assign_geometry import (
+        chunk_geometry,
+        chunk_geometry_plain,
+        containment_rescue,
+        containment_rescue_plain,
+    )
+    from objectdetection_3d_tpu_torch.scene import MAX_GT
+
+    combo, cells = model.combo_tab, model.anchor_layout[0]
+    n_cell, m_combo = cells.shape[0], combo.shape[1]
+    n_anchor = n_cell * m_combo
+    chunk_args = [(ftab, gid.int(), tabs, combo, cells, MAX_GT)
+                  for (ftab, tabs), gid in zip(geom["tables"],
+                                               geom["chunks"])]
+    timed = {}
+    for c in (0, 1):
+        args = chunk_args[c]
+        got = chunk_geometry(*args)
+        want = chunk_geometry_plain(*args)
+        torch.cuda.synchronize()
+        for key in want:
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"chunk_geometry output {key!r} differs "
+                                     f"from its plain version on chunk {c}")
+        real = int((args[0][:, 16] > 0).sum())
+        gch = args[0].shape[0]
+        # tables and cells read once; key, 9 per-anchor outputs, rmax
+        # written; the pair geometry of the chunk's unmasked rows
+        nbytes = 4 * (n_cell * 3 + gch * 18 + 12 * gch * m_combo
+                      + 16 * m_combo + gch * n_anchor + 9 * n_anchor
+                      + gch * n_cell)
+        b_ms, b_by = bound(nbytes, K3_OPS_PER_PAIR * real * n_anchor)
+        timed[c] = {"ms": graph_ms(lambda: chunk_geometry(*args), 10),
+                    "eager_ms": cuda_ms(lambda: chunk_geometry(*args), 20),
+                    "bound_ms": b_ms, "bound_by": b_by, "rows": real,
+                    "inside": int((got["cm"] > 0).sum())}
+        del got, want
+    entry = {
+        "name": "chunk_geometry", "route": "cuda",
+        "source": "objectdetection_3d_tpu_torch/csrc/assign_geometry.cu",
+        "replaces": "objectdetection_3d_tpu/ops/assign_geometry.py:358",
+        "max_abs_err": 0.0, "ms": timed[0]["ms"],
+        "eager_ms": timed[0]["eager_ms"],
+        "plain_ms": cuda_ms(lambda: chunk_geometry_plain(*chunk_args[0]), 3),
+        "bound_ms": timed[0]["bound_ms"], "bound_by": timed[0]["bound_by"],
+        "library_ms": None, "share": timed[0]["bound_ms"] / timed[0]["ms"],
+        "ms_padding_chunk": timed[1]["ms"],
+        "eager_ms_padding_chunk": timed[1]["eager_ms"],
+        "bound_padding_chunk_ms": timed[1]["bound_ms"],
+        "k3_step_ms": graph_ms(lambda: [chunk_geometry(*a)
+                                        for a in chunk_args], 2),
+        "k3_step_eager_ms": cuda_ms(lambda: [chunk_geometry(*a)
+                                             for a in chunk_args], 10),
+        "chunks_per_step": len(chunk_args)}
+    ftab, gid, tabs = chunk_args[0][:3]
+    rthr = torch.stack([geom["cont_row_max"][gid.long()],
+                        gt_mask[gid.long()].float()], dim=1).contiguous()
+    res_args = (ftab, rthr, tabs, combo, cells)
+    hit = containment_rescue(*res_args)
+    if not torch.equal(hit, containment_rescue_plain(*res_args)):
+        raise AssertionError("containment_rescue differs from its plain "
+                             "version")
+    b_ms, b_by = bound(4 * (n_cell * 3 + n_anchor),
+                       K4_OPS_PER_PAIR * ftab.shape[0] * n_anchor)
+    k4 = {
+        "name": "containment_rescue", "route": "cuda",
+        "source": "objectdetection_3d_tpu_torch/csrc/assign_geometry.cu",
+        "replaces": "objectdetection_3d_tpu/ops/assign_geometry.py:423",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: containment_rescue(*res_args), 20),
+        "graph_ms": graph_ms(lambda: containment_rescue(*res_args), 10),
+        "plain_ms": cuda_ms(lambda: containment_rescue_plain(*res_args), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    print(f"K3 chunk_geometry N={n_anchor}: bit-exact on all 11 outputs of "
+          f"chunk 0 ({timed[0]['rows']} trees, {timed[0]['inside']} anchors "
+          f"inside one) and chunk 1 ({timed[1]['rows']} unmasked rows); "
+          f"{entry['ms']:.4f} ms in a CUDA graph ({entry['eager_ms']:.4f} "
+          f"eager; bound {entry['bound_ms']:.4f}, share "
+          f"{entry['share']:.3f}) vs plain {entry['plain_ms']:.4f} ms; "
+          f"masked chunk {entry['ms_padding_chunk']:.4f} ms "
+          f"({entry['eager_ms_padding_chunk']:.4f} eager; bound "
+          f"{entry['bound_padding_chunk_ms']:.4f}); the step's "
+          f"{len(chunk_args)} chunks {entry['k3_step_ms']:.4f} ms "
+          f"({entry['k3_step_eager_ms']:.4f} eager); K4 "
+          f"containment_rescue: bit-exact ({int(hit.sum())} hits), "
+          f"{k4['ms']:.4f} ms ({k4['graph_ms']:.4f} in a CUDA graph) vs "
+          f"plain {k4['plain_ms']:.4f} ms", flush=True)
+    return {"chunk_geometry": entry, "containment_rescue": k4}
+
+
+def encoder_kernels(model, batch):
+    """Phase 10, K8-K10: kernel entries {name: entry} for the JSON line."""
+    import torch.nn.functional as F
+
+    from objectdetection_3d_tpu_torch.models.layers import zfold_operands
+    from objectdetection_3d_tpu_torch.ops.fused_stage import (
+        fused_stage,
+        fused_stage_plain,
+    )
+    from objectdetection_3d_tpu_torch.ops.zfold_conv import (
+        conv2d_3x3,
+        conv2d_3x3_plain,
+    )
+
+    enc = model.net.pseudoimage_generator
+    ins = stage_inputs(model, batch, 3)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dts = (torch.float32, torch.bfloat16)
+    src = "objectdetection_3d_tpu_torch/csrc/"
+    stages = {"conv2d_3x3": [], "fused_stage": []}
+
+    # ---- K10: subm conv of stages 0 and 1 -------------------------------
+    stages["subm_conv3d"] = subm_conv_stages(enc, ins)
 
     # ---- K9: folded subm conv of stages 0-2, forward and backward ------
     for i in (0, 1, 2):
@@ -314,6 +425,9 @@ def encoder_kernels(model, batch):
             "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms})
     del ins
     torch.cuda.empty_cache()
+    # K10 beside K8 on the same stage (K8 also runs the down conv)
+    for r in stages["subm_conv3d"]:
+        r["k8_ms"] = stages["fused_stage"][r["stage"]]["ms"]
 
     replaces = {"subm_conv3d": ("subm_conv3d.cu", "pallas_conv.py:107"),
                 "conv2d_3x3": ("zfold_conv.cu", "zfold_conv.py:93"),
@@ -337,8 +451,11 @@ def encoder_kernels(model, batch):
             print(f"{name} stage {r['stage']} {r['shape']}: "
                   f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, "
                   f"library {r['library_ms']}, "
-                  + (f"unfused {r['unfused_ms']:.4f} ms, share of bound "
-                     f"{r['share']:.3f}, " if "unfused_ms" in r else "") +
+                  + (f"unfused {r['unfused_ms']:.4f} ms, " if "unfused_ms"
+                     in r else "")
+                  + (f"K8 {r['k8_ms']:.4f} ms, " if "k8_ms" in r else "")
+                  + (f"share of bound {r['share']:.3f}, " if "share" in r
+                     and "dx_ms" not in r else "") +
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                   + (f"; forward {r['forward_ms']:.4f} (cuDNN "
                      f"{r['library_forward_ms']:.4f}, share of bound "
@@ -418,11 +535,24 @@ def knob_predicts(batches, default_preds):
         ({"fused_stages": True}, {"fused_stage": 3}),
         ({"pallas_subm_conv": True, "zfold_pallas": True},
          {"subm_conv3d": 2, "conv2d_3x3": 1}))
+    from objectdetection_3d_tpu_torch.models import layers
+
+    # does the K10 wrapper's x.contiguous() copy on the predict path?
+    contiguous = []
+
+    def watched(x, kernel):
+        contiguous.append(x.is_contiguous())
+        return subm_conv3d(x, kernel)
+
     launches = {}
     for tpu, per_cloud in knob_sets:
         model = knob_model(tpu)
         predict = model.make_predict_fn()
-        predict(batches[0])                 # warm-up
+        layers.subm_conv3d = watched
+        try:
+            predict(batches[0])             # warm-up
+        finally:
+            layers.subm_conv3d = subm_conv3d
         torch.cuda.synchronize()
         fused_stage.launches = subm_conv3d.launches = 0
         conv2d_3x3.launches = conv2d_3x3.dx_launches = 0
@@ -475,6 +605,9 @@ def knob_predicts(batches, default_preds):
               f"scale {scale:.3g} against the default path", flush=True)
     del want
     torch.cuda.empty_cache()
+    print(f"K10 inputs on the predict path contiguous: {contiguous}",
+          flush=True)
+    launches["subm_conv3d_inputs_contiguous"] = contiguous
     return launches
 
 
@@ -561,9 +694,7 @@ def main():
     from objectdetection_3d_tpu_torch.ops import cuda_lib
     from objectdetection_3d_tpu_torch.ops.assign_geometry import (
         chunk_geometry,
-        chunk_geometry_plain,
         containment_rescue,
-        containment_rescue_plain,
     )
     from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
         iou_gathered,
@@ -606,6 +737,26 @@ def main():
     scenes = [tree_scene(seed) for seed in range(4)]
     batches = [make_batch(sc, p_max) for sc in scenes]
     kernels = {}
+    if "--quick" in sys.argv[1:]:
+        # the first call after a kernel change: K10 per flagship stage and
+        # K3/K4 on cloud 0's chunks against their plain versions, then stop
+        load_npz(model.net, NPZ)
+        ins = stage_inputs(model, batches[0], 2)
+        for r in subm_conv_stages(model.net.pseudoimage_generator, ins):
+            print(f"K10 stage {r['stage']} {r['shape']}: {r['ms']:.4f} ms, "
+                  f"cuDNN {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms, input contiguous "
+                  f"{r['input_contiguous']}", flush=True)
+        del ins
+        gt = torch.as_tensor(batches[0]["bboxes"][0], device="cuda")
+        gt_mask = torch.as_tensor(batches[0]["gt_mask"][0], device="cuda")
+        geom = geometry_tier(gt, gt_mask, model.anchor_layout,
+                             model.combo_tab, MAX_GT,
+                             int(model.tpu_cfg["assign_candidates_per_gt"]),
+                             16, chunk_geometry)
+        geometry_kernels(model, geom, gt_mask)
+        print("quick check passed", flush=True)
+        return 0
 
     # ---- K1: post-sort scan at B=1, P=131,072 -------------------------
     vl = model.voxel_layer
@@ -773,63 +924,10 @@ def main():
     gt = torch.as_tensor(batches[0]["bboxes"][0], device="cuda")
     gt_mask = torch.as_tensor(batches[0]["gt_mask"][0], device="cuda")
     n_anchor = model.anchors.shape[0]
-    n_cell = model.anchor_layout[0].shape[0]
     k = int(model.tpu_cfg["assign_candidates_per_gt"])
     geom = geometry_tier(gt, gt_mask, model.anchor_layout, model.combo_tab,
                          MAX_GT, k, 16, chunk_geometry)
-    (ftab, tabs), gid = geom["tables"][0], geom["chunks"][0].int()
-    gch = ftab.shape[0]
-    geo_args = (ftab, gid, tabs, model.combo_tab, model.anchor_layout[0],
-                MAX_GT)
-    got = chunk_geometry(*geo_args)
-    want = chunk_geometry_plain(*geo_args)
-    torch.cuda.synchronize()
-    for key in want:
-        if not torch.equal(got[key], want[key]):
-            raise AssertionError(f"chunk_geometry output {key!r} differs "
-                                 f"from its plain version")
-    n_cont = int((got["cm"] > 0).sum())
-    del got, want
-    m_combo = model.combo_tab.shape[1]
-    # tables and cells read once; key, 9 per-anchor outputs, rmax written
-    nbytes = 4 * (n_cell * 3 + gch * 18 + 12 * gch * m_combo + 16 * m_combo
-                  + gch * n_anchor + 9 * n_anchor + gch * n_cell)
-    ops = K3_OPS_PER_PAIR * gch * n_anchor
-    b_ms, b_by = bound(nbytes, ops)
-    kernels["chunk_geometry"] = {
-        "name": "chunk_geometry", "route": "cuda",
-        "source": "objectdetection_3d_tpu_torch/csrc/assign_geometry.cu",
-        "replaces": "objectdetection_3d_tpu/ops/assign_geometry.py:358",
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: chunk_geometry(*geo_args), 20),
-        "plain_ms": cuda_ms(lambda: chunk_geometry_plain(*geo_args), 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }
-    rthr = torch.stack([geom["cont_row_max"][gid.long()],
-                        gt_mask[gid.long()].float()], dim=1).contiguous()
-    res_args = (ftab, rthr, tabs, model.combo_tab, model.anchor_layout[0])
-    hit = containment_rescue(*res_args)
-    if not torch.equal(hit, containment_rescue_plain(*res_args)):
-        raise AssertionError("containment_rescue differs from its plain "
-                             "version")
-    b_ms, b_by = bound(4 * (n_cell * 3 + n_anchor),
-                       K4_OPS_PER_PAIR * gch * n_anchor)
-    kernels["containment_rescue"] = {
-        "name": "containment_rescue", "route": "cuda",
-        "source": "objectdetection_3d_tpu_torch/csrc/assign_geometry.cu",
-        "replaces": "objectdetection_3d_tpu/ops/assign_geometry.py:423",
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: containment_rescue(*res_args), 20),
-        "plain_ms": cuda_ms(lambda: containment_rescue_plain(*res_args), 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }
-    print(f"K3 chunk_geometry gch={gch} N={n_anchor}: bit-exact on all 11 "
-          f"outputs ({n_cont} anchors inside a GT of chunk 0); "
-          f"{kernels['chunk_geometry']['ms']:.4f} ms vs plain "
-          f"{kernels['chunk_geometry']['plain_ms']:.4f} ms; K4 "
-          f"containment_rescue: bit-exact ({int(hit.sum())} hits), "
-          f"{kernels['containment_rescue']['ms']:.4f} ms vs plain "
-          f"{kernels['containment_rescue']['plain_ms']:.4f} ms", flush=True)
+    kernels.update(geometry_kernels(model, geom, gt_mask))
 
     rows = torch.arange(MAX_GT, dtype=torch.int32,
                         device="cuda").repeat_interleave(k)
@@ -922,6 +1020,33 @@ def main():
           f"with the kernels, {t_plain * 1e3:.1f} ms plain", flush=True)
     del tk, tp
 
+    # ---- the same assignment without the exact anchor tier -------------
+    model_nt = PointPillars(configs.flagship_cfg(
+        {"assign_exact_anchor_tier": False}), device="cuda")
+    iou_gathered_pair.launches = 0
+    tk = model_nt.assign(batches[0])
+    tp = model_nt.assign(batches[0], plain=True)
+    torch.cuda.synchronize()
+    pos = tp["pos_mask"]
+    for key in ("pos_mask", "neg_mask", "target_labels", "dir_targets",
+                "num_pos"):
+        if not torch.equal(tk[key], tp[key]):
+            raise AssertionError(f"assignment without the tier: {key!r} "
+                                 f"differs between the kernels and their "
+                                 f"plain versions")
+    if not torch.equal(tk["best_gt"][pos], tp["best_gt"][pos]):
+        raise AssertionError("assignment without the tier: best_gt differs "
+                             "under pos_mask")
+    num_pos_nt = int(tk["num_pos"].sum())
+    if iou_gathered_pair.launches != 0 or num_pos_nt > num_pos:
+        raise AssertionError(f"assignment without the tier: K7 launched "
+                             f"{iou_gathered_pair.launches} times, num_pos "
+                             f"{num_pos_nt} (default {num_pos})")
+    print(f"assignment cloud 0 with assign_exact_anchor_tier false: kernels "
+          f"== plain, 0 K7 launches; num_pos {num_pos_nt} (default "
+          f"{num_pos}), negatives {int(tk['neg_mask'].sum())}", flush=True)
+    del tk, tp, model_nt
+
     # ---- train: flagship, bf16, B=1 --------------------------------------
     counted = {"postsort_scan": postsort_scan,
                "scatter_to_grid": scatter_to_grid,
@@ -1005,6 +1130,8 @@ def main():
     launches = knob_predicts(batches, preds)
     kernels["fused_stage"]["launches"] = launches["fused_stage"]
     kernels["subm_conv3d"]["launches"] = launches["subm_conv3d"]
+    kernels["subm_conv3d"]["predict_inputs_contiguous"] = launches[
+        "subm_conv3d_inputs_contiguous"]
     kernels["conv2d_3x3"]["launches_predict"] = launches["conv2d_3x3"]
     k9 = zfold_train(batches, counted)
     kernels["conv2d_3x3"]["launches"] = k9["forward"] + k9["dx"]

@@ -14,29 +14,427 @@
 //
 // Bound on this card: bytes written.  At the flagship (16 GTs x 1.92 M
 // anchors per chunk) K3 writes the 123 MB key tensor and 9 per-anchor
-// arrays (69 MB) for some 200 float operations per (GT, anchor) pair; K4
-// writes 7.7 MB for about a third of that work.
+// arrays (69 MB) for some 128 float operations per (GT, anchor) pair; K4
+// writes 7.7 MB for about a third of that work.  Both are built with
+// -fmad=false (bit-exactness), so every multiply-add is two instructions.
 //
-// Design: one thread per anchor n = cell * M + m, the flat cell-major order
-// of the anchor grid (the TPU kernel's combo-major layout exists only for
-// its lane width).  The per-GT tables and the 16 x M combo table sit in
-// shared memory.  Each thread walks the chunk's GTs in ascending id, so
-// the containment max keeps the first achiever and the top-3 merge's
-// strict `>` keeps the incumbent on ties, as in the TPU body.  The M
-// anchors of a cell are neighbouring threads of one block, so the
-// per-(GT, cell) maxima over combos are reduced through shared memory.
-// The arithmetic is the plain version's (ops/assign_geometry.py) operation
-// for operation, and the build passes -fmad=false, so the two agree bit
-// for bit.
+// K3's design: persistent blocks, as many as fit on the card at once, each
+// of cells_per_block * M threads striding over groups of 2 *
+// cells_per_block cells.  Thread t is combo t % M of two cells of a group,
+// so its anchors n = cell * M + m (the flat cell-major order of the anchor
+// grid; the TPU kernel's combo-major layout exists only for its lane
+// width) are neighbours of the warp's other lanes, and the stores
+// coalesce.
+// - Hoisted tables: once per block, every value that depends on (GT,
+//   combo) only -- the interval limits hg -+ hap and chalf -+ hgp, the
+//   doubled half-extents, both volume ratios (the two divisions), the
+//   smaller volume and the volume sum -- goes into a 28-float record per
+//   (GT, combo) in shared memory (7 float4 loads at a stride of 112 bytes,
+//   which 8 lanes of distinct combos read without bank conflicts), the
+//   per-GT 2 hg and mask into one float4 that every lane reads at once.  A
+//   thread loads a record once for both of its cells.  Once per group, the
+//   cell centre on each unmasked GT's axes (`base`, which depends on (GT,
+//   cell) only) goes into a (GT, cell) table.  A hoisted value is computed
+//   with the same operations in the same order as the plain version
+//   computes it per pair, so it is the same float.  Per pair there remain
+//   the interval tests, the slab widths, the bound's division (skipped
+//   where the intersection is +-0: 0 / denom is then the intersection
+//   itself) and the square root of the axis distance; the top-3 merge
+//   runs only for a key above the third slot (below it no slot changes).
+// - Per-(GT, cell) containment maxima over the cell's M combos: each
+//   positive IoU goes into its (GT, cell) slot in shared memory by an
+//   integer atomicMax on its bits (the order of non-negative floats), and
+//   the slots are written out after the group's barrier.  Exact where the
+//   IoUs are +0 or positive: boxes with non-negative dims.
+// - One barrier per group: the base tables and the maxima are double-
+//   buffered, so a group's pairs run while the next group's base table is
+//   filled, and its maxima are written out after the barrier.
+// - Masked rows: a GT row whose mask is 0 skips the geometry (the branch
+//   is uniform: every thread walks the same GT).  The plain version then
+//   gives key = -1e9, maybe = false and containment IoU = ratio * 0 = +0,
+//   provided the row's ratios are finite and not negative: true of padded
+//   rows as chunk_tables builds them (zero boxes, or wrapped copies of real
+//   GTs) and of any box with non-negative dims; non-finite GT boxes, and
+//   boxes with negative dims, are out of scope.  The row still goes
+//   through the top-3 merge with its id.  A chunk of masked rows only
+//   (7 of the flagship's 8) writes those constants as a streaming fill
+//   in 16-byte pieces, bound by bytes.
+// Each thread walks the chunk's GTs in ascending id, so the containment
+// max keeps the first achiever and the top-3 merge's strict `>` keeps the
+// incumbent on ties, as in the TPU body.  The arithmetic is the plain
+// version's (ops/assign_geometry.py) operation for operation, so the two
+// agree bit for bit.
+//
+// K4 keeps its first design: one thread per anchor over one cell group per
+// block, the per-GT tables in shared memory, every pair computed in full.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr float kTiebreakEps = 1e-6f;
 constexpr int kMaxThreads = 256;
 constexpr int kFtab = 17;  // u (9, row-major), hg (3), cg.u (3), volg, mask
+constexpr int kRec = 7;    // float4 slots of a K3 (GT, combo) record
+constexpr int kA = 2;      // anchors per K3 thread (one combo, two cells)
+
+// ---- K3 ------------------------------------------------------------------
+
+// Record fields (floats) of one (GT g, combo m) pair of K3.
+enum : int {
+  kCorr = 0,     // (3) combo offset on the GT axes
+  kLoA = 3,      // (3) hg - hap: containment limit on the GT axes
+  kHiA = 6,      // (3) hg + hap: separation limit on the GT axes
+  kTwHap = 9,    // (3) 2 * hap
+  kCgv = 12,     // (3) GT centre on the combo axes
+  kLoB = 15,     // (3) chalf - hgp
+  kHiB = 18,     // (3) chalf + hgp
+  kTwHgp = 21,   // (3) 2 * hgp
+  kRatioA = 24,  // cvol / max(volg, 1e-6)
+  kRatioB = 25,  // volg / max(cvol, 1e-6)
+  kVmin = 26,    // min(volg, cvol)
+  kVsum = 27,    // volg + cvol
+};
+
+// Byte offsets of K3's shared memory: the (GT, combo) records at 0, then
+// the per-GT (2 hg, mask), two (GT, cell) base tables of a group of kA *
+// cpb cells and two of its (GT, cell) containment maxima (this group's
+// and the next's), the GT ids and the per-GT table.
+struct GeoLayout {
+  size_t gq, base, rmax, ids, ft, total;
+};
+
+inline GeoLayout geo_layout(int gch, int m, int cpb) {
+  GeoLayout l;
+  l.gq = static_cast<size_t>(gch) * m * kRec * 16;
+  l.base = l.gq + static_cast<size_t>(gch) * 16;
+  l.rmax = l.base + 2 * static_cast<size_t>(gch) * kA * cpb * 16;
+  l.ids = l.rmax + 2 * static_cast<size_t>(gch) * kA * cpb * 4;
+  l.ft = l.ids + static_cast<size_t>(gch) * 4;
+  l.total = l.ft + static_cast<size_t>(gch) * kFtab * 4;
+  return l;
+}
+
+// fold (w, gw) into the running top-3; ties keep the incumbent
+__device__ __forceinline__ void top3_merge(float (&v)[3], int (&a)[3],
+                                           float w, int gw) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const bool better = w > v[k];
+    const float nv = better ? w : v[k];
+    const int na = better ? gw : a[k];
+    w = better ? v[k] : w;
+    gw = better ? a[k] : gw;
+    v[k] = nv;
+    a[k] = na;
+  }
+}
+
+// p[0..count) = v, in 16-byte pieces between a 4-byte head and tail;
+// thread `tid` of `nthreads`
+__device__ __forceinline__ void fill(int* p, long long count, int v,
+                                     long long tid, long long nthreads) {
+  const long long head = min(
+      count,
+      static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(p) & 15)) &
+                             15) / 4);
+  for (long long i = tid; i < head; i += nthreads) p[i] = v;
+  int4* q = reinterpret_cast<int4*>(p + head);
+  const long long n4 = (count - head) / 4;
+  const int4 v4 = make_int4(v, v, v, v);
+  for (long long i = tid; i < n4; i += nthreads) q[i] = v4;
+  for (long long i = head + n4 * 4 + tid; i < count; i += nthreads) p[i] = v;
+}
+
+// outf: (4, n) cm, v1, v2, v3; outi: (5, n) cb, a1, a2, a3, mb;
+// key: (gch, n); rmax: (gch, nc).  Thread t is combo t % m of cells
+// t / m and t / m + cpb of each group of kA * cpb cells.  Three blocks of
+// 256 threads fit an SM.
+__global__ void __launch_bounds__(kMaxThreads, 3)
+geometry_kernel(const float* __restrict__ ftab, const int* __restrict__ gid,
+                const float* __restrict__ tabs,
+                const float* __restrict__ combo,
+                const float* __restrict__ cells, int gch, int m, int nc,
+                int cpb, int g_sentinel, GeoLayout L,
+                float* __restrict__ key, float* __restrict__ outf,
+                int* __restrict__ outi, float* __restrict__ rmax) {
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const float4* rec = smem4;
+  float4* gq = reinterpret_cast<float4*>(smem + L.gq);
+  float4* base = reinterpret_cast<float4*>(smem + L.base);
+  int* rmax_s = reinterpret_cast<int*>(smem + L.rmax);
+  int* ids = reinterpret_cast<int*>(smem + L.ids);
+  float* ft = reinterpret_cast<float*>(smem + L.ft);
+  const int threads = cpb * m;
+  const int group = kA * cpb;
+  const int t = threadIdx.x;
+
+  for (int k = t; k < gch * kFtab; k += threads) ft[k] = ftab[k];
+  for (int k = t; k < gch; k += threads) ids[k] = gid[k];
+  for (int k = t; k < 2 * gch * kA * cpb; k += threads) rmax_s[k] = 0;
+  __syncthreads();
+  const long long n_all = static_cast<long long>(nc) * m;
+
+  // a chunk of masked rows only: every output is the plain version's
+  // constant, written at the card's streaming rate
+  bool all_masked = true;
+  for (int g = 0; g < gch; ++g) {
+    all_masked = all_masked && ft[g * kFtab + 16] == 0.f;
+  }
+  if (all_masked) {
+    float v[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+    int ai[3] = {g_sentinel, g_sentinel, g_sentinel};
+    for (int g = 0; g < gch; ++g) {
+      if (-1e9f > v[2]) top3_merge(v, ai, -1e9f, ids[g]);
+    }
+    const long long tid = static_cast<long long>(blockIdx.x) * threads + t;
+    const long long nth = static_cast<long long>(gridDim.x) * threads;
+    int* of = reinterpret_cast<int*>(outf);
+    fill(reinterpret_cast<int*>(key), gch * n_all, __float_as_int(-1e9f),
+         tid, nth);
+    fill(of, n_all, __float_as_int(0.f), tid, nth);
+    fill(outi, n_all, g_sentinel, tid, nth);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      fill(of + (k + 1) * n_all, n_all, __float_as_int(v[k]), tid, nth);
+      fill(outi + (k + 1) * n_all, n_all, ai[k], tid, nth);
+    }
+    fill(outi + 4 * n_all, n_all, 0, tid, nth);
+    fill(reinterpret_cast<int*>(rmax), static_cast<long long>(gch) * nc,
+         __float_as_int(0.f), tid, nth);
+    return;
+  }
+  // the (GT, combo) records and the per-GT values, once per block
+  for (int e = t; e < gch * m; e += threads) {
+    const int g = e / m;
+    const int mi = e - g * m;
+    const float* f = ft + g * kFtab;
+    float* r = reinterpret_cast<float*>(smem) + e * kRec * 4;
+    const float volg = f[15];
+    const float cvol = combo[12 * m + mi];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float hg = f[9 + i];
+      const float hap = tabs[(0 * gch * 3 + g * 3 + i) * m + mi];
+      r[kCorr + i] = tabs[(2 * gch * 3 + g * 3 + i) * m + mi];
+      r[kLoA + i] = hg - hap;
+      r[kHiA + i] = hg + hap;
+      r[kTwHap + i] = 2.f * hap;
+      const float chalf = combo[(9 + i) * m + mi];
+      const float hgp = tabs[(1 * gch * 3 + g * 3 + i) * m + mi];
+      r[kCgv + i] = tabs[(3 * gch * 3 + g * 3 + i) * m + mi];
+      r[kLoB + i] = chalf - hgp;
+      r[kHiB + i] = chalf + hgp;
+      r[kTwHgp + i] = 2.f * hgp;
+    }
+    r[kRatioA] = cvol / fmaxf(volg, 1e-6f);
+    r[kRatioB] = volg / fmaxf(cvol, 1e-6f);
+    r[kVmin] = fminf(volg, cvol);
+    r[kVsum] = volg + cvol;
+  }
+  for (int g = t; g < gch; g += threads) {
+    const float* f = ft + g * kFtab;
+    gq[g] = make_float4(2.f * f[9], 2.f * f[10], 2.f * f[11], f[16]);
+  }
+
+  // this thread's combo: its axes' constants
+  const int lc = t / m;
+  const int mi = t - lc * m;
+  float coffv[3], twc[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    coffv[j] = combo[(13 + j) * m + mi];
+    twc[j] = 2.f * combo[(9 + j) * m + mi];
+  }
+
+  // the cell centres on each unmasked GT's axes, once per (GT, cell) of
+  // the group at cell0, into base table `buf`
+  auto fill_base = [&](int buf, int cell0) {
+    float4* bt = base + buf * gch * group;
+    for (int e = t; e < gch * group; e += threads) {
+      const int g = e / group;
+      const float* f = ft + g * kFtab;
+      if (f[16] == 0.f) continue;
+      const int cell = min(cell0 + e - g * group, nc - 1);
+      const float c0 = cells[cell * 3];
+      const float c1 = cells[cell * 3 + 1];
+      const float c2 = cells[cell * 3 + 2];
+      float b[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        b[i] = f[0 * 3 + i] * c0 + f[1 * 3 + i] * c1 + f[2 * 3 + i] * c2 -
+               f[12 + i];
+      }
+      bt[e] = make_float4(b[0], b[1], b[2], 0.f);
+    }
+  };
+  const int stride = gridDim.x * group;
+  fill_base(0, blockIdx.x * group);
+  __syncthreads();
+
+  // one barrier per group: group r uses base and IoU buffers r % 2 while
+  // the next group's base table is filled; its IoUs are reduced after the
+  // barrier, before any thread writes that buffer again (group r + 2)
+#pragma unroll 1
+  for (int cell0 = blockIdx.x * group, buf = 0; cell0 < nc;
+       cell0 += stride, buf ^= 1) {
+    const float4* bt = base + buf * gch * group;
+    int* rm = rmax_s + buf * gch * group;
+    // a thread past the last cell computes the last cell's anchor again
+    // and writes the same values there
+    float* kp[kA];     // this anchor's key, advanced by one GT row per GT
+    long long n[kA];
+    float cov[kA][3];  // the cell centres on the combo's axes
+    float cm[kA];
+    int cb[kA];
+    bool mb[kA];
+    float v[kA][3];
+    int ai[kA][3];
+#pragma unroll
+    for (int a = 0; a < kA; ++a) {
+      const int cc = min(cell0 + a * cpb + lc, nc - 1);
+      n[a] = static_cast<long long>(cc) * m + mi;
+      kp[a] = key + n[a];
+      const float c0 = cells[cc * 3];
+      const float c1 = cells[cc * 3 + 1];
+      const float c2 = cells[cc * 3 + 2];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        cov[a][j] = combo[(0 * 3 + j) * m + mi] * c0 +
+                    combo[(1 * 3 + j) * m + mi] * c1 +
+                    combo[(2 * 3 + j) * m + mi] * c2;
+        v[a][j] = -CUDART_INF_F;
+        ai[a][j] = g_sentinel;
+      }
+      cm[a] = 0.f;
+      cb[a] = g_sentinel;
+      mb[a] = false;
+    }
+
+#pragma unroll 1
+    for (int g = 0; g < gch; ++g) {
+      const int id = ids[g];
+      const float4 q = gq[g];
+      if (q.w == 0.f) {
+        // masked row: the plain version's constants
+#pragma unroll
+        for (int a = 0; a < kA; ++a) {
+          *kp[a] = -1e9f;
+          kp[a] += n_all;
+          if (-1e9f > v[a][2]) top3_merge(v[a], ai[a], -1e9f, id);
+        }
+        continue;
+      }
+      float r[kRec * 4];
+      const float4* rp = rec + (g * m + mi) * kRec;
+#pragma unroll
+      for (int k = 0; k < kRec; ++k) {
+        const float4 x = rp[k];
+        r[4 * k] = x.x;
+        r[4 * k + 1] = x.y;
+        r[4 * k + 2] = x.z;
+        r[4 * k + 3] = x.w;
+      }
+      const float twhg[3] = {q.x, q.y, q.z};
+      const float gmask = q.w;
+      // the anchors' geometry up to the bound's division, branch-free, so
+      // that the two anchors' chains interleave
+      float p_iou[kA], inter[kA], denom[kA], d2[kA];
+      bool maybe[kA];
+#pragma unroll
+      for (int a = 0; a < kA; ++a) {
+        const float4 bb = bt[g * group + a * cpb + lc];
+        const float bs[3] = {bb.x, bb.y, bb.z};
+        float pa = 0.f;
+        bool in_a = true, sep_a = false;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const float aa = fabsf(bs[i] + r[kCorr + i]);
+          in_a = in_a && (aa <= r[kLoA + i]);
+          sep_a = sep_a || (aa > r[kHiA + i]);
+          const float wa = fmaxf(
+              fminf(fminf(r[kHiA + i] - aa, twhg[i]), r[kTwHap + i]), 0.f);
+          pa = i == 0 ? wa : pa * wa;
+          if (i == 0) d2[a] = aa * aa;
+          if (i == 1) d2[a] = d2[a] + aa * aa;
+        }
+        float pb = 0.f;
+        bool in_b = true, sep_b = false;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float ab = fabsf(r[kCgv + j] - cov[a][j] - coffv[j]);
+          in_b = in_b && (ab <= r[kLoB + j]);
+          sep_b = sep_b || (ab > r[kHiB + j]);
+          const float wb = fmaxf(
+              fminf(fminf(r[kHiB + j] - ab, twc[j]), r[kTwHgp + j]), 0.f);
+          pb = j == 0 ? wb : pb * wb;
+        }
+        p_iou[a] = (in_a ? r[kRatioA] : (in_b ? r[kRatioB] : 0.f)) * gmask;
+        inter[a] = fminf(fminf(pa, pb), r[kVmin]);
+        denom[a] = r[kVsum] - inter[a];
+        maybe[a] = !(sep_a || sep_b) && gmask > 0.f;
+      }
+      float d_axis[kA];
+#pragma unroll
+      for (int a = 0; a < kA; ++a) d_axis[a] = sqrtf(d2[a]);
+#pragma unroll
+      for (int a = 0; a < kA; ++a) {
+        float ub = 0.f;
+        if (denom[a] > 1e-6f) {
+          ub = inter[a] == 0.f ? inter[a]
+                               : inter[a] / fmaxf(denom[a], 1e-6f);
+        }
+        const float p_key =
+            gmask > 0.f ? ub - kTiebreakEps * d_axis[a] : -1e9f;
+        *kp[a] = p_key;
+        kp[a] += n_all;
+        // the (GT, cell) maximum over combos: the IoUs are +0 or
+        // positive (boxes with non-negative dims), so the largest float is
+        // the largest int of the same bits
+        if (p_iou[a] > 0.f) {
+          atomicMax(rm + g * group + a * cpb + lc, __float_as_int(p_iou[a]));
+        }
+        const bool better = p_iou[a] > cm[a];
+        cm[a] = better ? p_iou[a] : cm[a];
+        cb[a] = better ? id : cb[a];
+        mb[a] = mb[a] || maybe[a];
+        // a key at or below the third slot changes no slot
+        if (p_key > v[a][2]) top3_merge(v[a], ai[a], p_key, id);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kA; ++a) {
+      outf[0 * n_all + n[a]] = cm[a];
+      outf[1 * n_all + n[a]] = v[a][0];
+      outf[2 * n_all + n[a]] = v[a][1];
+      outf[3 * n_all + n[a]] = v[a][2];
+      outi[0 * n_all + n[a]] = cb[a];
+      outi[1 * n_all + n[a]] = ai[a][0];
+      outi[2 * n_all + n[a]] = ai[a][1];
+      outi[3 * n_all + n[a]] = ai[a][2];
+      outi[4 * n_all + n[a]] = mb[a] ? 1 : 0;
+    }
+    if (cell0 + stride < nc) fill_base(buf ^ 1, cell0 + stride);
+    __syncthreads();
+    // per-(GT, cell) containment maxima over the cell's M combos (+0 for a
+    // masked row), each entry cleared for group r + 2 once read
+    for (int e = t; e < gch * group; e += threads) {
+      const int g = e / group;
+      const int c = e - g * group;
+      if (cell0 + c < nc) {
+        rmax[static_cast<long long>(g) * nc + cell0 + c] =
+            __int_as_float(rm[e]);
+      }
+      rm[e] = 0;
+    }
+  }
+}
+
+// ---- K4 ------------------------------------------------------------------
 
 // Shared tables of one launch.  tabs holds hap, hgp, corr and cgv, each
 // (gch * 3, M): cross-projected anchor half-extents on the GT axes, GT
@@ -44,31 +442,23 @@ constexpr int kFtab = 17;  // u (9, row-major), hg (3), cg.u (3), volg, mask
 // GT centre on the combo axes.
 struct Smem {
   float* ftab;   // (gch, 17)
-  int* gid;      // (gch,)
   float* tabs;   // (4, gch * 3, M)
   float* combo;  // (16, M)
-  float* iou;    // (gch, threads) containment IoUs, K3 only
 };
 
-__device__ Smem carve(float* base, int gch, int m, int threads,
-                      bool with_iou) {
+__device__ Smem carve(float* base, int gch, int m) {
   Smem s;
   s.ftab = base;
-  s.gid = reinterpret_cast<int*>(s.ftab + gch * kFtab);
-  s.tabs = reinterpret_cast<float*>(s.gid + gch);
+  s.tabs = s.ftab + gch * kFtab;
   s.combo = s.tabs + 4 * gch * 3 * m;
-  s.iou = with_iou ? s.combo + 16 * m : nullptr;
   return s;
 }
 
-__device__ void load_tables(const Smem& s, const float* ftab, const int* gid,
+__device__ void load_tables(const Smem& s, const float* ftab,
                             const float* tabs, const float* combo, int gch,
                             int m) {
   for (int k = threadIdx.x; k < gch * kFtab; k += blockDim.x) {
     s.ftab[k] = ftab[k];
-  }
-  for (int k = threadIdx.x; k < gch; k += blockDim.x) {
-    s.gid[k] = gid ? gid[k] : 0;
   }
   for (int k = threadIdx.x; k < 4 * gch * 3 * m; k += blockDim.x) {
     s.tabs[k] = tabs[k];
@@ -78,14 +468,6 @@ __device__ void load_tables(const Smem& s, const float* ftab, const int* gid,
   }
   __syncthreads();
 }
-
-// What one (GT, anchor) pair yields.
-struct Pair {
-  float iou;   // closed-form containment IoU, 0 unless one box holds the
-               // other
-  float key;   // ranking key: slab bound minus the axis-distance tiebreak
-  bool maybe;  // not SAT-separated on the 6 face axes
-};
 
 // The anchor's frame: cell centre and combo m's constants.
 struct Anchor {
@@ -114,150 +496,34 @@ __device__ __forceinline__ Anchor load_anchor(const float* combo, int m,
   return a;
 }
 
-// geometry of GT g against the anchor; `full` also computes the key and
-// the SAT flag (K3), otherwise only the containment IoU (K4)
-template <bool kFull>
-__device__ __forceinline__ Pair pair_geometry(const Smem& s, int g, int gch,
-                                              int m, int mi,
-                                              const Anchor& a) {
+// closed-form containment IoU of GT g and the anchor: vol_small / vol_big
+// where one box holds the other, else 0
+__device__ __forceinline__ float containment(const Smem& s, int g, int gch,
+                                             int m, int mi, const Anchor& a) {
   const float* ft = s.ftab + g * kFtab;
   const float* hap = s.tabs + (0 * gch * 3 + g * 3) * m;
   const float* hgp = s.tabs + (1 * gch * 3 + g * 3) * m;
   const float* corr = s.tabs + (2 * gch * 3 + g * 3) * m;
   const float* cgv = s.tabs + (3 * gch * 3 + g * 3) * m;
   const float volg = ft[15];
-  const float gmask = ft[16];
-
-  float pa = 0.f, d2 = 0.f;
-  bool in_a = true, sep_a = false;
+  bool in_a = true;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    const float hg = ft[9 + i];
-    const float hap_i = hap[i * m + mi];
     const float base = ft[0 * 3 + i] * a.cell[0] +
                        ft[1 * 3 + i] * a.cell[1] +
                        ft[2 * 3 + i] * a.cell[2] - ft[12 + i];
     const float aa = fabsf(base + corr[i * m + mi]);
-    in_a = in_a && (aa <= hg - hap_i);
-    if (kFull) {
-      sep_a = sep_a || (aa > hg + hap_i);
-      const float wa = fmaxf(
-          fminf(fminf(hg + hap_i - aa, 2.f * hg), 2.f * hap_i), 0.f);
-      pa = i == 0 ? wa : pa * wa;
-      if (i == 0) d2 = aa * aa;
-      if (i == 1) d2 = d2 + aa * aa;
-    }
+    in_a = in_a && (aa <= ft[9 + i] - hap[i * m + mi]);
   }
-  float pb = 0.f;
-  bool in_b = true, sep_b = false;
+  bool in_b = true;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    const float hgp_j = hgp[j * m + mi];
     const float ab = fabsf(cgv[j * m + mi] - a.cell_on_v[j] - a.coffv[j]);
-    in_b = in_b && (ab <= a.chalf[j] - hgp_j);
-    if (kFull) {
-      sep_b = sep_b || (ab > a.chalf[j] + hgp_j);
-      const float wb = fmaxf(
-          fminf(fminf(a.chalf[j] + hgp_j - ab, 2.f * a.chalf[j]),
-                2.f * hgp_j),
-          0.f);
-      pb = j == 0 ? wb : pb * wb;
-    }
+    in_b = in_b && (ab <= a.chalf[j] - hgp[j * m + mi]);
   }
   const float ratio_a = a.cvol / fmaxf(volg, 1e-6f);
   const float ratio_b = volg / fmaxf(a.cvol, 1e-6f);
-  Pair out;
-  out.iou = (in_a ? ratio_a : (in_b ? ratio_b : 0.f)) * gmask;
-  out.key = 0.f;
-  out.maybe = false;
-  if (kFull) {
-    const float d_axis = sqrtf(d2);
-    const float inter = fminf(fminf(pa, pb), fminf(volg, a.cvol));
-    const float denom = volg + a.cvol - inter;
-    const float ub = denom > 1e-6f ? inter / fmaxf(denom, 1e-6f) : 0.f;
-    out.key = gmask > 0.f ? ub - kTiebreakEps * d_axis : -1e9f;
-    out.maybe = !(sep_a || sep_b) && gmask > 0.f;
-  }
-  return out;
-}
-
-// fold (w, gw) into the running top-3; ties keep the incumbent
-__device__ __forceinline__ void top3_merge(float (&v)[3], int (&a)[3],
-                                           float w, int gw) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const bool better = w > v[k];
-    const float nv = better ? w : v[k];
-    const int na = better ? gw : a[k];
-    w = better ? v[k] : w;
-    gw = better ? a[k] : gw;
-    v[k] = nv;
-    a[k] = na;
-  }
-}
-
-// outf: (4, n) cm, v1, v2, v3; outi: (5, n) cb, a1, a2, a3, mb;
-// key: (gch, n); rmax: (gch, nc)
-__global__ void __launch_bounds__(kMaxThreads)
-geometry_kernel(const float* __restrict__ ftab, const int* __restrict__ gid,
-                const float* __restrict__ tabs,
-                const float* __restrict__ combo,
-                const float* __restrict__ cells, int gch, int m, int nc,
-                int cells_per_block, int g_sentinel,
-                float* __restrict__ key, float* __restrict__ outf,
-                int* __restrict__ outi, float* __restrict__ rmax) {
-  extern __shared__ float smem_base[];
-  const int threads = cells_per_block * m;
-  const Smem s = carve(smem_base, gch, m, threads, true);
-  load_tables(s, ftab, gid, tabs, combo, gch, m);
-
-  const int t = threadIdx.x;
-  const int cell0 = blockIdx.x * cells_per_block;
-  const int cell = cell0 + t / m;
-  const int mi = t % m;
-  const bool live = cell < nc;
-  const long long n_all = static_cast<long long>(nc) * m;
-  const long long n = static_cast<long long>(cell) * m + mi;
-  const Anchor a = load_anchor(s.combo, m, mi, cells, live ? cell : 0);
-
-  float cm = 0.f;
-  int cb = g_sentinel;
-  bool mb = false;
-  float v[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
-  int ai[3] = {g_sentinel, g_sentinel, g_sentinel};
-  for (int g = 0; g < gch; ++g) {
-    const Pair p = pair_geometry<true>(s, g, gch, m, mi, a);
-    const int id = s.gid[g];
-    if (live) key[g * n_all + n] = p.key;
-    s.iou[g * threads + t] = p.iou;
-    const bool better = p.iou > cm;
-    cm = better ? p.iou : cm;
-    cb = better ? id : cb;
-    mb = mb || p.maybe;
-    top3_merge(v, ai, p.key, id);
-  }
-  if (live) {
-    outf[0 * n_all + n] = cm;
-    outf[1 * n_all + n] = v[0];
-    outf[2 * n_all + n] = v[1];
-    outf[3 * n_all + n] = v[2];
-    outi[0 * n_all + n] = cb;
-    outi[1 * n_all + n] = ai[0];
-    outi[2 * n_all + n] = ai[1];
-    outi[3 * n_all + n] = ai[2];
-    outi[4 * n_all + n] = mb ? 1 : 0;
-  }
-  __syncthreads();
-  // per-(GT, cell) containment maxima over the cell's M combos
-  for (int e = t; e < gch * cells_per_block; e += threads) {
-    const int g = e / cells_per_block;
-    const int lc = e % cells_per_block;
-    if (cell0 + lc >= nc) continue;
-    const float* row = s.iou + g * threads + lc * m;
-    float r = row[0];
-    for (int k = 1; k < m; ++k) r = fmaxf(r, row[k]);
-    rmax[static_cast<long long>(g) * nc + cell0 + lc] = r;
-  }
+  return (in_a ? ratio_a : (in_b ? ratio_b : 0.f)) * ft[16];
 }
 
 // rthr: (gch, 2) row max and rescue flag per GT; out: (n,) int32
@@ -268,9 +534,8 @@ rescue_kernel(const float* __restrict__ ftab, const float* __restrict__ rthr,
               const float* __restrict__ cells, int gch, int m, int nc,
               int cells_per_block, int* __restrict__ out) {
   extern __shared__ float smem_base[];
-  const int threads = cells_per_block * m;
-  const Smem s = carve(smem_base, gch, m, threads, false);
-  load_tables(s, ftab, nullptr, tabs, combo, gch, m);
+  const Smem s = carve(smem_base, gch, m);
+  load_tables(s, ftab, tabs, combo, gch, m);
 
   const int t = threadIdx.x;
   const int cell = blockIdx.x * cells_per_block + t / m;
@@ -279,36 +544,26 @@ rescue_kernel(const float* __restrict__ ftab, const float* __restrict__ rthr,
   const Anchor a = load_anchor(s.combo, m, mi, cells, cell);
   bool hit = false;
   for (int g = 0; g < gch; ++g) {
-    const Pair p = pair_geometry<false>(s, g, gch, m, mi, a);
+    const float iou = containment(s, g, gch, m, mi, a);
     const float row_max = rthr[g * 2];
     const float ok = rthr[g * 2 + 1];
-    hit = hit || (p.iou >= row_max && ok > 0.f && p.iou > 0.f);
+    hit = hit || (iou >= row_max && ok > 0.f && iou > 0.f);
   }
   out[static_cast<long long>(cell) * m + mi] = hit ? 1 : 0;
 }
 
-size_t smem_bytes(int gch, int m, int threads, bool with_iou) {
-  size_t floats = static_cast<size_t>(gch) * kFtab + gch +
-                  4 * static_cast<size_t>(gch) * 3 * m + 16 * m;
-  if (with_iou) floats += static_cast<size_t>(gch) * threads;
-  return floats * 4;
-}
-
+// Checks the shapes, sets the kernel's shared memory above 48 KB; returns
+// 0 or a CUDA error.
 template <typename Kernel>
-int prepare(Kernel kernel, int gch, int m, int nc, bool with_iou,
-            int* cells_per_block, int* blocks, size_t* smem) {
-  if (gch <= 0 || m <= 0 || m > kMaxThreads || nc <= 0) {
+int set_smem(Kernel kernel, int gch, int m, int nc, size_t smem) {
+  if (gch <= 0 || m <= 0 || m > kMaxThreads || nc <= 0 ||
+      smem > 227 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  *cells_per_block = kMaxThreads / m;
-  *blocks = (nc + *cells_per_block - 1) / *cells_per_block;
-  *smem = smem_bytes(gch, m, *cells_per_block * m, with_iou);
-  if (*smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (*smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  if (smem > 48 * 1024) {
+    return static_cast<int>(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(*smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+        static_cast<int>(smem)));
   }
   return 0;
 }
@@ -324,16 +579,30 @@ extern "C" int chunk_geometry(const void* ftab, const void* gid,
                               const void* cells, int gch, int m, int nc,
                               int g_sentinel, void* key, void* outf,
                               void* outi, void* rmax, void* stream) {
-  int cpb = 0, blocks = 0;
-  size_t smem = 0;
-  const int err = prepare(geometry_kernel, gch, m, nc, true, &cpb, &blocks,
-                          &smem);
+  const int cpb = m > 0 ? kMaxThreads / m : 0;
+  const GeoLayout L = geo_layout(gch, m, cpb);
+  int err = set_smem(geometry_kernel, gch, m, nc, L.total);
   if (err != 0) return err;
-  geometry_kernel<<<blocks, cpb * m, smem,
+  // persistent blocks: as many as fit on the card at once, at most one
+  // per cell group
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, geometry_kernel,
+                                                      cpb * m, L.total);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int groups = (nc + kA * cpb - 1) / (kA * cpb);
+  const int blocks = groups < sms * per_sm ? groups : sms * per_sm;
+  geometry_kernel<<<blocks, cpb * m, L.total,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ftab), static_cast<const int*>(gid),
       static_cast<const float*>(tabs), static_cast<const float*>(combo),
-      static_cast<const float*>(cells), gch, m, nc, cpb, g_sentinel,
+      static_cast<const float*>(cells), gch, m, nc, cpb, g_sentinel, L,
       static_cast<float*>(key), static_cast<float*>(outf),
       static_cast<int*>(outi), static_cast<float*>(rmax));
   return static_cast<int>(cudaGetLastError());
@@ -345,12 +614,13 @@ extern "C" int containment_rescue(const void* ftab, const void* rthr,
                                   const void* tabs, const void* combo,
                                   const void* cells, int gch, int m, int nc,
                                   void* out, void* stream) {
-  int cpb = 0, blocks = 0;
-  size_t smem = 0;
-  const int err = prepare(rescue_kernel, gch, m, nc, false, &cpb, &blocks,
-                          &smem);
+  const int cpb = m > 0 ? kMaxThreads / m : 0;
+  const size_t smem = (static_cast<size_t>(gch) * kFtab +
+                       4 * static_cast<size_t>(gch) * 3 * m + 16 * m) * 4;
+  const int err = set_smem(rescue_kernel, gch, m, nc, smem);
   if (err != 0) return err;
-  rescue_kernel<<<blocks, cpb * m, smem, static_cast<cudaStream_t>(stream)>>>(
+  rescue_kernel<<<(nc + cpb - 1) / cpb, cpb * m, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ftab), static_cast<const float*>(rthr),
       static_cast<const float*>(tabs), static_cast<const float*>(combo),
       static_cast<const float*>(cells), gch, m, nc, cpb,

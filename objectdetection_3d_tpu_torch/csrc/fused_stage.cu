@@ -39,7 +39,9 @@
 //   C = 20, whose 40-byte pixels break its 16-byte strides).  A 16-byte
 //   half of a pixel's chunk sits at position half ^ bit 2 of the pixel
 //   index (the weights' rows likewise), so ldmatrix is free of bank
-//   conflicts without padding.
+//   conflicts without padding.  The ring's loads, the resident subm
+//   weights and the 16-byte row stores are shared with K10's bf16 body
+//   (halo_ring.cuh).
 // - Subm conv on the tensor cores: warp w owns tile row w, one m16 operand;
 //   per (chunk, tap) one ldmatrix.x4 of A and, per n8 fragment of the
 //   output channels, one ldmatrix.x2 of B and one mma.sync m16n8k16.
@@ -66,12 +68,20 @@
 #include <cstdint>
 
 #include "conv_tile.cuh"
+#include "halo_ring.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 using conv_tile::bf16;
 using conv_tile::kThreads;
+using halo_ring::cp_piece;
+using halo_ring::kTH;
+using halo_ring::kTW;
+using halo_ring::kWin;
+using halo_ring::kWinW;
+using halo_ring::ldsm_x2;
+using halo_ring::ldsm_x4;
 
 // ---- float32: CUDA cores ------------------------------------------------
 
@@ -210,10 +220,6 @@ int launch_f32(const void* x, const void* mask, const void* ws,
 
 // ---- bf16: tensor cores, z walked inside the block ------------------------
 
-constexpr int kTH = 8;                    // tile rows: one per warp
-constexpr int kTW = 16;                   // tile columns: one m16 operand
-constexpr int kWinW = kTW + 2;
-constexpr int kWin = (kTH + 2) * kWinW;   // halo pixels of a plane
 constexpr int kRing = 4;                  // staged input planes
 constexpr int kVec = 4 * 64;              // staged affines, float
 constexpr int kMaxSmem = 232448;          // a block's shared memory, bytes
@@ -232,9 +238,7 @@ __host__ __device__ inline Layout layout(int chunks, int np, int co) {
   l.vec = l.wd + 3 * np * (kd + 8) * 2;
   l.ring = l.vec + kVec * 4;
   l.slot = chunks * kWin * 32;
-  // a staged output pixel, bf16: padded by 16 bytes where the 16-byte
-  // pieces allow it (no bank conflicts), else packed flat
-  l.stride = co % 8 == 0 ? co + 8 : co;
+  l.stride = halo_ring::staged_stride(co);
   l.total = l.ring + kRing * l.slot;
   const int stg = kTH * kTW * l.stride * 2;
   l.stg = -1;                             // staged in the freed ring slot
@@ -243,37 +247,6 @@ __host__ __device__ inline Layout layout(int chunks, int np, int co) {
     l.total += stg;
   }
   return l;
-}
-
-// cp.async of a PB-byte piece (PB = 16 or 8); zero-fills when !valid.
-template <int PB>
-__device__ __forceinline__ void cp_piece(void* dst, const void* src,
-                                         bool valid) {
-  const unsigned d = conv_tile::smem_addr(dst);
-  const int n = valid ? PB : 0;
-  if constexpr (PB == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&a)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2(unsigned& b0, unsigned& b1,
-                                        unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -316,13 +289,9 @@ fused_stage_mma_kernel(const bf16* __restrict__ x,
   const long long hw = static_cast<long long>(H) * W;
   const bf16* xb = x + static_cast<long long>(b) * D * hw * C;
 
-  // resident weights: subm rows of 32 bytes (16 channels) with their two
-  // halves swapped on rows with bit 2 set; down rows padded to kKRow
-  for (int i = tid; i < chunks * 27 * kNP * 2; i += kThreads) {
-    const int r = i >> 1;
-    cp_piece<16>(smem + r * 32 + ((((i & 1) ^ (r >> 2)) & 1) << 4),
-                 wsub + static_cast<long long>(i) * 8, true);
-  }
+  // resident weights: subm rows of 32 bytes (halo_ring.cuh); down rows
+  // padded to kKRow
+  halo_ring::load_weights(smem, wsub, chunks, kNP);
   for (int i = tid; i < 3 * kNP * kKD * 2; i += kThreads) {
     const int r = i / (kKD * 2);
     const int q = i - r * kKD * 2;
@@ -334,46 +303,10 @@ fused_stage_mma_kernel(const bf16* __restrict__ x,
     vs[i] = n < Co ? vec[(i >> 6) * Co + n] : 0.f;
   }
 
-  // plane z (zeros outside 0..D-1) into its ring slot, [chunk][pixel][16
-  // channels], the 16-byte half h of pixel p at h ^ (bit 2 of p)
+  // plane z into its ring slot
   auto load_plane = [&](int z) {
-    unsigned char* slot = ring + ((z + 4) & 3) * L.slot;
-    const bool zin = z >= 0 && z < D;
-    const bf16* xp = xb + static_cast<long long>(zin ? z : 0) * hw * C;
-    if constexpr (PB > 0) {
-      constexpr int kPE = PB / 2;         // channels per piece
-      const int per_px = chunks * 16 / kPE;
-      for (int i = tid; i < kWin * per_px; i += kThreads) {
-        const int px = i / per_px;
-        const int c = (i - px * per_px) * kPE;
-        const int hy = px / kWinW;
-        const int h = h0 + hy - 1;
-        const int w = w0 + px - hy * kWinW - 1;
-        const bool ok = zin && h >= 0 && h < H && w >= 0 && w < W && c < C;
-        const bf16* src =
-            ok ? xp + (static_cast<long long>(h) * W + w) * C + c : xp;
-        const int k = c & 15;
-        cp_piece<PB>(slot + ((c >> 4) * kWin + px) * 32 +
-                         ((((k >> 3) ^ (px >> 2)) & 1) << 4) + (k & 7) * 2,
-                     src, ok);
-      }
-    } else {
-      const unsigned short* xs = reinterpret_cast<const unsigned short*>(xp);
-      const int per_px = chunks * 16;
-      for (int i = tid; i < kWin * per_px; i += kThreads) {
-        const int px = i / per_px;
-        const int c = i - px * per_px;
-        const int hy = px / kWinW;
-        const int h = h0 + hy - 1;
-        const int w = w0 + px - hy * kWinW - 1;
-        const bool ok = zin && h >= 0 && h < H && w >= 0 && w < W && c < C;
-        const int k = c & 15;
-        *reinterpret_cast<unsigned short*>(
-            slot + ((c >> 4) * kWin + px) * 32 +
-            ((((k >> 3) ^ (px >> 2)) & 1) << 4) + (k & 7) * 2) =
-            ok ? xs[(static_cast<long long>(h) * W + w) * C + c] : 0;
-      }
-    }
+    halo_ring::load_plane<PB>(ring + ((z + 4) & 3) * L.slot, xb, z, D, H, W,
+                              C, chunks, h0, w0);
   };
   load_plane(s0 - 1);
   load_plane(s0);
@@ -521,26 +454,7 @@ fused_stage_mma_kernel(const bf16* __restrict__ x,
         bf16* g = out + ((static_cast<long long>(b) * Dout + s / 2 - 1) * hw +
                          static_cast<long long>(row) * W + w0) *
                             Co;
-        if (Co % 8 == 0) {
-          const int q = Co / 8;
-          for (int i = lane; i < npx * q; i += 32) {
-            const int p = i / q;
-            const int k = i - p * q;
-            *reinterpret_cast<uint4*>(g + p * Co + 8 * k) =
-                *reinterpret_cast<const uint4*>(sg + p * L.stride + 8 * k);
-          }
-        } else {
-          // staged flat: the warp's npx pixels are one contiguous span
-          const int n = npx * Co;
-          if ((reinterpret_cast<uintptr_t>(g) & 15) == 0 && n % 8 == 0) {
-            for (int i = lane; i < n / 8; i += 32) {
-              reinterpret_cast<uint4*>(g)[i] =
-                  reinterpret_cast<const uint4*>(sg)[i];
-            }
-          } else {
-            for (int i = lane; i < n; i += 32) g[i] = sg[i];
-          }
-        }
+        halo_ring::store_row(g, sg, npx, Co, L.stride, lane);
       }
     }
     if (s < s1) {

@@ -12,8 +12,9 @@ the flagship runs: the anchor grid factored into cells x combos
    top-K anchors by key are its stage-2 candidates.
 2. **Exact candidates** — K6 (``ops/gathered_iou3d.iou_gathered``) clips
    the (G, K) candidate pairs.
-3. **Exact anchor tier** — K7 (``iou_gathered_pair``) clips every anchor
-   against its top-2 GTs by key.
+3. **Exact anchor tier** (``exact_anchor_tier``, on by default) — K7
+   (``iou_gathered_pair``) clips every anchor against its top-2 GTs by
+   key.
 4. **Sound negatives** — an anchor is negative only when its evaluated
    maximum is below threshold and either SAT proves it disjoint from every
    GT or the third key (plus the tiebreak slack) bounds every pair
@@ -186,7 +187,8 @@ def geometry_tier(gt_boxes, gt_mask, layout, combo_tab, g, k, gt_chunk,
 
 def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
                    layout, candidates_per_gt=512, gt_chunk=16,
-                   num_classes=1, combo_tab=None, plain=False):
+                   num_classes=1, combo_tab=None, exact_anchor_tier=True,
+                   plain=False):
     """Assign GT boxes to anchors for one point cloud.
 
     Positive if the max IoU over GTs reaches ``pos_thr``; negative if below
@@ -205,6 +207,9 @@ def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
         candidates_per_gt: K, anchors examined exactly per GT.
         gt_chunk: GTs per K3 launch.
         combo_tab: the layout's :func:`combo_table` (computed if None).
+        exact_anchor_tier: run tier 3 (K7).  False leaves it out, as the
+            JAX package does: no tier values, and the unevaluated pairs
+            are bounded by the first key ``v1`` instead of the third.
         plain: run the plain PyTorch versions of K3, K4, K6 and K7 on
             whatever device the inputs lie on (the reference route that
             the kernels are held against on the card).
@@ -240,16 +245,24 @@ def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
     chunks, tables = geom["chunks"], geom["tables"]
 
     # --- tier 3: every anchor against its top-2 GTs ------------------------
-    t1, t2 = _tier_exact_pair(gt_boxes, gt_mask, anchors, a1, v1, a2, v2, g,
-                              ops.pair)
-    t2 = torch.where(a2 == a1, torch.zeros_like(t2), t2)  # duplicate slot
-    tier_max = torch.maximum(t1, t2)
-    tier_best = torch.where((t1 > t2) | ((t1 == t2) & (a1 <= a2)), a1, a2)
-    tier_best = torch.where(tier_max > 0, tier_best,
-                            torch.full_like(tier_best, g))
-    # sound bound on pairs evaluated nowhere: every GT outside the top-2
-    # has key <= v3, and a pair's true IoU <= its bound <= key + SLACK
-    unev_bound = torch.clamp(v3 + _TIEBREAK_SLACK, min=0.0)
+    if exact_anchor_tier:
+        t1, t2 = _tier_exact_pair(gt_boxes, gt_mask, anchors, a1, v1, a2, v2,
+                                  g, ops.pair)
+        t2 = torch.where(a2 == a1, torch.zeros_like(t2), t2)  # duplicate
+        tier_max = torch.maximum(t1, t2)
+        tier_best = torch.where((t1 > t2) | ((t1 == t2) & (a1 <= a2)), a1,
+                                a2)
+        tier_best = torch.where(tier_max > 0, tier_best,
+                                torch.full_like(tier_best, g))
+        # sound bound on pairs evaluated nowhere: every GT outside the
+        # top-2 has key <= v3, and a pair's true IoU <= its bound <= key +
+        # SLACK
+        unev_bound = torch.clamp(v3 + _TIEBREAK_SLACK, min=0.0)
+    else:
+        # no pair is evaluated by the tier: v1 bounds every GT's key
+        tier_max = torch.zeros((n,), dtype=torch.float32, device=dev)
+        tier_best = torch.full((n,), g, dtype=torch.int32, device=dev)
+        unev_bound = torch.clamp(v1 + _TIEBREAK_SLACK, min=0.0)
 
     # --- tier 2: exact IoU of the (G, K) candidates ------------------------
     cand_idx = geom["cand_idx"]                             # (G, K)
@@ -279,13 +292,14 @@ def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
     max_overlap, best_gt = _merge_best(max_overlap, best_gt, tier_max,
                                        tier_best)
     best_gt_clipped = torch.clamp(best_gt, 0, max(g - 1, 0)).long()
-    safe1 = torch.clamp(a1, 0, max(g - 1, 0)).long()
-    safe2 = torch.clamp(a2, 0, max(g - 1, 0)).long()
     row_max = torch.maximum(cand_row_max, geom["cont_row_max"])
-    zeros_g = torch.zeros((g,), dtype=torch.float32, device=dev)
-    row_max = torch.maximum(row_max, torch.maximum(
-        zeros_g.scatter_reduce(0, safe1, t1, "amax"),
-        zeros_g.scatter_reduce(0, safe2, t2, "amax")))
+    if exact_anchor_tier:
+        safe1 = torch.clamp(a1, 0, max(g - 1, 0)).long()
+        safe2 = torch.clamp(a2, 0, max(g - 1, 0)).long()
+        zeros_g = torch.zeros((g,), dtype=torch.float32, device=dev)
+        row_max = torch.maximum(row_max, torch.maximum(
+            zeros_g.scatter_reduce(0, safe1, t1, "amax"),
+            zeros_g.scatter_reduce(0, safe2, t2, "amax")))
 
     c = max(num_classes, 1)
     pos_thr = torch.as_tensor(pos_thr, dtype=torch.float32,
@@ -303,8 +317,9 @@ def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
     rescue = (exact >= row_max[:, None]) & rescue_ok[:, None] & (exact > 0)
     pos_extra = torch.zeros((n,), dtype=torch.bool, device=dev)
     pos_extra[flat_idx[rescue.reshape(-1)]] = True
-    pos_extra |= (t1 >= row_max[safe1]) & rescue_ok[safe1] & (t1 > 0)
-    pos_extra |= (t2 >= row_max[safe2]) & rescue_ok[safe2] & (t2 > 0)
+    if exact_anchor_tier:
+        pos_extra |= (t1 >= row_max[safe1]) & rescue_ok[safe1] & (t1 > 0)
+        pos_extra |= (t2 >= row_max[safe2]) & rescue_ok[safe2] & (t2 > 0)
     for idx_c, (ftab, tabs) in zip(chunks, tables):
         rthr = torch.stack([row_max[idx_c],
                             rescue_ok[idx_c].to(torch.float32)], dim=1)

@@ -262,6 +262,8 @@ class PointPillars:
                 candidates_per_gt=int(
                     self.tpu_cfg["assign_candidates_per_gt"]),
                 num_classes=self.num_classes, combo_tab=self.combo_tab,
+                exact_anchor_tier=bool(self.tpu_cfg.get(
+                    "assign_exact_anchor_tier", True)),
                 plain=plain) for i in range(boxes.shape[0])]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 

@@ -26,6 +26,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # output-channel widths of the kernels' tensor-core body (8 per fragment)
 _MMA_WIDTHS = (24, 32, 64, 80, 128)
+# tile rows of the bf16 body (csrc/halo_ring.cuh)
+_TILE_H = 8
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
 
@@ -108,8 +110,11 @@ def subm_conv3d(x, kernel):
         raise ValueError("x and kernel lie on different devices")
     if dev.type == "cpu":
         return subm_conv3d_plain(x, kernel)
-    if b * d > 65535:
-        raise ValueError(f"B * D = {b * d} exceeds the kernel's grid")
+    if x.dtype == torch.float32 and b * d > 65535:
+        raise ValueError(f"B * D = {b * d} exceeds the float32 kernel's "
+                         f"grid")
+    if x.dtype == torch.bfloat16 and (b > 65535 or -(-h // _TILE_H) > 65535):
+        raise ValueError(f"B = {b} or H = {h} exceeds the bf16 kernel's grid")
     x = x.contiguous()
     wk, np_ = kernel_weights(kernel.to(x.dtype).reshape(27, c, co))
     out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=dev)

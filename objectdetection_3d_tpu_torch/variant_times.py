@@ -1,0 +1,207 @@
+"""Time kernel sources against variants of them in one process on the card.
+
+Run from the repository root on a CUDA machine, with another checkout
+(for example the parent commit, unpacked by ``git archive``) at
+``--parent``:
+
+    python3 -m objectdetection_3d_tpu_torch.variant_times --parent DIR
+
+Each variant is a copy of ``csrc/`` (this checkout's, with an optional
+text edit, or the other checkout's) built by ``nvcc`` with the flags of
+``ops/cuda_lib.py`` into ``build/variants/`` and swapped in under the
+kernel's wrapper, so every variant runs the same wrapper on the same
+inputs.  Variants are timed in turns (this, variant, variant, this) and
+each output is held against the plain version first.  Cases:
+
+* K10 ``subm_conv3d`` at the flagship's stages 0 and 1 (bf16, random
+  inputs): this source against the same source without its k8 products
+  on the last narrow chunk;
+* K8 ``fused_stage`` at the flagship's stages 0-2: this source against
+  the other checkout's;
+* K3 ``chunk_geometry`` on cloud 0's flagship GT chunks 0 (12 trees) and
+  1 (all padding), timed in a CUDA graph: this source against the other
+  checkout's, and against this source at two blocks per SM (``lb2``),
+  with one anchor per thread (``ka1``), and with one anchor per thread
+  at four blocks per SM (``ka1_lb4``).
+
+Prints one JSON line of {case: {variant: ms}}.
+"""
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from objectdetection_3d_tpu_torch.ops import cuda_lib
+from objectdetection_3d_tpu_torch.timing import cuda_ms, graph_ms
+
+# the K10 source without its k8 products (every chunk k16)
+NO_K8 = ("const bool k8_last = C - (chunks - 1) * 16 <= 8;",
+         "const bool k8_last = false;")
+# K3 at two or four blocks per SM (registers up to 128 or 64), and with
+# one anchor per thread
+K3_LB2 = ("__launch_bounds__(kMaxThreads, 3)",
+          "__launch_bounds__(kMaxThreads, 2)")
+K3_LB4 = ("__launch_bounds__(kMaxThreads, 3)",
+          "__launch_bounds__(kMaxThreads, 4)")
+K3_KA1 = ("constexpr int kA = 2;", "constexpr int kA = 1;")
+
+
+def build_variant(name, csrc, tag, *edits):
+    """Build ``csrc/<name>.cu`` (with ``edits``, (old, new) text pairs,
+    applied) into ``build/variants/<tag>``; returns the loaded library."""
+    out = cuda_lib.BUILD_DIR.parent / "variants" / tag
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    for f in list(Path(csrc).glob("*.cu")) + list(Path(csrc).glob("*.cuh")):
+        shutil.copy(f, out / f.name)
+    for old, new in edits:
+        src = (out / f"{name}.cu").read_text()
+        if src.count(old) != 1:
+            raise RuntimeError(f"edit {old!r} not found once in {name}")
+        (out / f"{name}.cu").write_text(src.replace(old, new))
+    lib = out / f"lib{name}.so"
+    subprocess.run([cuda_lib._nvcc(), *cuda_lib._flags(name), "-o",
+                    str(lib), str(out / f"{name}.cu")], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(str(lib))
+
+
+def in_turns(name, libs, fn, check, timer):
+    """Time ``fn`` under each library of ``libs`` {variant: lib} in turns
+    (first, others, others, first), after ``check()`` under each."""
+    order = list(libs)
+    saved = cuda_lib.load(name)
+    times = {v: [] for v in order}
+    try:
+        for v in order:
+            cuda_lib._libs[name] = libs[v]
+            check()
+        for v in order + order[::-1]:
+            cuda_lib._libs[name] = libs[v]
+            times[v].append(timer(fn))
+    finally:
+        cuda_lib._libs[name] = saved
+    return {v: sum(t) / len(t) for v, t in times.items()}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="another checkout whose csrc/ is a variant")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("variant_times: no CUDA device", file=sys.stderr)
+        return 1
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.assign import geometry_tier
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.ops.assign_geometry import (
+        chunk_geometry,
+        chunk_geometry_plain,
+    )
+    from objectdetection_3d_tpu_torch.ops.fused_stage import (
+        fused_stage,
+        fused_stage_plain,
+    )
+    from objectdetection_3d_tpu_torch.ops.pallas_conv import (
+        subm_conv3d,
+        subm_conv3d_plain,
+    )
+    from objectdetection_3d_tpu_torch.scene import (
+        MAX_GT,
+        card_line,
+        make_batch,
+        tree_scene,
+    )
+
+    print(card_line(), flush=True)
+    here = cuda_lib.CSRC_DIR
+    parent = Path(args.parent) / "objectdetection_3d_tpu_torch" / "csrc"
+    cuda_lib.build(("subm_conv3d", "fused_stage", "assign_geometry"))
+    libs = {
+        "subm_conv3d": {
+            "this": cuda_lib.load("subm_conv3d"),
+            "no_k8": build_variant("subm_conv3d", here, "no_k8", NO_K8)},
+        "fused_stage": {
+            "this": cuda_lib.load("fused_stage"),
+            "parent": build_variant("fused_stage", parent, "parent")},
+        "assign_geometry": {
+            "this": cuda_lib.load("assign_geometry"),
+            "parent": build_variant("assign_geometry", parent, "parent"),
+            "lb2": build_variant("assign_geometry", here, "lb2", K3_LB2),
+            "ka1": build_variant("assign_geometry", here, "ka1", K3_KA1),
+            "ka1_lb4": build_variant("assign_geometry", here, "ka1_lb4",
+                                     K3_KA1, K3_LB4)},
+    }
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale)
+
+    def close(got, want, tol=1e-2):
+        err = float((got.double() - want.double()).abs().max())
+        scale = float(want.double().abs().max())
+        if not err <= tol * scale:
+            raise AssertionError(f"variant differs by {err} (scale {scale})")
+
+    out = {}
+    for i, (d, c, co) in enumerate(((100, 20, 20), (49, 20, 32))):
+        x = randn(1, d, 400, 400, c).to(torch.bfloat16)
+        k = randn(3, 3, 3, c, co, scale=0.1)
+        want = subm_conv3d_plain(x, k)
+        out[f"subm_conv3d stage {i}"] = in_turns(
+            "subm_conv3d", libs["subm_conv3d"], lambda: subm_conv3d(x, k),
+            lambda: close(subm_conv3d(x, k), want),
+            lambda fn: cuda_ms(fn, 10))
+        del x, want
+    for i, (d, c, co) in enumerate(((100, 20, 20), (49, 20, 32),
+                                    (24, 32, 64))):
+        m = (torch.rand((1, d, 400, 400), generator=gen, device="cuda")
+             < 0.1).to(torch.bfloat16)
+        x = randn(1, d, 400, 400, c).to(torch.bfloat16) * m[..., None]
+        fargs = (randn(3, 3, 3, c, co, scale=0.1), randn(3, co, co, scale=0.2),
+                 randn(co).abs() + 0.5, randn(co, scale=0.2),
+                 randn(co).abs() + 0.5, randn(co, scale=0.2))
+        want = fused_stage_plain(x, m, *fargs)
+        out[f"fused_stage stage {i}"] = in_turns(
+            "fused_stage", libs["fused_stage"],
+            lambda: fused_stage(x, m, *fargs),
+            lambda: close(fused_stage(x, m, *fargs), want),
+            lambda fn: cuda_ms(fn, 10))
+        del x, m, want
+    torch.cuda.empty_cache()
+
+    model = PointPillars(configs.flagship_cfg(), device="cuda")
+    batch = make_batch(tree_scene(0), model.tpu_cfg["max_points_static"])
+    gt = torch.as_tensor(batch["bboxes"][0], device="cuda")
+    gt_mask = torch.as_tensor(batch["gt_mask"][0], device="cuda")
+    geom = geometry_tier(gt, gt_mask, model.anchor_layout, model.combo_tab,
+                         MAX_GT, 512, 16, chunk_geometry_plain)
+    for c in (0, 1):
+        (ftab, tabs), gid = geom["tables"][c], geom["chunks"][c].int()
+        gargs = (ftab, gid, tabs, model.combo_tab, model.anchor_layout[0],
+                 MAX_GT)
+        want = chunk_geometry_plain(*gargs)
+
+        def exact(gargs=gargs, want=want):
+            got = chunk_geometry(*gargs)
+            if not all(torch.equal(got[key], want[key]) for key in want):
+                raise AssertionError("chunk_geometry variant not bit-exact")
+
+        out[f"chunk_geometry chunk {c}"] = in_turns(
+            "assign_geometry", libs["assign_geometry"],
+            lambda gargs=gargs: chunk_geometry(*gargs), exact,
+            lambda fn: graph_ms(fn, 10))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

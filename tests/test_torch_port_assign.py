@@ -6,8 +6,9 @@ against the JAX package, float32 on the CPU.
   ``tests/test_assign_geometry.py``: keys rtol 1e-5, atol 1e-6 (the
   per-GT tables come from einsums summed in another order); integer and
   flag outputs exact after the combo-major -> flat reorder.
-* ``assign_targets`` against the JAX package's on the layout path with
-  the exact anchor tier: masks, labels and ``num_pos`` exact,
+* ``assign_targets`` against the JAX package's on the layout path, with
+  the exact anchor tier and without it (``exact_anchor_tier=False``, the
+  ``tpu.assign_exact_anchor_tier`` knob): masks, labels and ``num_pos`` exact,
   ``best_gt`` and the direction targets exact under ``pos_mask``,
   ``target_deltas`` and ``max_overlap`` 1e-5.  Outside ``pos_mask`` both
   follow a ``best_gt`` that no loss reads, and a touching pair there may
@@ -181,24 +182,24 @@ def models():
             PointPillars(configs.tiny_model_cfg(), device="cpu"))
 
 
-def _assign_pair(models, gt, labels, mask):
+def _assign_pair(models, gt, labels, mask, tier=True):
     jm, tm = models
     k = int(jm.tpu_cfg["assign_candidates_per_gt"])
     want = jax_assign_targets(
         jm.anchors, jnp.asarray(gt), jnp.asarray(labels), jnp.asarray(mask),
         pos_thr=jm._pos_thr, neg_thr=jm._neg_thr, candidates_per_gt=k,
         num_classes=jm.num_classes, anchor_aabb=jm.anchor_aabb,
-        layout=jm.anchor_layout, exact_anchor_tier=True)
+        layout=jm.anchor_layout, exact_anchor_tier=tier)
     got = assign_targets(
         tm.anchors, torch.from_numpy(gt), torch.from_numpy(labels),
         torch.from_numpy(mask), tm._pos_thr, tm._neg_thr, tm.anchor_layout,
         candidates_per_gt=k, num_classes=tm.num_classes,
-        combo_tab=tm.combo_tab)
+        combo_tab=tm.combo_tab, exact_anchor_tier=tier)
     return {k_: np.asarray(v) for k_, v in want.items()}, {
         k_: v.numpy() for k_, v in got.items()}
 
 
-def _assert_assign_equal(want, got):
+def _assert_assign_equal(want, got, overlap_atol=1e-5):
     for name in ("pos_mask", "neg_mask", "target_labels", "num_pos"):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
     pos = want["pos_mask"]
@@ -208,16 +209,23 @@ def _assert_assign_equal(want, got):
     np.testing.assert_allclose(got["target_deltas"], want["target_deltas"],
                                atol=1e-5)
     np.testing.assert_allclose(got["max_overlap"], want["max_overlap"],
-                               atol=1e-5)
+                               atol=overlap_atol)
 
 
-@pytest.mark.parametrize("seed,num_gt,max_gt", [(0, 3, 8), (1, 3, 8),
-                                                (2, 4, 8), (3, 5, 20)])
-def test_assign_targets_matches_jax(models, seed, num_gt, max_gt):
+_SEEDS = [(0, 3, 8), (1, 3, 8), (2, 4, 8), (3, 5, 20)]
+
+
+# the default tier keeps the cases' old ids; "notier" is
+# exact_anchor_tier=False
+@pytest.mark.parametrize("seed,num_gt,max_gt,tier", [
+    pytest.param(*s, tier, id="-".join(map(str, s)) + ("" if tier else
+                                                       "-notier"))
+    for tier in (True, False) for s in _SEEDS])
+def test_assign_targets_matches_jax(models, seed, num_gt, max_gt, tier):
     batch = tiny_batch(batch_size=1, num_gt=num_gt, seed=seed,
                        max_gt=max_gt)
     want, got = _assign_pair(models, batch["bboxes"][0], batch["labels"][0],
-                             batch["gt_mask"][0])
+                             batch["gt_mask"][0], tier)
     _assert_assign_equal(want, got)
     assert 0 < int(want["num_pos"])
     # some anchors are ignored: neither positive nor negative
@@ -242,3 +250,81 @@ def test_assign_needs_a_layout(models):
         assign_targets(tm.anchors, torch.zeros((2, 9)),
                        torch.zeros(2, dtype=torch.int32),
                        torch.zeros(2, dtype=torch.bool), 0.2, 0.08, None)
+
+
+def _ring_scene(seed):
+    """The scene of the JAX package's
+    ``test_exact_anchor_tier_recovers_ring_positives``: anchor-sized GTs
+    (no containment), K = 2 candidates per GT, so most positives are
+    found by the exact anchor tier alone."""
+    from objectdetection_3d_tpu.models.anchors import (
+        Anchor3DRangeGenerator,
+    )
+
+    rng = np.random.default_rng(seed)
+    gen = Anchor3DRangeGenerator(
+        ranges=[[0, 0, 0, 16.0, 16.0, 6.0]], sizes=[[1.2, 1.2, 3.0]],
+        rotations=[[0.0, 0.0, 0.0], [0.0, 0.0, 1.57]])
+    anchors = np.asarray(gen.flat_anchors((32, 32)), np.float32)
+    g_valid = 6
+    gt = np.zeros((8, 9), np.float32)
+    gt[:g_valid, :2] = rng.uniform(3, 13, (g_valid, 2))
+    gt[:g_valid, 2] = rng.uniform(-0.2, 0.2, g_valid)
+    gt[:g_valid, 3:6] = [1.4, 1.4, 3.2]
+    gt[:g_valid, 6:8] = rng.uniform(-0.05, 0.05, (g_valid, 2))
+    gt[:g_valid, 8] = rng.uniform(-np.pi, np.pi, g_valid)
+    return anchors, gt, np.arange(8) < g_valid, np.zeros(8, np.int32)
+
+
+@pytest.mark.parametrize("seed", [1, 7])
+def test_exact_anchor_tier_changes_positives_as_in_jax(seed):
+    from objectdetection_3d_tpu.models.assign import (
+        make_anchor_layout as jax_layout,
+    )
+
+    anchors, gt, mask, labels = _ring_scene(seed)
+    kw = dict(pos_thr=0.2, neg_thr=0.08, candidates_per_gt=2, gt_chunk=4)
+    j_layout = tuple(jnp.asarray(a) for a in jax_layout(anchors, 2))
+    t_anchors = torch.from_numpy(anchors)
+    t_layout = make_anchor_layout(t_anchors, 2)
+    num_pos = {}
+    for tier in (True, False):
+        want = jax_assign_targets(
+            jnp.asarray(anchors), jnp.asarray(gt), jnp.asarray(labels),
+            jnp.asarray(mask), **kw, layout=j_layout,
+            exact_anchor_tier=tier)
+        got = assign_targets(
+            t_anchors, torch.from_numpy(gt), torch.from_numpy(labels),
+            torch.from_numpy(mask), layout=t_layout, exact_anchor_tier=tier,
+            **kw)
+        want = {k_: np.asarray(v) for k_, v in want.items()}
+        # the ring's partial overlaps are clipped by the JAX package's XLA
+        # clipper and by the port's Pallas-body clipper, whose plane
+        # orders differ: overlaps near 0.5 differ by up to ~2e-5
+        _assert_assign_equal(want, {k_: v.numpy() for k_, v in got.items()},
+                             overlap_atol=1e-4)
+        num_pos[tier] = int(got["num_pos"])
+    assert num_pos[False] < num_pos[True]
+
+
+def test_assign_reads_the_exact_anchor_tier_knob(models, monkeypatch):
+    """``PointPillars.assign`` passes ``tpu.assign_exact_anchor_tier`` on:
+    with False it equals the JAX assignment without the tier and never
+    runs the tier's pair clipper (K7)."""
+    from objectdetection_3d_tpu_torch.ops import gathered_iou3d
+
+    cfg = configs.tiny_model_cfg()
+    cfg["tpu"] = dict(cfg.get("tpu") or {}, assign_exact_anchor_tier=False)
+    tm = PointPillars(cfg, device="cpu")
+    assert tm.tpu_cfg["assign_exact_anchor_tier"] is False
+
+    def no_pair(*args, **kwargs):
+        raise AssertionError("the exact anchor tier ran")
+
+    for name in ("iou_gathered_pair", "iou_gathered_pair_plain"):
+        monkeypatch.setattr(gathered_iou3d, name, no_pair)
+    batch = tiny_batch(batch_size=1, num_gt=5, seed=3, max_gt=20)
+    got = tm.assign(batch, plain=True)
+    want, _ = _assign_pair(models, batch["bboxes"][0], batch["labels"][0],
+                           batch["gt_mask"][0], tier=False)
+    _assert_assign_equal(want, {k_: v[0].numpy() for k_, v in got.items()})

@@ -275,8 +275,15 @@ def _grid_layout(rng, nc, device):
     return anchors, make_anchor_layout(anchors, len(combos))
 
 
-@pytest.mark.parametrize("nc,gch", [(160000, 16), (1001, 5)])
-def test_assign_geometry_kernels_bit_exact(cuda, nc, gch):
+# (cells, GTs, rows): the last row masked; every row masked (zero boxes, as
+# the padding of a flagship chunk); the second half masked copies of the
+# first (as geometry_tier wraps a short last chunk).  12,005 cells are 572
+# groups of 21, a ragged last round for K3's persistent blocks.
+@pytest.mark.parametrize("nc,gch,rows", [
+    pytest.param(160000, 16, "last-masked", id="160000-16"),
+    pytest.param(1001, 5, "last-masked", id="1001-5"),
+    (12005, 16, "all-masked"), (12005, 16, "wrapped")])
+def test_assign_geometry_kernels_bit_exact(cuda, nc, gch, rows):
     rng = np.random.default_rng(nc)
     anchors, layout = _grid_layout(rng, nc, cuda)
     gt = np.zeros((gch, 9), np.float32)
@@ -288,7 +295,14 @@ def test_assign_geometry_kernels_bit_exact(cuda, nc, gch):
     # a thin upright GT on a cell center, inside that cell's larger anchors
     gt[1] = [*anchors[5, :2].tolist(), 0.5, 0.5, 0.5, 12.0, 0.01, -0.01,
              0.3]
-    mask = torch.from_numpy(np.arange(gch) != gch - 1).to(cuda)
+    keep = np.arange(gch) != gch - 1
+    if rows == "all-masked":
+        gt[:] = 0.0
+        keep[:] = False
+    elif rows == "wrapped":
+        gt[gch // 2:] = gt[:gch - gch // 2]
+        keep = np.arange(gch) < gch // 2
+    mask = torch.from_numpy(keep).to(cuda)
     ftab, tabs = chunk_tables(torch.from_numpy(gt).to(cuda), mask, layout)
     combo = combo_table(layout)
     gid = torch.arange(3, 3 + gch, dtype=torch.int32, device=cuda)
@@ -301,7 +315,7 @@ def test_assign_geometry_kernels_bit_exact(cuda, nc, gch):
     for name in want:
         assert got[name].dtype == want[name].dtype, name
         assert torch.equal(got[name], want[name]), name
-    assert int((got["cm"] > 0).sum()) > 0
+    assert (int((got["cm"] > 0).sum()) > 0) == (rows != "all-masked")
 
     rthr = torch.stack([got["rmax"].amax(dim=1),
                         torch.ones(gch, device=cuda)], dim=1).contiguous()
@@ -311,7 +325,7 @@ def test_assign_geometry_kernels_bit_exact(cuda, nc, gch):
     torch.cuda.synchronize()
     assert containment_rescue.launches == before + 1
     assert torch.equal(hit, want_hit)
-    assert int(hit.sum()) > 0
+    assert (int(hit.sum()) > 0) == (rows != "all-masked")
 
 
 @pytest.mark.parametrize("p", [1, 1000, 70000])
@@ -354,10 +368,21 @@ def _normal(rng, shape, scale, device, dtype=torch.float32):
         np.float32)).to(device, dtype)
 
 
+# (B, D, H, W, C, Co): D = 1, 2, 3 (runs shorter than the plane ring);
+# D = 100 and 64 on one and four tiles, which the bf16 kernel cuts into
+# several z runs; C 20 and 12 (8-byte halo pieces), 16 and 24 (16-byte), 3
+# (element by element); Co 20, 32, 64; H, W not multiples of the 8 x 16
+# tile; and 325 tiles, more than one wave of blocks.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 7, 16, 24, 20, 20),
                                    (2, 5, 13, 9, 3, 32),
-                                   (1, 4, 8, 40, 24, 64)])
+                                   (1, 4, 8, 40, 24, 64),
+                                   (1, 1, 8, 16, 20, 20),
+                                   (2, 2, 9, 17, 16, 32),
+                                   (1, 3, 16, 16, 24, 20),
+                                   (1, 100, 8, 16, 20, 20),
+                                   (1, 64, 16, 32, 12, 32),
+                                   (1, 5, 200, 200, 20, 32)])
 def test_subm_conv3d_kernel_matches_plain(cuda, exact_fp32, dtype, shape):
     b, d, h, w, c, co = shape
     rng = np.random.default_rng(sum(shape))
@@ -452,6 +477,15 @@ def test_conv_wrappers_reject_bad_input(cuda):
                     torch.zeros((3, 3, 3, 32, 20), device=cuda))
     with pytest.raises(ValueError):            # float16
         subm_conv3d(x.half(), k3)
+    with pytest.raises(ValueError):            # float32 B * D > 65535
+        subm_conv3d(torch.zeros((1, 65536, 1, 1, 4), device=cuda),
+                    torch.zeros((3, 3, 3, 4, 8), device=cuda))
+    # bf16 walks z inside a block: D = 65536 runs
+    yb = subm_conv3d(torch.ones((1, 65536, 1, 1, 4), device=cuda,
+                                dtype=torch.bfloat16),
+                     torch.full((3, 3, 3, 4, 8), 0.5, device=cuda))
+    assert bool((yb[0, 1:-1] == 6.0).all())
+    assert bool((yb[0, [0, -1]] == 4.0).all())
     with pytest.raises(ValueError):            # C > 128
         conv2d_3x3(torch.zeros((1, 8, 8, 130), device=cuda),
                    torch.zeros((3, 3, 130, 8), device=cuda))
