@@ -5,9 +5,10 @@ Run from the repository root:
 
     python3 chip_smoke.py [--quick]
 
-``--quick`` runs phases 1-2, then K10 on cloud 0's stage 0-1 inputs and
-K3/K4 on its GT chunks 0-1 against their plain versions (phases 7 and
-10), and stops: the short first call after a kernel change.
+``--quick`` runs phases 1-2, then K10 on cloud 0's stage 0-1 inputs, K1
+on clouds 0-3 and K3/K4 on cloud 0's GT chunks 0-1 against their plain
+versions, timed as in phases 3, 7 and 10, and stops: the short first
+call after a kernel change.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -17,7 +18,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``nvcc`` per source, all started together) and prints the build time;
 3. kernels: at flagship shapes, each kernel against its plain PyTorch
    version on the same inputs, bit-exact, with both timed by CUDA events
-   (K2 in bf16 and float32);
+   (K1 at B = 1 and B = 4, also replayed from a CUDA graph; K2 in bf16
+   and float32);
 4. voxelizer: the kernel path on the card against the plain path on the
    CPU for one cloud, every output exact;
 5. predict: the flagship ``PointPillars`` (100x400x400 grid, 12 anchors per
@@ -30,7 +32,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    IoU, each against its plain version on cloud 0's real assignment
    inputs (128 padded GT boxes, 1.92 M anchors, K = 512), both timed
    (K3 on GT chunk 0, with 12 trees, and on chunk 1, whose 16 rows are
-   all padding, and over the step's 8 chunks back to back);
+   all padding, and over the step's 8 chunks back to back; K4 on both
+   chunks under each row's own containment maximum and under the row
+   maxima and rescue flags of cloud 0's flagship assignment, with the
+   live (GT, combo) pairs counted, and over the assignment's 8 chunks);
    every pair that the plain separating-plane test clears is exactly 0
    from K6/K7 and from their plain versions, and their bounds count the
    test plus the clips it leaves (beside the bound of clipping all);
@@ -95,6 +100,15 @@ BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # corners, planes and the IoU)
 K3_OPS_PER_PAIR = 128
 K4_OPS_PER_PAIR = 53
+# K4's work on the pairs it does not skip: per (cell, live (GT, combo))
+# the three in_a tests (sum, abs, compare) where the anchor can fit, the
+# three in_b tests (two differences, abs, compare) where the GT can; per
+# (GT, cell) the cell centre on the GT's axes, per (cell, combo) on the
+# combo's (9 products, 6 sums each)
+K4_IN_A_OPS = 9
+K4_IN_B_OPS = 12
+K4_BASE_OPS = 18
+K4_COV_OPS = 15
 CLIP_OPS_PER_PAIR = 12 * (49 * 23 + 10 * 16) + 560
 # K6/K7's separating-plane test: per pair, 2 directions x 6 planes x 8
 # corners x 7 (a 3-term dot product, the offset, the compare); a direction
@@ -219,17 +233,15 @@ def subm_conv_stages(enc, ins):
     return rows
 
 
-def geometry_kernels(model, geom, gt_mask):
+def geometry_kernels(model, geom, gt_mask, batch):
     """K3 and K4 on cloud 0's flagship tables (``geometry_tier``'s
     ``geom``): K3 bit-exact on chunk 0 (12 trees and 4 masked rows) and
     chunk 1 (16 masked rows) and timed on both and on the step's 8 chunks
-    back to back; K4 bit-exact on chunk 0.  Returns their kernel
-    entries."""
+    back to back; K4 as :func:`rescue_entry` says (``batch`` is cloud 0).
+    Returns their kernel entries."""
     from objectdetection_3d_tpu_torch.ops.assign_geometry import (
         chunk_geometry,
         chunk_geometry_plain,
-        containment_rescue,
-        containment_rescue_plain,
     )
     from objectdetection_3d_tpu_torch.scene import MAX_GT
 
@@ -279,26 +291,7 @@ def geometry_kernels(model, geom, gt_mask):
         "k3_step_eager_ms": cuda_ms(lambda: [chunk_geometry(*a)
                                              for a in chunk_args], 10),
         "chunks_per_step": len(chunk_args)}
-    ftab, gid, tabs = chunk_args[0][:3]
-    rthr = torch.stack([geom["cont_row_max"][gid.long()],
-                        gt_mask[gid.long()].float()], dim=1).contiguous()
-    res_args = (ftab, rthr, tabs, combo, cells)
-    hit = containment_rescue(*res_args)
-    if not torch.equal(hit, containment_rescue_plain(*res_args)):
-        raise AssertionError("containment_rescue differs from its plain "
-                             "version")
-    b_ms, b_by = bound(4 * (n_cell * 3 + n_anchor),
-                       K4_OPS_PER_PAIR * ftab.shape[0] * n_anchor)
-    k4 = {
-        "name": "containment_rescue", "route": "cuda",
-        "source": "objectdetection_3d_tpu_torch/csrc/assign_geometry.cu",
-        "replaces": "objectdetection_3d_tpu/ops/assign_geometry.py:423",
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: containment_rescue(*res_args), 20),
-        "graph_ms": graph_ms(lambda: containment_rescue(*res_args), 10),
-        "plain_ms": cuda_ms(lambda: containment_rescue_plain(*res_args), 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }
+    k4 = rescue_entry(model, geom, gt_mask, batch)
     print(f"K3 chunk_geometry N={n_anchor}: bit-exact on all 11 outputs of "
           f"chunk 0 ({timed[0]['rows']} trees, {timed[0]['inside']} anchors "
           f"inside one) and chunk 1 ({timed[1]['rows']} unmasked rows); "
@@ -309,11 +302,190 @@ def geometry_kernels(model, geom, gt_mask):
           f"({entry['eager_ms_padding_chunk']:.4f} eager; bound "
           f"{entry['bound_padding_chunk_ms']:.4f}); the step's "
           f"{len(chunk_args)} chunks {entry['k3_step_ms']:.4f} ms "
-          f"({entry['k3_step_eager_ms']:.4f} eager); K4 "
-          f"containment_rescue: bit-exact ({int(hit.sum())} hits), "
-          f"{k4['ms']:.4f} ms ({k4['graph_ms']:.4f} in a CUDA graph) vs "
-          f"plain {k4['plain_ms']:.4f} ms", flush=True)
+          f"({entry['k3_step_eager_ms']:.4f} eager)", flush=True)
     return {"chunk_geometry": entry, "containment_rescue": k4}
+
+
+def assignment_rescue_args(model, batch):
+    """The arguments of every K4 launch of ``batch``'s flagship assignment:
+    the chunks' tables with the row maxima and rescue flags that the
+    assignment computes (its candidate, tier and containment maxima)."""
+    from objectdetection_3d_tpu_torch.models import assign
+
+    calls = []
+    init = assign._Kernels.__init__
+
+    def recording(kernels, plain):
+        init(kernels, plain)
+        launch = kernels.rescue
+
+        def record(*args):
+            calls.append(tuple(a.clone() for a in args))
+            return launch(*args)
+
+        kernels.rescue = record
+
+    assign._Kernels.__init__ = recording
+    try:
+        model.assign(batch)
+    finally:
+        assign._Kernels.__init__ = init
+    return calls
+
+
+def rescue_entry(model, geom, gt_mask, batch):
+    """K4 on cloud 0's GT chunks 0 (12 trees) and 1 (all padding), each
+    under two sets of thresholds: each row's own containment maximum
+    (``cont_row_max``, rescue on the trees) and the row maxima and rescue
+    flags of the flagship assignment itself.  Bit-exact against the plain
+    version on all four; timed in a CUDA graph and eager on both chunks
+    (own maxima) and over the step's 8 chunks (the assignment's); the
+    bound counts the tests of the live (GT, combo) pairs, beside the bound
+    of every pair in full.  Returns the kernel entry."""
+    from objectdetection_3d_tpu_torch.ops.assign_geometry import (
+        containment_rescue,
+        containment_rescue_plain,
+        rescue_flags,
+    )
+
+    combo, cells = model.combo_tab, model.anchor_layout[0]
+    n_cell, m_combo = cells.shape[0], combo.shape[1]
+    n_anchor = n_cell * m_combo
+    real = assignment_rescue_args(model, batch)
+    own = []
+    for (ftab, tabs), gid in zip(geom["tables"], geom["chunks"]):
+        rthr = torch.stack([geom["cont_row_max"][gid],
+                            gt_mask[gid].float()], dim=1).contiguous()
+        own.append((ftab, rthr, tabs, combo, cells))
+    rows = {}
+    for label, calls in (("own", own), ("assignment", real)):
+        for c in (0, 1):
+            args = calls[c]
+            hit = containment_rescue(*args)
+            if not torch.equal(hit, containment_rescue_plain(*args)):
+                raise AssertionError(f"containment_rescue differs from its "
+                                     f"plain version on chunk {c} under the "
+                                     f"{label} thresholds")
+            ftab, rthr, tabs = args[:3]
+            flags = rescue_flags(ftab, rthr, tabs, combo)
+            live = (flags & 3) != 0
+            n_a = int((flags & 4).bool().sum())
+            n_b = int((flags & 2).bool().sum())
+            gts_a = int((flags & 4).bool().any(dim=1).sum())
+            combos_b = int((flags & 2).bool().any(dim=0).sum())
+            gch = ftab.shape[0]
+            # tables and cells read once, the (N,) flags written once
+            nbytes = 4 * (n_cell * 3 + n_anchor + gch * 19
+                          + 12 * gch * m_combo + 16 * m_combo)
+            ops = n_cell * (K4_IN_A_OPS * n_a + K4_IN_B_OPS * n_b
+                            + K4_BASE_OPS * gts_a + K4_COV_OPS * combos_b)
+            b_ms, b_by = bound(nbytes, ops)
+            all_ms, _ = bound(nbytes, K4_OPS_PER_PAIR * gch * n_anchor)
+            rows[(label, c)] = {
+                "live_pairs": int(live.sum()), "in_a_pairs": n_a,
+                "in_b_pairs": n_b, "rescue_rows": int((rthr[:, 1] > 0).sum()),
+                "hits": int(hit.sum()), "bound_ms": b_ms, "bound_by": b_by,
+                "bound_all_pairs_ms": all_ms}
+            print(f"K4 chunk {c}, {label} thresholds: bit-exact, "
+                  f"{rows[(label, c)]['hits']} hits; live (GT, combo) pairs "
+                  f"{rows[(label, c)]['live_pairs']} of {gch * m_combo} "
+                  f"(in_a tested {n_a}, in_b {n_b}; rescue rows "
+                  f"{rows[(label, c)]['rescue_rows']}); bound {b_ms:.5f} ms "
+                  f"({b_by}), all pairs {all_ms:.5f}", flush=True)
+    for (label, c), row in rows.items():
+        args = (own if label == "own" else real)[c]
+        row["ms"] = graph_ms(lambda args=args: containment_rescue(*args), 10)
+        row["eager_ms"] = cuda_ms(lambda args=args: containment_rescue(*args),
+                                  20)
+    main = rows[("own", 0)]
+    k4 = {
+        "name": "containment_rescue", "route": "cuda",
+        "source": "objectdetection_3d_tpu_torch/csrc/assign_geometry.cu",
+        "replaces": "objectdetection_3d_tpu/ops/assign_geometry.py:423",
+        "max_abs_err": 0.0, "ms": main["ms"], "graph_ms": main["ms"],
+        "eager_ms": main["eager_ms"],
+        "plain_ms": cuda_ms(lambda: containment_rescue_plain(*own[0]), 3),
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "bound_all_pairs_ms": main["bound_all_pairs_ms"],
+        "library_ms": None, "share": main["bound_ms"] / main["ms"],
+        "ms_padding_chunk": rows[("own", 1)]["ms"],
+        "eager_ms_padding_chunk": rows[("own", 1)]["eager_ms"],
+        "bound_padding_chunk_ms": rows[("own", 1)]["bound_ms"],
+        "k4_step_ms": graph_ms(lambda: [containment_rescue(*a)
+                                        for a in real], 2),
+        "k4_step_eager_ms": cuda_ms(lambda: [containment_rescue(*a)
+                                             for a in real], 10),
+        "chunks_per_step": len(real),
+        "chunks": [{"thresholds": label, "chunk": c, **row}
+                   for (label, c), row in rows.items()]}
+    print(f"K4 containment_rescue N={n_anchor}: chunk 0 {k4['ms']:.4f} ms in "
+          f"a CUDA graph ({k4['eager_ms']:.4f} eager; bound "
+          f"{k4['bound_ms']:.5f}, all pairs {k4['bound_all_pairs_ms']:.4f}, "
+          f"share {k4['share']:.3f}) vs plain {k4['plain_ms']:.4f} ms; "
+          f"padding chunk {k4['ms_padding_chunk']:.4f} ms "
+          f"({k4['eager_ms_padding_chunk']:.4f} eager); under the "
+          f"assignment's thresholds chunk 0 "
+          f"{rows[('assignment', 0)]['ms']:.4f} ms; the step's "
+          f"{len(real)} chunks {k4['k4_step_ms']:.4f} ms "
+          f"({k4['k4_step_eager_ms']:.4f} eager)", flush=True)
+    return k4
+
+
+def scan_entry(model, batches):
+    """K1 on the sorted cell ids of cloud 0 (B = 1) and clouds 0-3 (B =
+    4), flagship P: bit-exact against the plain version, timed in a CUDA
+    graph and eager.  Returns the kernel entry (B = 1 as its main row)."""
+    from objectdetection_3d_tpu_torch.ops.voxel_scan import (
+        postsort_scan,
+        postsort_scan_plain,
+    )
+    from objectdetection_3d_tpu_torch.ops.voxelize import cells_sorted
+
+    vl = model.voxel_layer
+    d, h, w = model.grid_dhw
+    sentinel = d * h * w
+    rows = {}
+    for b in (1, 4):
+        pts = torch.as_tensor(np.concatenate([x["points"]
+                                              for x in batches[:b]]),
+                              device="cuda")
+        n = torch.as_tensor(np.concatenate([x["num_points"]
+                                            for x in batches[:b]]),
+                            device="cuda")
+        cell_s, _ = cells_sorted(pts, n, voxel_size=vl.voxel_size,
+                                 point_cloud_range=vl.point_cloud_range)
+        vox_k, rank_k = postsort_scan(cell_s, sentinel)
+        vox_p, rank_p = postsort_scan_plain(cell_s, sentinel)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(vox_k, vox_p), max_abs_err(rank_k, rank_p))
+        if not (torch.equal(vox_k, vox_p) and torch.equal(rank_k, rank_p)):
+            raise AssertionError(f"postsort_scan differs from its plain "
+                                 f"version at B={b} (max abs err {err})")
+        bb, p = cell_s.shape
+        rows[b] = {
+            "shape": [bb, p], "max_abs_err": err,
+            "ms": graph_ms(lambda c=cell_s: postsort_scan(c, sentinel), 20),
+            "eager_ms": cuda_ms(lambda c=cell_s: postsort_scan(c, sentinel),
+                                200),
+            "plain_ms": cuda_ms(
+                lambda c=cell_s: postsort_scan_plain(c, sentinel), 200),
+            # (B, P) int32 read once, two (B, P) int32 outputs written once
+            "bound_ms": bytes_ms(3 * bb * p * 4)}
+        print(f"K1 postsort_scan B={bb} P={p}: bit-exact; "
+              f"{rows[b]['ms']:.4f} ms in a CUDA graph "
+              f"({rows[b]['eager_ms']:.4f} eager) vs plain "
+              f"{rows[b]['plain_ms']:.4f} ms; bound "
+              f"{rows[b]['bound_ms']:.5f} ms", flush=True)
+    main = rows[1]
+    return {
+        "name": "postsort_scan", "route": "cuda",
+        "source": "objectdetection_3d_tpu_torch/csrc/voxel_scan.cu",
+        "replaces": "objectdetection_3d_tpu/ops/voxel_scan.py:119",
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "graph_ms": main["ms"], "eager_ms": main["eager_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "share": main["bound_ms"] / main["ms"], "b4": rows[4]}
 
 
 def encoder_kernels(model, batch):
@@ -707,11 +879,7 @@ def main():
         scatter_to_grid_plain,
     )
     from objectdetection_3d_tpu_torch.ops.iou3d import separated_directions
-    from objectdetection_3d_tpu_torch.ops.voxel_scan import (
-        postsort_scan,
-        postsort_scan_plain,
-    )
-    from objectdetection_3d_tpu_torch.ops.voxelize import cells_sorted
+    from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
     from objectdetection_3d_tpu_torch.profile_train import (
         phase_device_ms,
         traced_steps,
@@ -738,8 +906,9 @@ def main():
     batches = [make_batch(sc, p_max) for sc in scenes]
     kernels = {}
     if "--quick" in sys.argv[1:]:
-        # the first call after a kernel change: K10 per flagship stage and
-        # K3/K4 on cloud 0's chunks against their plain versions, then stop
+        # the first call after a kernel change: K10 per flagship stage, K1
+        # at B = 1 and 4, and K3/K4 on cloud 0's chunks against their plain
+        # versions, then stop
         load_npz(model.net, NPZ)
         ins = stage_inputs(model, batches[0], 2)
         for r in subm_conv_stages(model.net.pseudoimage_generator, ins):
@@ -748,46 +917,23 @@ def main():
                   f"{r['bound_ms']:.4f} ms, input contiguous "
                   f"{r['input_contiguous']}", flush=True)
         del ins
+        scan_entry(model, batches)
         gt = torch.as_tensor(batches[0]["bboxes"][0], device="cuda")
         gt_mask = torch.as_tensor(batches[0]["gt_mask"][0], device="cuda")
         geom = geometry_tier(gt, gt_mask, model.anchor_layout,
                              model.combo_tab, MAX_GT,
                              int(model.tpu_cfg["assign_candidates_per_gt"]),
                              16, chunk_geometry)
-        geometry_kernels(model, geom, gt_mask)
+        geometry_kernels(model, geom, gt_mask, batches[0])
         print("quick check passed", flush=True)
         return 0
 
-    # ---- K1: post-sort scan at B=1, P=131,072 -------------------------
+    # ---- K1: post-sort scan at B=1 and 4, P=131,072 -------------------
+    kernels["postsort_scan"] = scan_entry(model, batches)
     vl = model.voxel_layer
     pts0 = torch.as_tensor(batches[0]["points"], device="cuda")
     n0 = torch.as_tensor(batches[0]["num_points"], device="cuda")
-    cell_s, _ = cells_sorted(pts0, n0, voxel_size=vl.voxel_size,
-                             point_cloud_range=vl.point_cloud_range)
     sentinel = d * h * w
-    vox_k, rank_k = postsort_scan(cell_s, sentinel)
-    vox_p, rank_p = postsort_scan_plain(cell_s, sentinel)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(vox_k, vox_p), max_abs_err(rank_k, rank_p))
-    if not (torch.equal(vox_k, vox_p) and torch.equal(rank_k, rank_p)):
-        raise AssertionError(f"postsort_scan differs from its plain version "
-                             f"(max abs err {err})")
-    b1, p1 = cell_s.shape
-    kernels["postsort_scan"] = {
-        "name": "postsort_scan", "route": "cuda",
-        "source": "objectdetection_3d_tpu_torch/csrc/voxel_scan.cu",
-        "replaces": "objectdetection_3d_tpu/ops/voxel_scan.py:119",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: postsort_scan(cell_s, sentinel), 200),
-        "plain_ms": cuda_ms(lambda: postsort_scan_plain(cell_s, sentinel),
-                            200),
-        # (B, P) int32 read once, two (B, P) int32 outputs written once
-        "bound_ms": bytes_ms(3 * b1 * p1 * 4), "bound_by": "bytes",
-        "library_ms": None,
-    }
-    print(f"K1 postsort_scan B={b1} P={p1}: bit-exact; "
-          f"{kernels['postsort_scan']['ms']:.4f} ms vs plain "
-          f"{kernels['postsort_scan']['plain_ms']:.4f} ms", flush=True)
 
     # ---- K2: grid scatter at V=102,400, C=20, 100x400x400 --------------
     vox0 = vl.points_batch(pts0, n0)
@@ -927,7 +1073,7 @@ def main():
     k = int(model.tpu_cfg["assign_candidates_per_gt"])
     geom = geometry_tier(gt, gt_mask, model.anchor_layout, model.combo_tab,
                          MAX_GT, k, 16, chunk_geometry)
-    kernels.update(geometry_kernels(model, geom, gt_mask))
+    kernels.update(geometry_kernels(model, geom, gt_mask, batches[0]))
 
     rows = torch.arange(MAX_GT, dtype=torch.int32,
                         device="cuda").repeat_interleave(k)

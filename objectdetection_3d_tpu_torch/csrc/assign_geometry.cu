@@ -15,8 +15,9 @@
 // Bound on this card: bytes written.  At the flagship (16 GTs x 1.92 M
 // anchors per chunk) K3 writes the 123 MB key tensor and 9 per-anchor
 // arrays (69 MB) for some 128 float operations per (GT, anchor) pair; K4
-// writes 7.7 MB for about a third of that work.  Both are built with
-// -fmad=false (bit-exactness), so every multiply-add is two instructions.
+// writes 7.7 MB, and once the pairs that cannot hit are skipped its
+// operations are few (below).  Both are built with -fmad=false
+// (bit-exactness), so every multiply-add is two instructions.
 //
 // K3's design: persistent blocks, as many as fit on the card at once, each
 // of cells_per_block * M threads striding over groups of 2 *
@@ -65,8 +66,44 @@
 // version's (ops/assign_geometry.py) operation for operation, so the two
 // agree bit for bit.
 //
-// K4 keeps its first design: one thread per anchor over one cell group per
-// block, the per-GT tables in shared memory, every pair computed in full.
+// K4's design.  Computed in full, the rescue costs 53 float operations
+// per (GT, anchor) pair, 1.6 G per flagship chunk, nearly all on pairs
+// that cannot hit.  The plain version's IoU of a pair is ratio_a * gmask
+// where the anchor lies in the GT (in_a), ratio_b * gmask where the GT
+// lies in the anchor (in_b), else 0 * gmask, and the ratios depend on
+// (GT, combo) only.  So the hit folds into flags per (GT, combo): fa =
+// (ratio_a * gmask reaches the row max, rescue allowed, > 0), fb the same
+// with ratio_b, and the pair hits iff in_a ? fa : (in_b ? fb : false).
+// in_a needs |x| <= hg - hap on the three GT axes, so where one of those
+// limits is below 0 (or NaN) the anchor fits in the GT at no cell; the
+// same for in_b and chalf - hgp.  Flags A = fa where the anchor can fit,
+// B = fb where the GT can fit, T = the anchor can fit: the hit is (T &&
+// in_a) ? A : (B && in_b).  A (GT, combo) with neither A nor B -- a
+// masked row whatever its box, a row without rescue, a ratio below the
+// row max, boxes that fit neither way -- never hits and is skipped
+// exactly, for any input.  (One of ratio_a, ratio_b is >= 1 >= the row
+// max, so the fits, not the ratios, are what prune a live row.)
+// - Persistent blocks, as many as fit on the card at once; each computes
+//   the flags and a record of the interval limits per (GT, combo) once,
+//   with the plain version's operations (torch.clamp keeps NaN), and lists
+//   the live pairs in ascending (GT, combo).  With no live pair (7 of the
+//   flagship's 8 chunks) the chunk is a streaming fill of zeros in 16-byte
+//   pieces, bound by bytes: decided on the card, so the caller reads
+//   nothing back and launches the same way for every chunk.
+// - Otherwise a block strides over groups of kCells4 cells, one cell per
+//   thread.  Each thread computes its cell's centre on the axes of every
+//   combo with a B pair once (its own column of a shared table), and walks
+//   the live pairs GT by GT: the cell centre on the GT's axes (`base`)
+//   once per (GT, cell) where a pair tests in_a, the three in_a tests
+//   where T is set, and the three in_b tests only where B is set and in_a
+//   is false.  Every thread of a warp walks the same pair, so the records
+//   are broadcast reads.
+// - The hits go as bytes into a double-buffered shared array of the
+//   group's anchors; after the group's one barrier each thread stores four
+//   anchors' flags as one 16-byte vector, coalesced, and clears them.
+// Each hoisted value is the plain version's float: the same operations in
+// the same order.  What is left per live pair is 9 to 12 operations, so
+// the launch, the set-up and the 7.7 MB store bound it.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -436,120 +473,234 @@ geometry_kernel(const float* __restrict__ ftab, const int* __restrict__ gid,
 
 // ---- K4 ------------------------------------------------------------------
 
-// Shared tables of one launch.  tabs holds hap, hgp, corr and cgv, each
-// (gch * 3, M): cross-projected anchor half-extents on the GT axes, GT
-// half-extents on the combo axes, the combo offset on the GT axes and the
-// GT centre on the combo axes.
-struct Smem {
-  float* ftab;   // (gch, 17)
-  float* tabs;   // (4, gch * 3, M)
-  float* combo;  // (16, M)
+constexpr int kCells4 = kMaxThreads;  // cells per K4 group, one per thread
+
+// torch.clamp(x, min=lo): NaN stays NaN (fmaxf would return lo)
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x != x ? x : fmaxf(x, lo);
+}
+
+// Byte offsets of K4's shared memory: the (GT, combo) records at 0 (3
+// float4: corr, hg - hap, cgv, chalf - hgp), then the per-thread cell
+// centres on the combo axes (one column per thread and combo slot), two
+// hit buffers of a group's anchors (one byte each), the per-GT table, the
+// rescue thresholds, the combo table, the (GT, combo) flags, the list of
+// live pairs, the combos' slots and the pair count.
+struct ResLayout {
+  size_t cov, hits, ft, rt, combo, flags, pairs, cslot, count, total;
 };
 
-__device__ Smem carve(float* base, int gch, int m) {
-  Smem s;
-  s.ftab = base;
-  s.tabs = s.ftab + gch * kFtab;
-  s.combo = s.tabs + 4 * gch * 3 * m;
-  return s;
+inline ResLayout res_layout(int gch, int m) {
+  const size_t gm = static_cast<size_t>(gch) * m;
+  ResLayout l;
+  l.cov = gm * 3 * 16;
+  l.hits = l.cov + static_cast<size_t>(m) * 3 * kCells4 * 4;
+  l.ft = l.hits + 2 * static_cast<size_t>(m) * kCells4;
+  l.rt = l.ft + static_cast<size_t>(gch) * kFtab * 4;
+  l.combo = l.rt + static_cast<size_t>(gch) * 2 * 4;
+  l.flags = l.combo + 16 * static_cast<size_t>(m) * 4;
+  l.pairs = l.flags + gm * 4;
+  l.cslot = l.pairs + gm * 4;
+  l.count = l.cslot + static_cast<size_t>(m) * 4;
+  l.total = l.count + 4;
+  return l;
 }
 
-__device__ void load_tables(const Smem& s, const float* ftab,
-                            const float* tabs, const float* combo, int gch,
-                            int m) {
-  for (int k = threadIdx.x; k < gch * kFtab; k += blockDim.x) {
-    s.ftab[k] = ftab[k];
-  }
-  for (int k = threadIdx.x; k < 4 * gch * 3 * m; k += blockDim.x) {
-    s.tabs[k] = tabs[k];
-  }
-  for (int k = threadIdx.x; k < 16 * m; k += blockDim.x) {
-    s.combo[k] = combo[k];
-  }
-  __syncthreads();
-}
-
-// The anchor's frame: cell centre and combo m's constants.
-struct Anchor {
-  float cell[3];
-  float cell_on_v[3];  // cell centre on the combo's axes
-  float chalf[3];
-  float coffv[3];      // combo offset on its own axes
-  float cvol;
-};
-
-__device__ __forceinline__ Anchor load_anchor(const float* combo, int m,
-                                              int mi, const float* cells,
-                                              int cell) {
-  Anchor a;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) a.cell[c] = cells[cell * 3 + c];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    a.cell_on_v[j] = combo[(0 * 3 + j) * m + mi] * a.cell[0] +
-                     combo[(1 * 3 + j) * m + mi] * a.cell[1] +
-                     combo[(2 * 3 + j) * m + mi] * a.cell[2];
-    a.chalf[j] = combo[(9 + j) * m + mi];
-    a.coffv[j] = combo[(13 + j) * m + mi];
-  }
-  a.cvol = combo[12 * m + mi];
-  return a;
-}
-
-// closed-form containment IoU of GT g and the anchor: vol_small / vol_big
-// where one box holds the other, else 0
-__device__ __forceinline__ float containment(const Smem& s, int g, int gch,
-                                             int m, int mi, const Anchor& a) {
-  const float* ft = s.ftab + g * kFtab;
-  const float* hap = s.tabs + (0 * gch * 3 + g * 3) * m;
-  const float* hgp = s.tabs + (1 * gch * 3 + g * 3) * m;
-  const float* corr = s.tabs + (2 * gch * 3 + g * 3) * m;
-  const float* cgv = s.tabs + (3 * gch * 3 + g * 3) * m;
-  const float volg = ft[15];
-  bool in_a = true;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float base = ft[0 * 3 + i] * a.cell[0] +
-                       ft[1 * 3 + i] * a.cell[1] +
-                       ft[2 * 3 + i] * a.cell[2] - ft[12 + i];
-    const float aa = fabsf(base + corr[i * m + mi]);
-    in_a = in_a && (aa <= ft[9 + i] - hap[i * m + mi]);
-  }
-  bool in_b = true;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float ab = fabsf(cgv[j * m + mi] - a.cell_on_v[j] - a.coffv[j]);
-    in_b = in_b && (ab <= a.chalf[j] - hgp[j * m + mi]);
-  }
-  const float ratio_a = a.cvol / fmaxf(volg, 1e-6f);
-  const float ratio_b = volg / fmaxf(a.cvol, 1e-6f);
-  return (in_a ? ratio_a : (in_b ? ratio_b : 0.f)) * ft[16];
-}
-
-// rthr: (gch, 2) row max and rescue flag per GT; out: (n,) int32
+// rthr: (gch, 2) row max and rescue flag per GT; out: (nc * m,) int32,
+// 16-byte aligned.  Thread t owns cell t of each group of kCells4 cells in
+// the pair pass and quads of the group's anchors in the store pass.
 __global__ void __launch_bounds__(kMaxThreads)
 rescue_kernel(const float* __restrict__ ftab, const float* __restrict__ rthr,
               const float* __restrict__ tabs,
               const float* __restrict__ combo,
               const float* __restrict__ cells, int gch, int m, int nc,
-              int cells_per_block, int* __restrict__ out) {
-  extern __shared__ float smem_base[];
-  const Smem s = carve(smem_base, gch, m);
-  load_tables(s, ftab, tabs, combo, gch, m);
-
+              ResLayout L, int* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const float4* rec = smem4;
+  float* cov = reinterpret_cast<float*>(smem + L.cov);
+  unsigned char* hits = smem + L.hits;
+  float* ft = reinterpret_cast<float*>(smem + L.ft);
+  float* rt = reinterpret_cast<float*>(smem + L.rt);
+  float* cb = reinterpret_cast<float*>(smem + L.combo);
+  int* flags = reinterpret_cast<int*>(smem + L.flags);
+  int* pairs = reinterpret_cast<int*>(smem + L.pairs);
+  int* cslot = reinterpret_cast<int*>(smem + L.cslot);
+  int* count = reinterpret_cast<int*>(smem + L.count);
   const int t = threadIdx.x;
-  const int cell = blockIdx.x * cells_per_block + t / m;
-  const int mi = t % m;
-  if (cell >= nc) return;
-  const Anchor a = load_anchor(s.combo, m, mi, cells, cell);
-  bool hit = false;
-  for (int g = 0; g < gch; ++g) {
-    const float iou = containment(s, g, gch, m, mi, a);
-    const float row_max = rthr[g * 2];
-    const float ok = rthr[g * 2 + 1];
-    hit = hit || (iou >= row_max && ok > 0.f && iou > 0.f);
+  const int threads = blockDim.x;
+  const int gm = gch * m;
+  const long long n_all = static_cast<long long>(nc) * m;
+
+  for (int k = t; k < gch * kFtab; k += threads) ft[k] = ftab[k];
+  for (int k = t; k < gch * 2; k += threads) rt[k] = rthr[k];
+  for (int k = t; k < 16 * m; k += threads) cb[k] = combo[k];
+  for (int k = t; k < 2 * m * kCells4 / 4; k += threads) {
+    reinterpret_cast<unsigned*>(hits)[k] = 0u;
   }
-  out[static_cast<long long>(cell) * m + mi] = hit ? 1 : 0;
+  __syncthreads();
+  // the flags A, B, T of every (GT, combo) (the note at the top) and, where
+  // fa or fb holds, its record
+  for (int e = t; e < gm; e += threads) {
+    const int g = e / m;
+    const int mi = e - g * m;
+    const float* f = ft + g * kFtab;
+    const float volg = f[15];
+    const float gmask = f[16];
+    const float cvol = cb[12 * m + mi];
+    const float row_max = rt[2 * g];
+    const bool ok = rt[2 * g + 1] > 0.f;
+    const float iou_a = cvol / clamp_min(volg, 1e-6f) * gmask;
+    const float iou_b = volg / clamp_min(cvol, 1e-6f) * gmask;
+    const bool fa = iou_a >= row_max && ok && iou_a > 0.f;
+    const bool fb = iou_b >= row_max && ok && iou_b > 0.f;
+    int fl = 0;
+    if (fa || fb) {
+      float r[12];
+      bool fit_a = true, fit_b = true;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const int row = g * 3 + i;
+        r[i] = tabs[(2 * gch * 3 + row) * m + mi];
+        r[3 + i] = f[9 + i] - tabs[(0 * gch * 3 + row) * m + mi];
+        r[6 + i] = tabs[(3 * gch * 3 + row) * m + mi];
+        r[9 + i] = cb[(9 + i) * m + mi] - tabs[(1 * gch * 3 + row) * m + mi];
+        fit_a = fit_a && r[3 + i] >= 0.f;
+        fit_b = fit_b && r[9 + i] >= 0.f;
+      }
+      const bool live_a = fa && fit_a;
+      const bool live_b = fb && fit_b;
+      if (live_a || live_b) {
+        fl = (live_a ? 1 : 0) | (live_b ? 2 : 0) | (fit_a ? 4 : 0);
+      }
+      float4* dst = smem4 + 3 * e;
+      dst[0] = make_float4(r[0], r[1], r[2], r[3]);
+      dst[1] = make_float4(r[4], r[5], r[6], r[7]);
+      dst[2] = make_float4(r[8], r[9], r[10], r[11]);
+    }
+    flags[e] = fl;
+  }
+  __syncthreads();
+  // warp 0: the live pairs in ascending (GT, combo), packed as g << 16 |
+  // combo << 3 | T << 2 | B << 1 | A, and a slot of the per-thread
+  // cell-centre table for every combo that some pair tests in_b on
+  if (t < 32) {
+    const unsigned below = (1u << t) - 1u;
+    int np = 0;
+    for (int e0 = 0; e0 < gm; e0 += 32) {
+      const int e = e0 + t;
+      const int fl = e < gm ? flags[e] : 0;
+      const unsigned live = __ballot_sync(0xffffffffu, fl != 0);
+      if (fl != 0) {
+        const int g = e / m;
+        pairs[np + __popc(live & below)] = g << 16 | (e - g * m) << 3 | fl;
+      }
+      np += __popc(live);
+    }
+    int nfb = 0;
+    for (int m0 = 0; m0 < m; m0 += 32) {
+      const int mi = m0 + t;
+      bool fb = false;
+      for (int g = 0; mi < m && g < gch; ++g) {
+        fb = fb || (flags[g * m + mi] & 2) != 0;
+      }
+      const unsigned used = __ballot_sync(0xffffffffu, fb);
+      if (mi < m) cslot[mi] = fb ? nfb + __popc(used & below) : -1;
+      nfb += __popc(used);
+    }
+    if (t == 0) count[0] = np;
+  }
+  __syncthreads();
+  const int np = count[0];
+
+  if (np == 0) {
+    // no live pair: every output is 0, written at the streaming rate
+    fill(out, n_all, 0, static_cast<long long>(blockIdx.x) * threads + t,
+         static_cast<long long>(gridDim.x) * threads);
+    return;
+  }
+  // one barrier per group: group r marks its hits in buffer r % 2, which
+  // the store pass of group r - 2 cleared before the barrier of group r - 1
+  int buf = 0;
+#pragma unroll 1
+  for (int cell0 = blockIdx.x * kCells4; cell0 < nc;
+       cell0 += gridDim.x * kCells4, buf ^= 1) {
+    unsigned char* hb = hits + buf * m * kCells4;
+    // a thread past the last cell tests the last cell again; its hits lie
+    // beyond the output and are not stored
+    const int cell = min(cell0 + t, nc - 1);
+    const float c0 = cells[cell * 3];
+    const float c1 = cells[cell * 3 + 1];
+    const float c2 = cells[cell * 3 + 2];
+    // the cell centre on the axes of every combo with a B pair, once per
+    // thread, into this thread's column
+    for (int mi = 0; mi < m; ++mi) {
+      const int k = cslot[mi];
+      if (k < 0) continue;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        cov[(k * 3 + j) * kCells4 + t] = cb[(0 * 3 + j) * m + mi] * c0 +
+                                         cb[(1 * 3 + j) * m + mi] * c1 +
+                                         cb[(2 * 3 + j) * m + mi] * c2;
+      }
+    }
+    // the live pairs, GT by GT: the cell centre on the GT's axes (`base`)
+    // once per (GT, cell) where some pair of the GT tests in_a, then the
+    // interval tests
+    int g_base = -1;
+    float b0 = 0.f, b1 = 0.f, b2 = 0.f;
+#pragma unroll 1
+    for (int pi = 0; pi < np; ++pi) {
+      const int w = pairs[pi];
+      const int g = w >> 16;
+      const int mi = (w >> 3) & 0x1fff;
+      const float4* r = rec + 3 * (g * m + mi);
+      const float4 r1 = r[1];
+      bool in_a = false;
+      if ((w & 4) != 0) {
+        if (g != g_base) {
+          const float* f = ft + g * kFtab;
+          b0 = f[0] * c0 + f[3] * c1 + f[6] * c2 - f[12];
+          b1 = f[1] * c0 + f[4] * c1 + f[7] * c2 - f[13];
+          b2 = f[2] * c0 + f[5] * c1 + f[8] * c2 - f[14];
+          g_base = g;
+        }
+        const float4 r0 = r[0];
+        in_a = fabsf(b0 + r0.x) <= r0.w && fabsf(b1 + r0.y) <= r1.x &&
+               fabsf(b2 + r0.z) <= r1.y;
+      }
+      bool hit = false;
+      if (in_a) {
+        hit = (w & 1) != 0;
+      } else if ((w & 2) != 0) {
+        const float4 r2 = r[2];
+        const float* cv = cov + cslot[mi] * 3 * kCells4 + t;
+        hit = fabsf(r1.z - cv[0] - cb[13 * m + mi]) <= r2.y &&
+              fabsf(r1.w - cv[kCells4] - cb[14 * m + mi]) <= r2.z &&
+              fabsf(r2.x - cv[2 * kCells4] - cb[15 * m + mi]) <= r2.w;
+      }
+      if (hit) hb[t * m + mi] = 1;
+    }
+    __syncthreads();
+    // the group's flags out, four anchors (16 bytes) per thread, each word
+    // cleared for group r + 2
+    const long long n0 = static_cast<long long>(cell0) * m;
+    unsigned* h32 = reinterpret_cast<unsigned*>(hb);
+    for (int q = t; q < kCells4 * m / 4; q += threads) {
+      const unsigned x = h32[q];
+      h32[q] = 0u;
+      const long long n = n0 + 4 * q;
+      const int v[4] = {static_cast<int>(x & 0xff),
+                        static_cast<int>((x >> 8) & 0xff),
+                        static_cast<int>((x >> 16) & 0xff),
+                        static_cast<int>(x >> 24)};
+      if (n + 4 <= n_all) {
+        *reinterpret_cast<int4*>(out + n) = make_int4(v[0], v[1], v[2], v[3]);
+      } else {
+        for (int k = 0; k < 4 && n + k < n_all; ++k) out[n + k] = v[k];
+      }
+    }
+  }
 }
 
 // Checks the shapes, sets the kernel's shared memory above 48 KB; returns
@@ -568,6 +719,26 @@ int set_smem(Kernel kernel, int gch, int m, int nc, size_t smem) {
   return 0;
 }
 
+// Persistent blocks of `threads` threads: as many as fit on the card at
+// once, at most one per group.  Returns 0 or a CUDA error.
+template <typename Kernel>
+int persistent_blocks(Kernel kernel, int threads, size_t smem, int groups,
+                      int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *blocks = groups < sms * per_sm ? groups : sms * per_sm;
+  return 0;
+}
+
 }  // namespace
 
 // K3.  ftab: (gch, 17) f32; gid: (gch,) int32; tabs: (4, gch*3, m) f32;
@@ -583,21 +754,10 @@ extern "C" int chunk_geometry(const void* ftab, const void* gid,
   const GeoLayout L = geo_layout(gch, m, cpb);
   int err = set_smem(geometry_kernel, gch, m, nc, L.total);
   if (err != 0) return err;
-  // persistent blocks: as many as fit on the card at once, at most one
-  // per cell group
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, geometry_kernel,
-                                                      cpb * m, L.total);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int groups = (nc + kA * cpb - 1) / (kA * cpb);
-  const int blocks = groups < sms * per_sm ? groups : sms * per_sm;
+  int blocks = 0;
+  err = persistent_blocks(geometry_kernel, cpb * m, L.total,
+                          (nc + kA * cpb - 1) / (kA * cpb), &blocks);
+  if (err != 0) return err;
   geometry_kernel<<<blocks, cpb * m, L.total,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ftab), static_cast<const int*>(gid),
@@ -609,21 +769,26 @@ extern "C" int chunk_geometry(const void* ftab, const void* gid,
 }
 
 // K4.  As K3's inputs with rthr: (gch, 2) f32 (row max, rescue flag);
-// out: (nc*m,) int32.
+// out: (nc*m,) int32, 16-byte aligned.
 extern "C" int containment_rescue(const void* ftab, const void* rthr,
                                   const void* tabs, const void* combo,
                                   const void* cells, int gch, int m, int nc,
                                   void* out, void* stream) {
-  const int cpb = m > 0 ? kMaxThreads / m : 0;
-  const size_t smem = (static_cast<size_t>(gch) * kFtab +
-                       4 * static_cast<size_t>(gch) * 3 * m + 16 * m) * 4;
-  const int err = set_smem(rescue_kernel, gch, m, nc, smem);
+  if (gch >= (1 << 15) || (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const ResLayout L = res_layout(gch, m);
+  int err = set_smem(rescue_kernel, gch, m, nc, L.total);
   if (err != 0) return err;
-  rescue_kernel<<<(nc + cpb - 1) / cpb, cpb * m, smem,
+  int blocks = 0;
+  err = persistent_blocks(rescue_kernel, kMaxThreads, L.total,
+                          (nc + kCells4 - 1) / kCells4, &blocks);
+  if (err != 0) return err;
+  rescue_kernel<<<blocks, kMaxThreads, L.total,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ftab), static_cast<const float*>(rthr),
       static_cast<const float*>(tabs), static_cast<const float*>(combo),
-      static_cast<const float*>(cells), gch, m, nc, cpb,
+      static_cast<const float*>(cells), gch, m, nc, L,
       static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,9 +35,8 @@ from objectdetection_3d_tpu_torch.ops.boxes import rotation_matrices
 _TIEBREAK_EPS = 1e-6
 
 _ARGS_GEOMETRY = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
-    [ctypes.c_void_p] * 5
-_ARGS_RESCUE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-    [ctypes.c_void_p] * 2
+    [ctypes.c_void_p] * 4
+_ARGS_RESCUE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def top3_merge(c1, g1, c2, g2, c3, g3, w, gw):
@@ -210,6 +209,31 @@ def chunk_geometry_plain(ftab, gid, tabs, combo, cells, g_sentinel):
     return {"key": torch.stack(keys), **flat, "rmax": torch.stack(rmax)}
 
 
+def rescue_flags(ftab, rthr, tabs, combo):
+    """(gch, M) int32 flags of the rescue's (GT, combo) pairs, as K4
+    computes them.  Bit 0 (A): ``ratio_a * gmask`` (anchor inside the GT)
+    reaches the row max with rescue allowed and is > 0, and the anchor can
+    fit in the GT (every ``hg - hap >= 0``); bit 1 (B): the same for
+    ``ratio_b`` where the GT can fit in the anchor (every ``chalf - hgp >=
+    0``); bit 2 (T), on live pairs: the anchor can fit.  A pair hits iff
+    ``(T and in_a) ? A : (B and in_b)``, so a pair with neither A nor B
+    never hits."""
+    gch, m = ftab.shape[0], combo.shape[1]
+    volg, gmask = ftab[:, 15:16], ftab[:, 16:17]
+    cvol = combo[12][None, :]
+    row_max, ok = rthr[:, 0:1], rthr[:, 1:2] > 0.0
+    iou_a = cvol / torch.clamp(volg, min=1e-6) * gmask
+    iou_b = volg / torch.clamp(cvol, min=1e-6) * gmask
+    hap, hgp = (tabs[k].reshape(gch, 3, m) for k in (0, 1))
+    fit_a = (ftab[:, 9:12, None] - hap >= 0.0).all(dim=1)
+    fit_b = (combo[9:12][None] - hgp >= 0.0).all(dim=1)
+    live_a = (iou_a >= row_max) & ok & (iou_a > 0.0) & fit_a
+    live_b = (iou_b >= row_max) & ok & (iou_b > 0.0) & fit_b
+    test_a = fit_a & (live_a | live_b)
+    return (live_a.to(torch.int32) + 2 * live_b.to(torch.int32)
+            + 4 * test_a.to(torch.int32))
+
+
 def containment_rescue_plain(ftab, rthr, tabs, combo, cells):
     """Plain PyTorch version of :func:`containment_rescue`."""
     cell, cell_on_v = _anchor_frame(combo, cells)
@@ -246,17 +270,6 @@ def _check(ftab, tabs, combo, cells, extra):
     return dev, gch, m, nc
 
 
-def _launch(name, argtypes, args, device):
-    fn = getattr(cuda_lib.load("assign_geometry"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def chunk_geometry(ftab, gid, tabs, combo, cells, g_sentinel):
     """Fused geometry of one GT chunk against the whole anchor grid.
 
@@ -284,11 +297,11 @@ def chunk_geometry(ftab, gid, tabs, combo, cells, g_sentinel):
     outf = torch.empty((4, n), dtype=torch.float32, device=dev)
     outi = torch.empty((5, n), dtype=torch.int32, device=dev)
     rmax = torch.empty((gch, nc), dtype=torch.float32, device=dev)
-    _launch("chunk_geometry", _ARGS_GEOMETRY,
-            (ftab.data_ptr(), gid.data_ptr(), tabs.data_ptr(),
-             combo.data_ptr(), cells.data_ptr(), gch, m, nc,
-             int(g_sentinel), key.data_ptr(), outf.data_ptr(),
-             outi.data_ptr(), rmax.data_ptr()), dev)
+    cuda_lib.launch("assign_geometry", "chunk_geometry", _ARGS_GEOMETRY,
+                    (ftab.data_ptr(), gid.data_ptr(), tabs.data_ptr(),
+                     combo.data_ptr(), cells.data_ptr(), gch, m, nc,
+                     int(g_sentinel), key.data_ptr(), outf.data_ptr(),
+                     outi.data_ptr(), rmax.data_ptr()), dev)
     chunk_geometry.launches += 1
     cm, v1, v2, v3 = outf
     cb, a1, a2, a3, mb = outi
@@ -305,10 +318,10 @@ def containment_rescue(ftab, rthr, tabs, combo, cells):
     if dev.type == "cpu":
         return containment_rescue_plain(ftab, rthr, tabs, combo, cells)
     out = torch.empty((nc * m,), dtype=torch.int32, device=dev)
-    _launch("containment_rescue", _ARGS_RESCUE,
-            (ftab.data_ptr(), rthr.data_ptr(), tabs.data_ptr(),
-             combo.data_ptr(), cells.data_ptr(), gch, m, nc,
-             out.data_ptr()), dev)
+    cuda_lib.launch("assign_geometry", "containment_rescue", _ARGS_RESCUE,
+                    (ftab.data_ptr(), rthr.data_ptr(), tabs.data_ptr(),
+                     combo.data_ptr(), cells.data_ptr(), gch, m, nc,
+                     out.data_ptr()), dev)
     containment_rescue.launches += 1
     return out
 

@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``ops/voxel_scan.py::postsort_scan`` (kernel K1).
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/voxel_scan.cu``; on a CPU tensor it runs the plain version below,
+``csrc/voxel_scan.cu`` (a reduce and a scan launch over tiles of each row,
+counted as one call); on a CPU tensor it runs the plain version below,
 the cumsum + cummax formulation of the JAX package's XLA tail
 (``ops/voxelize.py::voxelize_points``).  A CUDA tensor never takes the
 plain version.
@@ -14,8 +15,7 @@ import torch
 
 from objectdetection_3d_tpu_torch.ops import cuda_lib
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
 
 
 def postsort_scan_plain(cell_s, sentinel):
@@ -55,18 +55,16 @@ def postsort_scan(cell_s, sentinel):
     if not cell_s.is_contiguous():
         raise ValueError("cell_s must be contiguous")
     b, p = cell_s.shape
+    tiles = -(-p // cuda_lib.load("voxel_scan").postsort_scan_tile())
     vox = torch.empty_like(cell_s)
     rank = torch.empty_like(cell_s)
-    fn = cuda_lib.load("voxel_scan").postsort_scan
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(cell_s.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(cell_s.data_ptr(), vox.data_ptr(), rank.data_ptr(), b, p,
-                 int(sentinel), stream)
-    if err != 0:
-        raise RuntimeError(f"postsort_scan kernel launch failed: CUDA error "
-                           f"{err}")
+    # each tile's (run starts, latest start), written by the kernel's
+    # reduce launch before its scan launch reads it
+    agg = torch.empty((b, max(tiles, 1), 2), dtype=torch.int32,
+                      device=cell_s.device)
+    cuda_lib.launch("voxel_scan", "postsort_scan", _ARGTYPES,
+                    (cell_s.data_ptr(), vox.data_ptr(), rank.data_ptr(),
+                     agg.data_ptr(), b, p, int(sentinel)), cell_s.device)
     postsort_scan.launches += 1
     return vox, rank
 

@@ -1,8 +1,11 @@
-"""Device time of a function on the card, by CUDA events.
+"""Device time of a function on the card.
 
-``cuda_ms`` times back-to-back calls as the host issues them;
-``graph_ms`` replays the calls from one CUDA graph, so a short kernel's
-time does not include the host's work between launches.
+``cuda_ms`` times back-to-back calls as the host issues them, by CUDA
+events; ``graph_ms`` replays the calls from one CUDA graph, so a short
+kernel's time does not include the host's work between launches;
+``kernel_ms`` sums the device time of every kernel the calls launch, from
+``torch.profiler``, for work that cannot be captured in a graph and whose
+span the host's launches set.
 """
 
 import torch
@@ -48,3 +51,20 @@ def graph_ms(fn, reps):
     del graph
     torch.cuda.empty_cache()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps):
+    """Mean device time of the kernels (and copies and fills) that ``fn``
+    launches, over ``reps`` calls traced by ``torch.profiler``: the card's
+    busy time, without the gaps in which it waits for the host."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / reps

@@ -22,8 +22,18 @@ each output is held against the plain version first.  Cases:
   1 (all padding), timed in a CUDA graph: this source against the other
   checkout's, and against this source at two blocks per SM (``lb2``),
   with one anchor per thread (``ka1``), and with one anchor per thread
-  at four blocks per SM (``ka1_lb4``).
+  at four blocks per SM (``ka1_lb4``);
+* K4 ``containment_rescue`` on the same chunks under each row's own
+  containment maximum (rescue on the trees), in a CUDA graph and eager:
+  this source against the other checkout's;
+* K1 ``postsort_scan`` on the sorted cell ids of cloud 0 (B = 1) and of
+  clouds 0-3 (B = 4), in a CUDA graph and eager: this source against the
+  other checkout's, each called through its own C interface; and the
+  voxelizer's ``points_batch`` (predict's voxelize stage) around each:
+  its span back to back, which the host's launches set, and the device
+  time of its kernels (``timing.kernel_ms``).
 
+``--cases`` picks some of them (``k10 k8 k3 k4 k1``; all by default).
 Prints one JSON line of {case: {variant: ms}}.
 """
 
@@ -35,10 +45,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from objectdetection_3d_tpu_torch.ops import cuda_lib
-from objectdetection_3d_tpu_torch.timing import cuda_ms, graph_ms
+from objectdetection_3d_tpu_torch.timing import cuda_ms, graph_ms, kernel_ms
 
 # the K10 source without its k8 products (every chunk k16)
 NO_K8 = ("const bool k8_last = C - (chunks - 1) * 16 <= 8;",
@@ -91,11 +102,74 @@ def in_turns(name, libs, fn, check, timer):
     return {v: sum(t) / len(t) for v, t in times.items()}
 
 
+def scan_callers(this_lib, parent_lib):
+    """{variant: fn(cells, sentinel)} of K1 through each library's own C
+    interface: this one's (with its tile scratch) and the other
+    checkout's, which is this wrapper's interface or the single-block
+    kernel's (cell, vox, rank, b, p, sentinel, stream)."""
+    from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
+
+    def this(cells, sentinel):
+        return postsort_scan(cells, sentinel)
+
+    if hasattr(parent_lib, "postsort_scan_tile"):
+        def parent(cells, sentinel):
+            cuda_lib._libs["voxel_scan"] = parent_lib
+            try:
+                return postsort_scan(cells, sentinel)
+            finally:
+                cuda_lib._libs["voxel_scan"] = this_lib
+        return {"this": this, "parent": parent}
+    fn = parent_lib.postsort_scan
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def parent(cells, sentinel):
+        vox, rank = torch.empty_like(cells), torch.empty_like(cells)
+        err = fn(cells.data_ptr(), vox.data_ptr(), rank.data_ptr(),
+                 *cells.shape, int(sentinel),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"postsort_scan (parent) failed: {err}")
+        return vox, rank
+
+    return {"this": this, "parent": parent}
+
+
+def voxelize_with(layer, scan, points, num_points):
+    """``layer.points_batch`` with ``scan`` as its post-sort scan."""
+    from objectdetection_3d_tpu_torch.ops import voxelize
+
+    saved = voxelize.postsort_scan
+    voxelize.postsort_scan = scan
+    try:
+        return layer.points_batch(points, num_points)
+    finally:
+        voxelize.postsort_scan = saved
+
+
+def fns_in_turns(fns, check, timer):
+    """Time each of ``fns`` {variant: fn()} in turns (first, others,
+    others, first), after ``check(fn)`` on each."""
+    order = list(fns)
+    for v in order:
+        check(fns[v])
+    times = {v: [] for v in order}
+    for v in order + order[::-1]:
+        times[v].append(timer(fns[v]))
+    return {v: sum(t) / len(t) for v, t in times.items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
                     help="another checkout whose csrc/ is a variant")
+    ap.add_argument("--cases", nargs="+",
+                    default=["k10", "k8", "k3", "k4", "k1"],
+                    choices=["k10", "k8", "k3", "k4", "k1"])
     args = ap.parse_args(argv)
+    cases = set(args.cases)
     if not torch.cuda.is_available():
         print("variant_times: no CUDA device", file=sys.stderr)
         return 1
@@ -105,6 +179,8 @@ def main(argv=None):
     from objectdetection_3d_tpu_torch.ops.assign_geometry import (
         chunk_geometry,
         chunk_geometry_plain,
+        containment_rescue,
+        containment_rescue_plain,
     )
     from objectdetection_3d_tpu_torch.ops.fused_stage import (
         fused_stage,
@@ -114,6 +190,10 @@ def main(argv=None):
         subm_conv3d,
         subm_conv3d_plain,
     )
+    from objectdetection_3d_tpu_torch.ops.voxel_scan import (
+        postsort_scan_plain,
+    )
+    from objectdetection_3d_tpu_torch.ops.voxelize import cells_sorted
     from objectdetection_3d_tpu_torch.scene import (
         MAX_GT,
         card_line,
@@ -124,22 +204,6 @@ def main(argv=None):
     print(card_line(), flush=True)
     here = cuda_lib.CSRC_DIR
     parent = Path(args.parent) / "objectdetection_3d_tpu_torch" / "csrc"
-    cuda_lib.build(("subm_conv3d", "fused_stage", "assign_geometry"))
-    libs = {
-        "subm_conv3d": {
-            "this": cuda_lib.load("subm_conv3d"),
-            "no_k8": build_variant("subm_conv3d", here, "no_k8", NO_K8)},
-        "fused_stage": {
-            "this": cuda_lib.load("fused_stage"),
-            "parent": build_variant("fused_stage", parent, "parent")},
-        "assign_geometry": {
-            "this": cuda_lib.load("assign_geometry"),
-            "parent": build_variant("assign_geometry", parent, "parent"),
-            "lb2": build_variant("assign_geometry", here, "lb2", K3_LB2),
-            "ka1": build_variant("assign_geometry", here, "ka1", K3_KA1),
-            "ka1_lb4": build_variant("assign_geometry", here, "ka1_lb4",
-                                     K3_KA1, K3_LB4)},
-    }
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -152,53 +216,134 @@ def main(argv=None):
             raise AssertionError(f"variant differs by {err} (scale {scale})")
 
     out = {}
-    for i, (d, c, co) in enumerate(((100, 20, 20), (49, 20, 32))):
-        x = randn(1, d, 400, 400, c).to(torch.bfloat16)
-        k = randn(3, 3, 3, c, co, scale=0.1)
-        want = subm_conv3d_plain(x, k)
-        out[f"subm_conv3d stage {i}"] = in_turns(
-            "subm_conv3d", libs["subm_conv3d"], lambda: subm_conv3d(x, k),
-            lambda: close(subm_conv3d(x, k), want),
-            lambda fn: cuda_ms(fn, 10))
-        del x, want
-    for i, (d, c, co) in enumerate(((100, 20, 20), (49, 20, 32),
-                                    (24, 32, 64))):
-        m = (torch.rand((1, d, 400, 400), generator=gen, device="cuda")
-             < 0.1).to(torch.bfloat16)
-        x = randn(1, d, 400, 400, c).to(torch.bfloat16) * m[..., None]
-        fargs = (randn(3, 3, 3, c, co, scale=0.1), randn(3, co, co, scale=0.2),
-                 randn(co).abs() + 0.5, randn(co, scale=0.2),
-                 randn(co).abs() + 0.5, randn(co, scale=0.2))
-        want = fused_stage_plain(x, m, *fargs)
-        out[f"fused_stage stage {i}"] = in_turns(
-            "fused_stage", libs["fused_stage"],
-            lambda: fused_stage(x, m, *fargs),
-            lambda: close(fused_stage(x, m, *fargs), want),
-            lambda fn: cuda_ms(fn, 10))
-        del x, m, want
+    if "k10" in cases:
+        libs = {"this": cuda_lib.load("subm_conv3d"),
+                "no_k8": build_variant("subm_conv3d", here, "no_k8", NO_K8)}
+        for i, (d, c, co) in enumerate(((100, 20, 20), (49, 20, 32))):
+            x = randn(1, d, 400, 400, c).to(torch.bfloat16)
+            k = randn(3, 3, 3, c, co, scale=0.1)
+            want = subm_conv3d_plain(x, k)
+            out[f"subm_conv3d stage {i}"] = in_turns(
+                "subm_conv3d", libs, lambda: subm_conv3d(x, k),
+                lambda: close(subm_conv3d(x, k), want),
+                lambda fn: cuda_ms(fn, 10))
+            del x, want
+    if "k8" in cases:
+        libs = {"this": cuda_lib.load("fused_stage"),
+                "parent": build_variant("fused_stage", parent, "parent")}
+        for i, (d, c, co) in enumerate(((100, 20, 20), (49, 20, 32),
+                                        (24, 32, 64))):
+            m = (torch.rand((1, d, 400, 400), generator=gen, device="cuda")
+                 < 0.1).to(torch.bfloat16)
+            x = randn(1, d, 400, 400, c).to(torch.bfloat16) * m[..., None]
+            fargs = (randn(3, 3, 3, c, co, scale=0.1),
+                     randn(3, co, co, scale=0.2), randn(co).abs() + 0.5,
+                     randn(co, scale=0.2), randn(co).abs() + 0.5,
+                     randn(co, scale=0.2))
+            want = fused_stage_plain(x, m, *fargs)
+            out[f"fused_stage stage {i}"] = in_turns(
+                "fused_stage", libs, lambda: fused_stage(x, m, *fargs),
+                lambda: close(fused_stage(x, m, *fargs), want),
+                lambda fn: cuda_ms(fn, 10))
+            del x, m, want
     torch.cuda.empty_cache()
 
     model = PointPillars(configs.flagship_cfg(), device="cuda")
-    batch = make_batch(tree_scene(0), model.tpu_cfg["max_points_static"])
-    gt = torch.as_tensor(batch["bboxes"][0], device="cuda")
-    gt_mask = torch.as_tensor(batch["gt_mask"][0], device="cuda")
-    geom = geometry_tier(gt, gt_mask, model.anchor_layout, model.combo_tab,
-                         MAX_GT, 512, 16, chunk_geometry_plain)
-    for c in (0, 1):
-        (ftab, tabs), gid = geom["tables"][c], geom["chunks"][c].int()
-        gargs = (ftab, gid, tabs, model.combo_tab, model.anchor_layout[0],
-                 MAX_GT)
-        want = chunk_geometry_plain(*gargs)
+    batches = [make_batch(tree_scene(i), model.tpu_cfg["max_points_static"])
+               for i in range(4)]
+    gt = torch.as_tensor(batches[0]["bboxes"][0], device="cuda")
+    gt_mask = torch.as_tensor(batches[0]["gt_mask"][0], device="cuda")
+    if cases & {"k3", "k4"}:
+        geom = geometry_tier(gt, gt_mask, model.anchor_layout,
+                             model.combo_tab, MAX_GT, 512, 16,
+                             chunk_geometry_plain)
+        libs = {"this": cuda_lib.load("assign_geometry"),
+                "parent": build_variant("assign_geometry", parent, "parent")}
+    if "k3" in cases:
+        libs3 = {**libs,
+                 "lb2": build_variant("assign_geometry", here, "lb2", K3_LB2),
+                 "ka1": build_variant("assign_geometry", here, "ka1", K3_KA1),
+                 "ka1_lb4": build_variant("assign_geometry", here, "ka1_lb4",
+                                          K3_KA1, K3_LB4)}
+        for c in (0, 1):
+            (ftab, tabs), gid = geom["tables"][c], geom["chunks"][c].int()
+            gargs = (ftab, gid, tabs, model.combo_tab,
+                     model.anchor_layout[0], MAX_GT)
+            want = chunk_geometry_plain(*gargs)
 
-        def exact(gargs=gargs, want=want):
-            got = chunk_geometry(*gargs)
-            if not all(torch.equal(got[key], want[key]) for key in want):
-                raise AssertionError("chunk_geometry variant not bit-exact")
+            def exact(gargs=gargs, want=want):
+                got = chunk_geometry(*gargs)
+                if not all(torch.equal(got[key], want[key]) for key in want):
+                    raise AssertionError("chunk_geometry variant not "
+                                         "bit-exact")
 
-        out[f"chunk_geometry chunk {c}"] = in_turns(
-            "assign_geometry", libs["assign_geometry"],
-            lambda gargs=gargs: chunk_geometry(*gargs), exact,
-            lambda fn: graph_ms(fn, 10))
+            out[f"chunk_geometry chunk {c}"] = in_turns(
+                "assign_geometry", libs3,
+                lambda gargs=gargs: chunk_geometry(*gargs), exact,
+                lambda fn: graph_ms(fn, 10))
+    if "k4" in cases:
+        for c in (0, 1):
+            (ftab, tabs), gid = geom["tables"][c], geom["chunks"][c]
+            rthr = torch.stack([geom["cont_row_max"][gid],
+                                gt_mask[gid].float()], dim=1).contiguous()
+            rargs = (ftab, rthr, tabs, model.combo_tab,
+                     model.anchor_layout[0])
+            want = containment_rescue_plain(*rargs)
+
+            def exact(rargs=rargs, want=want):
+                if not torch.equal(containment_rescue(*rargs), want):
+                    raise AssertionError("containment_rescue variant not "
+                                         "bit-exact")
+
+            for timer, label in ((lambda fn: graph_ms(fn, 10), "graph"),
+                                 (lambda fn: cuda_ms(fn, 20), "eager")):
+                out[f"containment_rescue chunk {c} {label}"] = in_turns(
+                    "assign_geometry", libs,
+                    lambda rargs=rargs: containment_rescue(*rargs), exact,
+                    timer)
+    if "k1" in cases:
+        vl = model.voxel_layer
+        d, h, w = model.grid_dhw
+        sentinel = d * h * w
+        fns = scan_callers(cuda_lib.load("voxel_scan"),
+                           build_variant("voxel_scan", parent, "parent"))
+        for b in (1, 4):
+            pts = torch.as_tensor(np.concatenate(
+                [x["points"] for x in batches[:b]]), device="cuda")
+            n = torch.as_tensor(np.concatenate(
+                [x["num_points"] for x in batches[:b]]), device="cuda")
+            cell_s, _ = cells_sorted(pts, n, voxel_size=vl.voxel_size,
+                                     point_cloud_range=vl.point_cloud_range)
+            want = postsort_scan_plain(cell_s, sentinel)
+            calls = {v: (lambda fn=fn, c=cell_s: fn(c, sentinel))
+                     for v, fn in fns.items()}
+
+            def exact(call, want=want):
+                if not all(torch.equal(g, w_) for g, w_ in zip(call(), want)):
+                    raise AssertionError("postsort_scan variant not "
+                                         "bit-exact")
+
+            for timer, label in ((lambda fn: graph_ms(fn, 20), "graph"),
+                                 (lambda fn: cuda_ms(fn, 200), "eager")):
+                out[f"postsort_scan B={b} {label}"] = fns_in_turns(
+                    calls, exact, timer)
+            # the voxelize stage of predict around each K1: its span back
+            # to back (host-bound: the host's issue time of the stage) and
+            # the device time of its kernels
+            stage = {v: (lambda fn=fn, pts=pts, n=n: voxelize_with(
+                vl, fn, pts, n)) for v, fn in fns.items()}
+            ref = vl.points_batch(pts, n)
+
+            def same(call, ref=ref):
+                got = call()
+                if not all(torch.equal(got[k], ref[k]) for k in ref):
+                    raise AssertionError("voxelize differs under a K1 "
+                                         "variant")
+
+            out[f"voxelize B={b} span"] = fns_in_turns(
+                stage, same, lambda fn: cuda_ms(fn, 50))
+            out[f"voxelize B={b} kernels"] = fns_in_turns(
+                stage, same, lambda fn: kernel_ms(fn, 20))
     print(json.dumps(out), flush=True)
     return 0
 

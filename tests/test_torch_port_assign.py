@@ -146,6 +146,73 @@ def test_containment_rescue_plain_matches_interpret(tiny_geometry, ok):
     assert got.sum() > 0
 
 
+def _per_gt_hits(ftab, rthr, tabs, combo, cells):
+    """(gch, Nc, M) bool: the plain rescue of each GT row alone."""
+    m = combo.shape[1]
+    return torch.stack([geo.containment_rescue_plain(
+        ftab[g:g + 1], rthr[g:g + 1], tabs[:, 3 * g:3 * g + 3], combo,
+        cells).reshape(-1, m) > 0 for g in range(ftab.shape[0])])
+
+
+@pytest.mark.parametrize("case", ["above", "one-size", "masked-box"])
+def test_containment_rescue_thresholds_match_interpret(tiny_geometry, case):
+    """Row maxima that are not the rows' own containment maxima, as in the
+    assignment (where they also hold the candidate and tier maxima): GT 1
+    holds anchors of both sizes (ratio_a 0.028 and 0.1), GT 2 lies inside
+    anchors of both sizes at cell 7 (ratio_b 0.056 and 0.016).  "above":
+    GT 1's row max lies above every containment IoU; "one-size": each
+    row max is a ratio that one anchor size reaches (GT 1 the larger
+    size's ratio_a, GT 2 the smaller size's ratio_b, the others none);
+    "masked-box": the masked last row holds GT 1's box."""
+    _, layout, m, gt, mask, t_layout = tiny_geometry
+    gt = gt.copy()
+    cx, cy, cz = layout[0][7]
+    gt[2] = [cx, cy, cz + 0.3, 0.3, 0.3, 0.8, 0.0, 0.0, 0.1]
+    if case == "masked-box":
+        gt[4] = gt[1]
+    gch = gt.shape[0]
+    nc = layout[0].shape[0]
+    cells = t_layout[0]
+    combo = geo.combo_table(t_layout)
+    ftab, tabs = geo.chunk_tables(torch.from_numpy(gt),
+                                  torch.from_numpy(mask), t_layout)
+    own = geo.chunk_geometry(ftab, torch.arange(gch, dtype=torch.int32),
+                             tabs, combo, cells, gch)["rmax"].amax(dim=1)
+    volg, cvol = ftab[:, 15], combo[12]
+    row_max = own.clone()
+    if case == "above":
+        row_max[1] = 0.5
+    elif case == "one-size":
+        row_max[:] = 2.0
+        row_max[1] = cvol[2] / volg[1]      # size 1 (combos 2, 3) only
+        row_max[2] = volg[2] / cvol[0]      # size 0 (combos 0, 1) only
+    rescue_ok = np.ones(gch, bool)
+    want = jax_containment_rescue(
+        jnp.asarray(gt), jnp.asarray(mask), jnp.asarray(row_max.numpy()),
+        jnp.asarray(rescue_ok), layout, jnp.asarray(_pad_cells(layout[0])[0]),
+        jnp.asarray(_combo_table(layout)), interpret=True)
+    rthr = torch.stack([row_max, torch.from_numpy(rescue_ok).float()],
+                       dim=1)
+    got = geo.containment_rescue(ftab, rthr, tabs, combo, cells)
+    np.testing.assert_array_equal(got.numpy(), _m_major_to_flat(want, nc))
+
+    # K4 skips every (GT, combo) without flag A or B: none of them hits
+    flags = geo.rescue_flags(ftab, rthr, tabs, combo)
+    per_gt = _per_gt_hits(ftab, rthr, tabs, combo, cells)
+    dead = (flags & 3) == 0
+    assert not per_gt[dead[:, None, :].expand_as(per_gt)].any()
+    assert torch.equal(per_gt.any(dim=0).reshape(-1).int(), got)
+    assert got.sum() > 0
+    if case == "above":
+        assert not per_gt[1].any() and per_gt[2].any()
+    elif case == "one-size":
+        assert per_gt[1, :, 2:].any() and not per_gt[1, :, :2].any()
+        assert per_gt[2, 7, 0] and not per_gt[2, :, 2:].any()
+        assert not per_gt[[0, 3, 4]].any()
+    else:
+        assert not mask[4] and dead[4].all() and not per_gt[4].any()
+
+
 def test_top3_merge_matches_jax():
     rng = np.random.default_rng(3)
     n = 64

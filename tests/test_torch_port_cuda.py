@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on a card.
 
-K1, K2, K3 and K4 are held bit-exact; K5, K6 and K7 (the clipper, whose
+K1, K2, K3 and K4 are held bit-exact (K1 across its tile edges, rows
+and calls; K4 under row maxima and masked rows of every kind); K5, K6 and K7 (the clipper, whose
 sinf/cosf may differ from PyTorch's in the last bit) within 1e-5 of IoU
 or of the volume scale.  The conv kernels K8, K9 (forward, and the
 backward's dx and dw) and K10 sum in float32 in another order than their
@@ -31,6 +32,7 @@ from objectdetection_3d_tpu_torch.ops.assign_geometry import (
     combo_table,
     containment_rescue,
     containment_rescue_plain,
+    rescue_flags,
 )
 from objectdetection_3d_tpu_torch.ops.fused_stage import (
     fused_stage,
@@ -99,6 +101,63 @@ def test_postsort_scan_kernel_matches_plain(cuda, b, p):
     want_vox, want_rank = postsort_scan_plain(cells, sentinel)
     assert torch.equal(vox, want_vox)
     assert torch.equal(rank, want_rank)
+
+
+# K1's tile is 2048 ids: one tile less one, one, one plus one, and 2^20
+# ids (512 tiles, the longest carry chain of the reduce-then-scan)
+@pytest.mark.parametrize("b,p", [(1, 2047), (1, 2048), (3, 2049),
+                                 (1, 1 << 20)])
+def test_postsort_scan_tiles_match_plain(cuda, b, p):
+    rng = np.random.default_rng(p + b)
+    sentinel = p // 4 + 1
+    n_valid = [p] + [int(rng.integers(0, p + 1)) for _ in range(b - 1)]
+    cells = torch.from_numpy(_sorted_rows(rng, b, p, sentinel, n_valid))
+    cells = cells.to(cuda)
+    vox, rank = postsort_scan(cells, sentinel)
+    want_vox, want_rank = postsort_scan_plain(cells, sentinel)
+    assert torch.equal(vox, want_vox)
+    assert torch.equal(rank, want_rank)
+
+
+def test_postsort_scan_rows_restart_on_card(cuda):
+    """B = 4 rows without sentinel, each starting with the id the row
+    before ends with, and long runs across tiles; then the same with an
+    all-sentinel row."""
+    rng = np.random.default_rng(4)
+    p = 3 * 2048 + 5
+    rows, last = [], 0
+    for _ in range(4):
+        row = last + np.cumsum(rng.random(p) < 0.02)
+        rows.append(row - row[0] + last)
+        last = int(rows[-1][-1])
+    cells = torch.from_numpy(np.stack(rows).astype(np.int32)).to(cuda)
+    sentinel = last + 1
+    for r in range(1, 4):
+        assert cells[r, 0] == cells[r - 1, -1]
+    for case in (cells, torch.cat([cells[:2], torch.full_like(
+            cells[:1], sentinel), cells[2:3]])):
+        vox, rank = postsort_scan(case, sentinel)
+        want_vox, want_rank = postsort_scan_plain(case, sentinel)
+        assert torch.equal(vox, want_vox)
+        assert torch.equal(rank, want_rank)
+        assert (vox[:, 0] <= 0).all() and (rank[:, 0] == 0).all()
+
+
+def test_postsort_scan_back_to_back_calls(cuda):
+    """Two calls in a row on different rows, then the first rows again: no
+    state carries from one call to the next."""
+    rng = np.random.default_rng(5)
+    p = 5 * 2048
+    a = torch.from_numpy(_sorted_rows(rng, 2, p, 3000, [p, p // 2]))
+    b = torch.from_numpy(_sorted_rows(rng, 2, p, 3000, [p // 3, p]))
+    a, b = a.to(cuda), b.to(cuda)
+    before = postsort_scan.launches
+    got = [postsort_scan(x, 3000) for x in (a, b, a)]
+    assert postsort_scan.launches == before + 3
+    for x, (vox, rank) in zip((a, b, a), got):
+        want_vox, want_rank = postsort_scan_plain(x, 3000)
+        assert torch.equal(vox, want_vox)
+        assert torch.equal(rank, want_rank)
 
 
 # bytes of grid that one block of K2's zero fill writes
@@ -326,6 +385,67 @@ def test_assign_geometry_kernels_bit_exact(cuda, nc, gch, rows):
     assert containment_rescue.launches == before + 1
     assert torch.equal(hit, want_hit)
     assert (int(hit.sum()) > 0) == (rows != "all-masked")
+
+
+def _thin_trunks(rng, anchors, gch):
+    """Thin upright GT boxes on cell centres, inside the cells' unrotated
+    0.75 x 0.75 x 12 anchors (and the larger ones)."""
+    gt = np.zeros((gch, 9), np.float32)
+    cells = rng.choice(anchors.shape[0] // 12, gch, replace=False) * 12
+    gt[:, :2] = anchors[cells, :2].cpu().numpy()
+    gt[:, 2] = rng.uniform(0.1, 0.3, gch)
+    gt[:, 3:5] = rng.uniform(0.4, 0.6, (gch, 1))
+    gt[:, 5] = rng.uniform(10.0, 11.5, gch)
+    return gt
+
+
+# K4 under row maxima that are not the rows' own containment maxima:
+# "ok-zero" (rescue off on every other row), "unreached" (every other row
+# max above any IoU), "masked-negative" / "masked-nan" (a masked row
+# holding a box with a negative dim / NaNs, rescue allowed), "one-size"
+# (each row max the ratio only the smallest anchor size reaches)
+@pytest.mark.parametrize("case", ["ok-zero", "unreached", "masked-negative",
+                                  "masked-nan", "one-size"])
+def test_containment_rescue_kernel_bit_exact(cuda, case):
+    rng = np.random.default_rng(len(case))
+    nc, gch = 12005, 16
+    anchors, layout = _grid_layout(rng, nc, cuda)
+    gt = _thin_trunks(rng, anchors, gch)
+    keep = np.ones(gch, bool)
+    if case.startswith("masked"):
+        keep[-1] = False
+        gt[-1] = gt[0]
+        gt[-1, 3] = -0.5 if case == "masked-negative" else np.nan
+        if case == "masked-nan":
+            gt[-1, 6] = np.nan
+    mask = torch.from_numpy(keep).to(cuda)
+    ftab, tabs = chunk_tables(torch.from_numpy(gt).to(cuda), mask, layout)
+    combo = combo_table(layout)
+    own = chunk_geometry_plain(ftab, torch.arange(gch, dtype=torch.int32,
+                                                  device=cuda), tabs,
+                               combo, layout[0], gch)["rmax"].amax(dim=1)
+    row_max, ok = own.clone(), torch.ones(gch, device=cuda)
+    if case == "ok-zero":
+        ok[::2] = 0.0
+    elif case == "unreached":
+        row_max[::2] = 1.5
+    elif case.startswith("masked"):
+        row_max[-1] = 0.0
+    else:
+        row_max = ftab[:, 15] / combo[12, 0]
+    rthr = torch.stack([row_max, ok], dim=1).contiguous()
+    before = containment_rescue.launches
+    hit = containment_rescue(ftab, rthr, tabs, combo, layout[0])
+    want = containment_rescue_plain(ftab, rthr, tabs, combo, layout[0])
+    torch.cuda.synchronize()
+    assert containment_rescue.launches == before + 1
+    assert torch.equal(hit, want)
+    assert int(hit.sum()) > 0
+    live = (rescue_flags(ftab, rthr, tabs, combo) & 3) != 0
+    if case == "one-size":
+        assert live[:, :4].any() and not live[:, 4:].any()
+    elif case.startswith("masked"):
+        assert not live[-1].any()
 
 
 @pytest.mark.parametrize("p", [1, 1000, 70000])

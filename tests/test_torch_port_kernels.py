@@ -60,6 +60,47 @@ def test_postsort_scan_plain_matches_pallas_interpret():
     assert tv[1, 0] == 0 and tr[1, 0] == 0
 
 
+def _chained_rows(case, p=8192, seed=2):
+    """B > 1 rows for the tiled scan's row restarts.  "chained": four rows
+    with no sentinel, each starting with the previous row's last id (and
+    long runs across the 2048-id tiles of the card's kernel); "sentinel":
+    an all-sentinel row between two rows, the second starting with the
+    id the first ends with."""
+    rng = np.random.default_rng(seed)
+    rows, last = [], 0
+    for r in range(4 if case == "chained" else 3):
+        if case == "sentinel" and r == 1:
+            rows.append(np.full(p, SENTINEL))
+            continue
+        # runs of about 10 ids, some of them across 2048-id tiles
+        steps = (rng.random(p) < 0.1).astype(np.int64)
+        steps[0] = 0
+        rows.append(last + np.cumsum(steps))
+        last = int(rows[-1][-1])
+    return np.stack(rows).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["chained", "sentinel"])
+def test_postsort_scan_rows_restart_matches_pallas_interpret(case):
+    cells = _chained_rows(case)
+    b = cells.shape[0]
+    jv, jr = jax_postsort_scan(jnp.asarray(cells), SENTINEL, interpret=True)
+    tv, tr = postsort_scan(torch.from_numpy(cells), SENTINEL)
+    valid = cells < SENTINEL
+    for r in range(1, b):
+        if valid[r - 1].all() and valid[r, 0]:
+            assert cells[r, 0] == cells[r - 1, -1]
+    np.testing.assert_array_equal(tv.numpy()[valid], np.asarray(jv)[valid])
+    np.testing.assert_array_equal(tr.numpy()[valid], np.asarray(jr)[valid])
+    for r in range(b):
+        if valid[r].any():
+            assert tv[r, 0] == 0 and tr[r, 0] == 0
+        else:                           # an all-sentinel row: no run
+            assert (tv[r] == -1).all()
+            assert torch.equal(tr[r], torch.arange(cells.shape[1],
+                                                   dtype=torch.int32))
+
+
 def test_postsort_scan_defines_sentinel_points():
     """Both versions give every point a value: the run count so far and
     the distance to the last run start (0 if none)."""
