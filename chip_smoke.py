@@ -6,9 +6,9 @@ Run from the repository root:
     python3 chip_smoke.py [--quick]
 
 ``--quick`` runs phases 1-2, then K10 on cloud 0's stage 0-1 inputs, K1
-on clouds 0-3 and K3/K4 on cloud 0's GT chunks 0-1 against their plain
-versions, timed as in phases 3, 7 and 10, and stops: the short first
-call after a kernel change.
+on clouds 0-3, K3/K4 on cloud 0's GT chunks 0-1 and K5 on both of its
+inputs against their plain versions, timed as in phases 3, 7 and 10, and
+stops: the short first call after a kernel change.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -38,7 +38,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    live (GT, combo) pairs counted, and over the assignment's 8 chunks);
    every pair that the plain separating-plane test clears is exactly 0
    from K6/K7 and from their plain versions, and their bounds count the
-   test plus the clips it leaves (beside the bound of clipping all);
+   least work of these pairs: the test, and the clip of what it leaves
+   by the plain clipper's live ring counts (beside the bound of clipping
+   every pair on the TPU body's fixed schedule);
 8. assignment: the flagship assignment of cloud 0 through the kernels
    and through their plain versions, both on the card: masks, labels,
    direction targets and ``best_gt`` under ``pos_mask`` equal, and
@@ -59,9 +61,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     1e-2), timed beside its bound and cuDNN's conv (K9 per stage and
     direction, with its share of the bound; K10 per stage beside K8 on
     the same stage); and K5 on 1.92 M
-    aligned (GT, anchor) pairs within 1e-5 of the volume scale, then
-    driven once as the JAX package's ``tools/profile_assign.py`` drives
-    it;
+    aligned pairs, each flagship anchor against a random tree of cloud 0
+    (the drive) and against a jittered copy of itself (dense), within
+    1e-5 of the volume scale and exactly 0 wherever the plain
+    separating-plane test clears both directions, timed in a CUDA graph
+    and eager beside its bound, then driven once as the JAX package's
+    ``tools/profile_assign.py`` drives it;
 11. predict under the lowering knobs: four clouds with ``fused_stages``
     (K8 exactly 3 launches per cloud) and four with ``pallas_subm_conv``
     and ``zfold_pallas`` (K10 2 and K9 1 per cloud), outputs finite,
@@ -86,7 +91,11 @@ import time
 import numpy as np
 import torch
 
-from objectdetection_3d_tpu_torch.timing import cuda_ms, graph_ms
+from objectdetection_3d_tpu_torch.timing import (
+    cuda_ms,
+    graph_ms,
+    kernel_split_ms,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(REPO, "artifacts", "overfit_ckpt.npz")
@@ -94,10 +103,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # float32 operations (arithmetic, compares, min/max) counted from the
-# kernel bodies: per (GT, anchor) pair of K3 and of K4, and per clipped
-# box pair of K6/K7 (12 polygons; per plane slot 23 ops over the 49 slots
-# of the ring schedule, 16 per fan triangle, and 560 for the two boxes'
-# corners, planes and the IoU)
+# kernel bodies: per (GT, anchor) pair of K3 and of K4
 K3_OPS_PER_PAIR = 128
 K4_OPS_PER_PAIR = 53
 # K4's work on the pairs it does not skip: per (cell, live (GT, combo))
@@ -109,15 +115,42 @@ K4_IN_A_OPS = 9
 K4_IN_B_OPS = 12
 K4_BASE_OPS = 18
 K4_COV_OPS = 15
+# K5-K7's clip on the TPU body's fixed ring schedule, every pair clipped:
+# 12 polygons, per plane slot 23 ops over the 49 slots of the schedule, 16
+# per fan triangle, and 560 for the two boxes' corners, planes and the IoU
+# (``bound_all_pairs_ms``)
 CLIP_OPS_PER_PAIR = 12 * (49 * 23 + 10 * 16) + 560
-# K6/K7's separating-plane test: per pair, 2 directions x 6 planes x 8
-# corners x 7 (a 3-term dot product, the offset, the compare); a direction
-# it cannot clear costs half a clip (6 of the 12 polygons)
-TEST_OPS_PER_PAIR = 2 * 6 * 8 * 7
+# The least work of K5-K7 on this run's pairs (``bound_ms``), counted from
+# csrc/iou3d_clip.cu with a sine-cosine pair as one operation: a box's
+# frame (3 sine-cosine pairs, the 21 of its rotation, the 51 of its six
+# planes); per pair the extent test of both directions (18 per axis for the
+# centres and half sizes, 10 per axis pair for the extents, 13 per plane),
+# which decides a far pair; per open direction (one the plain test does
+# not clear) its box's 8 corners (23 each) and the sums of its 6 face
+# totals; and, from the plain clipper's own ring counts on these pairs
+# (``ops/iou3d.clip_work``), per live ring vertex entering a plane 8 (its
+# plane value and two compares), per crossing point kept 15 (the guarded
+# quotient, its clamp, the point) and per fan triangle 16.  K6/K7 add
+# their IoU per listed pair.  The corner test that K5-K7 run where the
+# extent test does not decide is not counted, so this is a lower count.
+FRAME_OPS = 3 + 21 + 51
+EXTENT_OPS = 3 * 18 + 9 * 10 + 2 * 6 * 13
+DIRECTION_OPS = 8 * 23 + 6
+SLOT_OPS = 8
+CROSSING_OPS = 15
+FAN_OPS = 16
+IOU_OPS = 11
 
 
 def max_abs_err(a, b):
     return float((a.double() - b.double()).abs().max())
+
+
+def kernel_label(name):
+    """A profiler kernel name without its return type and namespace."""
+    for noise in ("void ", "(anonymous namespace)::"):
+        name = name.replace(noise, "")
+    return name[:28]
 
 
 def bytes_ms(nbytes):
@@ -133,6 +166,18 @@ def bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     if by_ops > by_bytes:
         return by_ops, "operations"
     return by_bytes, "bytes"
+
+
+def clip_ops(boxes1, boxes2, cleared):
+    """(operations, open directions): the least float32 work of the clip
+    of aligned pairs on the directions ``cleared`` leaves open, from the
+    plain clipper's ring counts (the test's work apart)."""
+    from objectdetection_3d_tpu_torch.ops.iou3d import clip_work
+
+    work = clip_work(boxes1, boxes2, cleared)
+    ops = (DIRECTION_OPS * work["directions"] + SLOT_OPS * work["slots"]
+           + CROSSING_OPS * work["crossings"] + FAN_OPS * work["triangles"])
+    return ops, work["directions"]
 
 
 def centre_matches(out_a, out_b):
@@ -639,47 +684,100 @@ def encoder_kernels(model, batch):
 
 
 def aligned_clipper(model, batch):
-    """Phase 10, K5: its kernel entry, launches from one drive."""
+    """K5 on two inputs of 1.92 M aligned pairs: the drive (each flagship
+    anchor against a random one of cloud 0's trees, as the JAX package's
+    ``tools/profile_assign.py`` pairs them) and the dense input (each
+    anchor against a jittered copy of itself).  On each: within 1e-5 of
+    the volume scale of the plain version, exactly 0 wherever the plain
+    separating-plane test clears both directions, timed in a CUDA graph
+    and eager, with its bound (the least work of this input: the frames
+    and the extent test of every pair, and the clip's live ring vertices,
+    crossing points and fan terms on the open directions, against the
+    bytes) beside the bound of clipping every pair on the TPU body's fixed
+    schedule.  Returns the kernel entry (the drive as its main row), with the
+    launches of one drive."""
     from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
         intersection_volume_aligned,
         intersection_volume_aligned_plain,
     )
+    from objectdetection_3d_tpu_torch.ops.iou3d import separated_directions
+    from objectdetection_3d_tpu_torch.scene import aligned_pair_inputs
 
-    gt = batch["bboxes"][0][batch["gt_mask"][0]]
     n = model.anchors.shape[0]
-    ridx = np.random.default_rng(0).integers(0, len(gt), n)
-    b1 = torch.as_tensor(gt[ridx], device="cuda").contiguous()
-    b2 = model.anchors
-    got = intersection_volume_aligned(b1, b2)
-    want = intersection_volume_aligned_plain(b1, b2)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    scale = float(want.abs().max())
-    if not err <= 1e-5 * scale:
-        raise AssertionError(f"intersection_volume_aligned differs from its "
-                             f"plain version by {err} (scale {scale})")
-    b_ms, b_by = bound(2 * n * 36 + n * 4, CLIP_OPS_PER_PAIR * n)
-    entry = {
+    inputs = aligned_pair_inputs(model.anchors.cpu().numpy(),
+                                 batch["bboxes"][0][batch["gt_mask"][0]])
+    nbytes = 2 * n * 36 + n * 4
+    rows = {}
+    for label, pair in inputs.items():
+        b1, b2 = (torch.as_tensor(x, device="cuda") for x in pair)
+        got = intersection_volume_aligned(b1, b2)
+        want = intersection_volume_aligned_plain(b1, b2)
+        sep = separated_directions(b1, b2)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        scale = float(want.abs().max())
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"intersection_volume_aligned ({label}) "
+                                 f"differs from its plain version by {err} "
+                                 f"(scale {scale})")
+        both = sep.all(-1)
+        if not (bool((got[both] == 0).all())
+                and bool((want[both] == 0).all())):
+            raise AssertionError(f"intersection_volume_aligned ({label}): a "
+                                 f"pair the separating-plane test clears is "
+                                 f"not exactly 0")
+        ops, open_dirs = clip_ops(b1, b2, sep)
+        ops += (2 * FRAME_OPS + EXTENT_OPS) * n
+        b_ms, b_by = bound(nbytes, ops)
+        all_ms, _ = bound(nbytes, CLIP_OPS_PER_PAIR * n)
+        row = {
+            "max_abs_err": err, "volume_scale": scale,
+            "differing": int((got != want).sum()),
+            "cleared_pairs": int(both.sum()), "open_directions": open_dirs,
+            "overlapping": int((want > 0).sum()),
+            "ms": graph_ms(lambda: intersection_volume_aligned(b1, b2), 10),
+            "eager_ms": cuda_ms(lambda: intersection_volume_aligned(b1, b2),
+                                10),
+            "plain_ms": cuda_ms(
+                lambda: intersection_volume_aligned_plain(b1, b2), 1),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_all_pairs_ms": all_ms,
+            "bound_ops": ops}
+        row["share"] = b_ms / row["ms"]
+        # device time per launch: the count's fill, the test, the clip
+        row["split_ms"] = kernel_split_ms(
+            lambda: intersection_volume_aligned(b1, b2), 5)
+        rows[label] = row
+        print(f"K5 intersection_volume_aligned {label} pairs={n}: max abs "
+              f"err {err:.3g} (volume scale {scale:.3g}, {row['differing']} "
+              f"differ, {row['overlapping']} overlap); test clears "
+              f"{row['cleared_pairs']} pairs ({open_dirs} of {2 * n} "
+              f"directions left to clip), all exactly 0; {row['ms']:.4f} ms "
+              f"in a CUDA graph ({row['eager_ms']:.4f} eager) vs plain "
+              f"{row['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+              f"{row['bound_ops']:.4g} ops; share {row['share']:.3f}), all "
+              f"pairs on the fixed schedule {all_ms:.4f} ms; "
+              f"split " + ", ".join(f"{kernel_label(k)} {v:.4f}"
+                                    for k, v in row["split_ms"].items()),
+              flush=True)
+        del got, want, sep
+    # the JAX package's tools/profile_assign.py: the tier's pairs, summed
+    b1, b2 = (torch.as_tensor(x, device="cuda") for x in inputs["drive"])
+    intersection_volume_aligned.launches = 0
+    total = float(intersection_volume_aligned(b1, b2).sum())
+    launches = intersection_volume_aligned.launches
+    if launches != 1 or not np.isfinite(total):
+        raise AssertionError(f"K5 drive: {launches} launches, sum {total}")
+    main = rows["drive"]
+    return {
         "name": "intersection_volume_aligned", "route": "cuda",
         "source": "objectdetection_3d_tpu_torch/csrc/iou3d_clip.cu",
         "replaces": "objectdetection_3d_tpu/ops/pallas_iou3d.py:341",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: intersection_volume_aligned(b1, b2), 5),
-        "plain_ms": cuda_ms(
-            lambda: intersection_volume_aligned_plain(b1, b2), 1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    # the JAX package's tools/profile_assign.py: the tier's pairs, summed
-    intersection_volume_aligned.launches = 0
-    total = float(intersection_volume_aligned(b1, b2).sum())
-    entry["launches"] = intersection_volume_aligned.launches
-    if entry["launches"] != 1 or not np.isfinite(total):
-        raise AssertionError(f"K5 drive: {entry['launches']} launches, "
-                             f"sum {total}")
-    print(f"K5 intersection_volume_aligned pairs={n}: max abs err {err:.3g}"
-          f" (volume scale {scale:.3g}, {int((got > 0).sum())} pairs "
-          f"overlap); {entry['ms']:.4f} ms vs plain {entry['plain_ms']:.4f}"
-          f" ms, bound {b_ms:.4f} ms", flush=True)
-    return entry
+        "launches": launches, "library_ms": None, "pairs": n,
+        **{key: main[key] for key in (
+            "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_all_pairs_ms", "share", "cleared_pairs",
+            "open_directions")},
+        "graph_ms": main["ms"], "dense": rows["dense"]}
 
 
 def knob_predicts(batches, default_preds):
@@ -894,7 +992,8 @@ def main():
           f"{list(cuda_lib.KERNEL_SOURCES)}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 print(f"  ptxas {name}: {line.strip()}")
 
     cfg = configs.flagship_cfg()
@@ -925,6 +1024,7 @@ def main():
                              int(model.tpu_cfg["assign_candidates_per_gt"]),
                              16, chunk_geometry)
         geometry_kernels(model, geom, gt_mask, batches[0])
+        aligned_clipper(model, batches[0])
         print("quick check passed", flush=True)
         return 0
 
@@ -1113,8 +1213,13 @@ def main():
         nbytes = (args[-1].numel() * 4 + n_pairs * 4
                   + args[-1].shape[0] * 4 * n_ids + MAX_GT * 40)
         all_ms, _ = bound(nbytes, CLIP_OPS_PER_PAIR * n_pairs)
-        b_ms, b_by = bound(nbytes, TEST_OPS_PER_PAIR * n_pairs
-                           + CLIP_OPS_PER_PAIR / 2 * open_dirs)
+        # an invalid row's pairs are 0 without a test or a clip
+        ops, _ = clip_ops(gt[ids], args[-1].repeat(n_ids, 1),
+                          sep | ~row_ok[:, None])
+        ops += (FRAME_OPS * (args[-1].shape[0] + int(gt_mask.sum()))
+                + EXTENT_OPS * int(row_ok.sum())
+                + IOU_OPS * int((row_ok & ~both).sum()))
+        b_ms, b_by = bound(nbytes, ops)
         ms = cuda_ms(lambda fn=fn, args=args: fn(*args), 5)
         kernels[name] = {
             "name": name, "route": "cuda",
@@ -1128,14 +1233,17 @@ def main():
             "bound_all_pairs_ms": all_ms, "share": b_ms / ms,
             "pairs": n_pairs, "cleared_pairs": cleared,
             "uncleared_directions": open_dirs,
+            # device time per launch: the row records, the test, the clip
+            "split_ms": kernel_split_ms(lambda fn=fn, args=args: fn(*args),
+                                        5),
         }
         print(f"{'K6' if n_ids == 1 else 'K7'} {name} pairs={n_pairs}: max "
               f"abs IoU err {err:.3g} ({n_diff} of {got.numel()} differ); "
               f"{ms:.4f} ms vs plain {kernels[name]['plain_ms']:.4f} ms; "
               f"test clears {cleared} pairs ({open_dirs} of {2 * n_pairs} "
               f"directions left to clip), all exactly 0; bound {b_ms:.4f} "
-              f"ms (share {b_ms / ms:.3f}), all pairs clipped "
-              f"{all_ms:.4f} ms", flush=True)
+              f"ms ({b_by}; share {b_ms / ms:.3f}), all pairs on the fixed "
+              f"schedule {all_ms:.4f} ms", flush=True)
         del got, want
     del geom, g6, g7, cand_boxes
     torch.cuda.empty_cache()

@@ -12,10 +12,11 @@ package's ``tools/profile_assign.py`` times over the tier's pairs.
 On a CUDA tensor a wrapper launches the hand-written kernel in
 ``csrc/iou3d_clip.cu``; on a CPU tensor it runs the plain version, the
 plain clipper of ``ops/iou3d.py`` (after the row gather, for K6/K7).  A
-CUDA tensor never takes the plain version.  K6 and K7 first run a
+CUDA tensor never takes the plain version.  All three first run a
 separating-plane test per pair (``ops/iou3d.separated_directions`` is its
-plain version) and clip only what it cannot clear; the wrappers allocate
-the kernels' scratch (per-row records and the list of pairs to clip).
+plain version) and clip only what it cannot clear, 12 lanes to a pair;
+the wrappers allocate the kernels' scratch (the list of pairs to clip,
+and K6/K7's per-row records).
 """
 
 import ctypes
@@ -35,12 +36,14 @@ from objectdetection_3d_tpu_torch.ops.iou3d import (
 MAX_TABLE_ROWS = 1024
 #: floats of a table row's record in the kernels' scratch
 _ROW_RECORD = 72
+#: pairs K5 takes: its list items hold ``p << 2`` in 32 bits
+MAX_ALIGNED_PAIRS = 2 ** 30
 
 _ARGS_ONE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_void_p, ctypes.c_void_p]
 _ARGS_ALIGNED = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_longlong]
+                 ctypes.c_longlong, ctypes.c_void_p]
 _ARGS_PAIR = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
@@ -174,12 +177,17 @@ def intersection_volume_aligned(boxes1, boxes2):
     if dev.type == "cpu":
         return intersection_volume_aligned_plain(boxes1, boxes2)
     p = boxes1.shape[0]
+    if p >= MAX_ALIGNED_PAIRS:
+        raise ValueError(f"the kernel takes fewer than 2^30 pairs, got {p}")
     b1 = boxes1.float().contiguous()
     b2 = boxes2.float().contiguous()
     out = torch.empty((p,), dtype=torch.float32, device=dev)
+    # the list's count, then room for every pair
+    work = torch.empty((1 + p,), dtype=torch.int32, device=dev)
     cuda_lib.launch("iou3d_clip", "intersection_volume_aligned",
                     _ARGS_ALIGNED,
-                    (b1.data_ptr(), b2.data_ptr(), out.data_ptr(), p), dev)
+                    (b1.data_ptr(), b2.data_ptr(), out.data_ptr(), p,
+                     work.data_ptr()), dev)
     intersection_volume_aligned.launches += 1
     return out
 

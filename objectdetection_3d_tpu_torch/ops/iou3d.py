@@ -20,8 +20,8 @@ outward-wound polygons.  What the port keeps of that body:
 Here the slot axis is a tensor dimension, so one clip is a few dozen
 tensor ops over (slots, 12 polygons, pairs); pairs are processed in chunks
 of ``PAIR_CHUNK`` so that memory stays bounded at any pair count.  The
-CUDA kernels of ``ops/gathered_iou3d.py`` run the same arithmetic one pair
-per thread.
+CUDA kernels of ``ops/gathered_iou3d.py`` run the same arithmetic, one
+face per thread.
 """
 
 import torch
@@ -98,8 +98,12 @@ def _planes(fields, r):
     return tuple(torch.stack(lst) for lst in out)
 
 
-def _clip_chunk(b1, b2):
-    """Intersection volumes of aligned (T, 9) float32 pairs -> (T,)."""
+def _face_volumes(b1, b2, work=None):
+    """(12, T) signed volumes under the clipped faces of aligned (T, 9)
+    float32 pairs: rows 0-5 box 1's faces in box 2, rows 6-11 box 2's in
+    box 1.  Where ``work`` is a dict, it receives (12, T) counts per face:
+    ``slots``, the live ring vertices entering the six planes; ``crossings``,
+    the crossing points the planes keep; ``triangles``, the fan's terms."""
     f1, f2 = b1.unbind(-1), b2.unbind(-1)
     r1, r2 = _rot_entries(*f1[6:]), _rot_entries(*f2[6:])
     faces = torch.tensor(FACES_OUTWARD, device=b1.device).t()   # (4, 6)
@@ -151,10 +155,13 @@ def _clip_chunk(b1, b2):
                               device=v.device)
             new.append(buf.scatter_(0, dest, cand)[:cap])
         vx, vy, vz = new
+        if work is not None:
+            work["slots"] = work.get("slots", 0) + cnt
+            work["crossings"] = work.get("crossings", 0) + (
+                ok[1::2] & (pos[1::2] < cap)).sum(0, dtype=torch.int32)
         cnt = torch.clamp(ok.sum(0, dtype=torch.int32), max=cap)
 
-    # divergence-theorem fan over each clipped polygon, then the sum over
-    # the pair's 12 polygons, both in order
+    # divergence-theorem fan over each clipped polygon, in order
     total = torch.zeros((12, t), dtype=b1.dtype, device=b1.device)
     for i in range(1, _RING_CAPS[-1] - 1):
         crx = vy[i] * vz[i + 1] - vz[i] * vy[i + 1]
@@ -163,6 +170,15 @@ def _clip_chunk(b1, b2):
         contrib = vx[0] * crx + vy[0] * cry + vz[0] * crz
         total = total + torch.where(i + 1 < cnt, contrib,
                                     torch.zeros_like(contrib)) / 6.0
+    if work is not None:
+        work["triangles"] = torch.clamp(cnt - 2, min=0)
+    return total
+
+
+def _clip_chunk(b1, b2):
+    """Intersection volumes of aligned (T, 9) float32 pairs -> (T,): the
+    12 face volumes summed in row order."""
+    total = _face_volumes(b1, b2)
     vol = total[0]
     for row in range(1, 12):
         vol = vol + total[row]
@@ -179,8 +195,8 @@ def _beyond(corners, planes, shift):
 
 
 def separated_directions(boxes1, boxes2):
-    """The separating-plane test that the K6/K7 kernels run before the
-    clip, for aligned (P, 9) pairs -> (P, 2) bool.
+    """The separating-plane test that the K5, K6 and K7 kernels run before
+    the clip, for aligned (P, 9) pairs -> (P, 2) bool.
 
     Column 0: all 8 corners of box 1 lie beyond one of box 2's planes
     pulled in by ``_SHRINK`` by more than ``_EPS + SEPARATION_MARGIN``, so
@@ -203,6 +219,30 @@ def separated_directions(boxes1, boxes2):
     if not out:
         return torch.zeros((0, 2), dtype=torch.bool, device=b1.device)
     return torch.cat(out)
+
+
+def clip_work(boxes1, boxes2, cleared):
+    """What the clip of aligned (P, 9) pairs needs on the directions that
+    ``cleared`` ((P, 2) bool, as ``separated_directions`` returns it) leaves
+    open, counted by the plain clipper on these pairs: a dict of
+    ``directions`` (open ones), ``slots`` (live ring vertices entering a
+    plane), ``crossings`` (crossing points kept) and ``triangles`` (fan
+    terms), each summed over the open directions' faces."""
+    b1 = boxes1.to(torch.float32).reshape(-1, 9)
+    b2 = boxes2.to(torch.float32).reshape(-1, 9)
+    keep = ~cleared.all(-1)
+    b1, b2, cleared = b1[keep], b2[keep], cleared[keep]
+    out = {"directions": int((~cleared).sum()), "slots": 0, "crossings": 0,
+           "triangles": 0}
+    for i in range(0, b1.shape[0], PAIR_CHUNK):
+        work = {}
+        _face_volumes(b1[i:i + PAIR_CHUNK], b2[i:i + PAIR_CHUNK], work)
+        c = cleared[i:i + PAIR_CHUNK]
+        face_open = ~torch.cat([c[:, :1].expand(-1, 6),
+                                c[:, 1:].expand(-1, 6)], dim=1).t()
+        for key in ("slots", "crossings", "triangles"):
+            out[key] += int((work[key] * face_open).sum())
+    return out
 
 
 def intersection_volume_aligned(boxes1, boxes2):

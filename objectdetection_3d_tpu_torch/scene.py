@@ -2,7 +2,9 @@
 name and power limit.
 
 ``chip_smoke.py``, ``profile_predict`` and ``profile_train`` build their
-clouds and ground-truth boxes here, so all three run the same inputs.
+clouds and ground-truth boxes here, so all three run the same inputs;
+``chip_smoke.py`` and ``variant_times`` build the aligned clipper's box
+pairs here too.
 """
 
 import subprocess
@@ -70,3 +72,34 @@ def make_batch(scene, max_points, max_gt=MAX_GT):
             "num_points": np.array([len(cloud)], np.int32),
             "bboxes": bboxes, "labels": np.zeros((1, max_gt), np.int32),
             "gt_mask": gt_mask}
+
+
+def jittered(boxes, rng):
+    """Copies of (N, 9) float32 ``boxes``, each shifted by up to +-0.4 of
+    its own size on each axis and turned by up to +-0.3 rad about each
+    axis (positions drawn first, then angles): most copies overlap their
+    box."""
+    out = np.array(boxes, np.float32)
+    n = len(out)
+    out[:, :3] += rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32) * \
+        out[:, 3:6]
+    out[:, 6:9] += rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
+    return out
+
+
+def aligned_pair_inputs(anchors, gt_boxes):
+    """The aligned clipper's two inputs over the model's (N, 9) anchors:
+    ``drive``, each anchor against a random one of ``gt_boxes`` (numpy
+    ``default_rng(0)``), as the JAX package's ``tools/profile_assign.py``
+    pairs them; ``dense``, each anchor against its ``jittered`` copy
+    (``default_rng(1)``).
+
+    Returns:
+        {name: (boxes1, boxes2)}, (N, 9) float32 numpy arrays.
+    """
+    anchors = np.asarray(anchors, np.float32)
+    gt_boxes = np.asarray(gt_boxes, np.float32)
+    ridx = np.random.default_rng(0).integers(0, len(gt_boxes),
+                                             len(anchors))
+    return {"drive": (gt_boxes[ridx], anchors),
+            "dense": (anchors, jittered(anchors, np.random.default_rng(1)))}

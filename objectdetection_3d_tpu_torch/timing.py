@@ -5,7 +5,8 @@ events; ``graph_ms`` replays the calls from one CUDA graph, so a short
 kernel's time does not include the host's work between launches;
 ``kernel_ms`` sums the device time of every kernel the calls launch, from
 ``torch.profiler``, for work that cannot be captured in a graph and whose
-span the host's launches set.
+span the host's launches set; ``kernel_split_ms`` gives the same time by
+kernel name.
 """
 
 import torch
@@ -53,10 +54,10 @@ def graph_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, reps):
-    """Mean device time of the kernels (and copies and fills) that ``fn``
-    launches, over ``reps`` calls traced by ``torch.profiler``: the card's
-    busy time, without the gaps in which it waits for the host."""
+def kernel_split_ms(fn, reps):
+    """{kernel name: mean device time per call} of the kernels (and
+    copies and fills) that ``fn`` launches, over ``reps`` calls traced by
+    ``torch.profiler``."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -65,6 +66,13 @@ def kernel_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy / 1e3 / reps
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernel_ms(fn, reps):
+    """Mean device time of the kernels (and copies and fills) that ``fn``
+    launches, over ``reps`` calls traced by ``torch.profiler``: the card's
+    busy time, without the gaps in which it waits for the host."""
+    return sum(kernel_split_ms(fn, reps).values())

@@ -28,12 +28,21 @@ each output is held against the plain version first.  Cases:
   this source against the other checkout's;
 * K1 ``postsort_scan`` on the sorted cell ids of cloud 0 (B = 1) and of
   clouds 0-3 (B = 4), in a CUDA graph and eager: this source against the
-  other checkout's, each called through its own C interface; and the
-  voxelizer's ``points_batch`` (predict's voxelize stage) around each:
+  other checkout's; and the voxelizer's ``points_batch`` (predict's voxelize stage) around each:
   its span back to back, which the host's launches set, and the device
-  time of its kernels (``timing.kernel_ms``).
+  time of its kernels (``timing.kernel_ms``);
+* K5 ``intersection_volume_aligned`` on the 1.92 M flagship anchors
+  against a random tree of cloud 0 (``chip_smoke.py``'s drive) and
+  against jittered copies of themselves (dense), in a CUDA graph and
+  eager: this source against the other checkout's, each called through
+  its own C interface (the one-pass kernel of a checkout before the
+  separating-plane test took no scratch);
+* K6 ``iou_gathered`` and K7 ``iou_gathered_pair`` on cloud 0's
+  assignment pairs (``chip_smoke.py``'s phase 7), in a CUDA graph and
+  eager: this source against the other checkout's.
 
-``--cases`` picks some of them (``k10 k8 k3 k4 k1``; all by default).
+``--cases`` picks some of them (``k10 k8 k3 k4 k1 k5 k6 k7``; all by
+default).
 Prints one JSON line of {case: {variant: ms}}.
 """
 
@@ -78,9 +87,12 @@ def build_variant(name, csrc, tag, *edits):
             raise RuntimeError(f"edit {old!r} not found once in {name}")
         (out / f"{name}.cu").write_text(src.replace(old, new))
     lib = out / f"lib{name}.so"
-    subprocess.run([cuda_lib._nvcc(), *cuda_lib._flags(name), "-o",
-                    str(lib), str(out / f"{name}.cu")], check=True,
-                   capture_output=True)
+    log = subprocess.run([cuda_lib._nvcc(), *cuda_lib._flags(name), "-o",
+                          str(lib), str(out / f"{name}.cu")], check=True,
+                         capture_output=True, text=True)
+    for line in (log.stdout + log.stderr).splitlines():
+        if any(k in line for k in ("entry function", "registers", "spill")):
+            print(f"  ptxas {tag}: {line.strip()}", flush=True)
     return ctypes.CDLL(str(lib))
 
 
@@ -102,39 +114,49 @@ def in_turns(name, libs, fn, check, timer):
     return {v: sum(t) / len(t) for v, t in times.items()}
 
 
-def scan_callers(this_lib, parent_lib):
-    """{variant: fn(cells, sentinel)} of K1 through each library's own C
-    interface: this one's (with its tile scratch) and the other
-    checkout's, which is this wrapper's interface or the single-block
-    kernel's (cell, vox, rank, b, p, sentinel, stream)."""
-    from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
+def through(name, lib, fn):
+    """``fn`` run with ``lib`` as the kernel library ``name``."""
+    def call(*args):
+        saved = cuda_lib.load(name)
+        cuda_lib._libs[name] = lib
+        try:
+            return fn(*args)
+        finally:
+            cuda_lib._libs[name] = saved
+    return call
 
-    def this(cells, sentinel):
-        return postsort_scan(cells, sentinel)
 
-    if hasattr(parent_lib, "postsort_scan_tile"):
-        def parent(cells, sentinel):
-            cuda_lib._libs["voxel_scan"] = parent_lib
-            try:
-                return postsort_scan(cells, sentinel)
-            finally:
-                cuda_lib._libs["voxel_scan"] = this_lib
-        return {"this": this, "parent": parent}
-    fn = parent_lib.postsort_scan
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
+def aligned_callers(parent_lib, parent_csrc):
+    """{variant: fn(b1, b2)} of K5: this wrapper, and the other checkout's
+    library through its own C interface, which is this wrapper's or the
+    one-pass kernel's (boxes1, boxes2, out, p, stream)."""
+    from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
+        intersection_volume_aligned,
+    )
+
+    fns = {"this": intersection_volume_aligned}
+    src = (Path(parent_csrc) / "iou3d_clip.cu").read_text()
+    if "aligned_test_kernel" in src:
+        fns["parent"] = through("iou3d_clip", parent_lib,
+                                intersection_volume_aligned)
+        return fns
+    fn = parent_lib.intersection_volume_aligned
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
-    def parent(cells, sentinel):
-        vox, rank = torch.empty_like(cells), torch.empty_like(cells)
-        err = fn(cells.data_ptr(), vox.data_ptr(), rank.data_ptr(),
-                 *cells.shape, int(sentinel),
+    def parent(b1, b2):
+        out = torch.empty((b1.shape[0],), dtype=torch.float32,
+                          device=b1.device)
+        err = fn(b1.data_ptr(), b2.data_ptr(), out.data_ptr(), b1.shape[0],
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(f"postsort_scan (parent) failed: {err}")
-        return vox, rank
+            raise RuntimeError(f"intersection_volume_aligned (parent) "
+                               f"failed: {err}")
+        return out
 
-    return {"this": this, "parent": parent}
+    fns["parent"] = parent
+    return fns
 
 
 def voxelize_with(layer, scan, points, num_points):
@@ -165,9 +187,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
                     help="another checkout whose csrc/ is a variant")
-    ap.add_argument("--cases", nargs="+",
-                    default=["k10", "k8", "k3", "k4", "k1"],
-                    choices=["k10", "k8", "k3", "k4", "k1"])
+    kinds = ["k10", "k8", "k3", "k4", "k1", "k5", "k6", "k7"]
+    ap.add_argument("--cases", nargs="+", default=kinds, choices=kinds)
     args = ap.parse_args(argv)
     cases = set(args.cases)
     if not torch.cuda.is_available():
@@ -186,16 +207,25 @@ def main(argv=None):
         fused_stage,
         fused_stage_plain,
     )
+    from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
+        intersection_volume_aligned_plain,
+        iou_gathered,
+        iou_gathered_pair,
+        iou_gathered_pair_plain,
+        iou_gathered_plain,
+    )
     from objectdetection_3d_tpu_torch.ops.pallas_conv import (
         subm_conv3d,
         subm_conv3d_plain,
     )
     from objectdetection_3d_tpu_torch.ops.voxel_scan import (
+        postsort_scan,
         postsort_scan_plain,
     )
     from objectdetection_3d_tpu_torch.ops.voxelize import cells_sorted
     from objectdetection_3d_tpu_torch.scene import (
         MAX_GT,
+        aligned_pair_inputs,
         card_line,
         make_batch,
         tree_scene,
@@ -253,10 +283,11 @@ def main(argv=None):
                for i in range(4)]
     gt = torch.as_tensor(batches[0]["bboxes"][0], device="cuda")
     gt_mask = torch.as_tensor(batches[0]["gt_mask"][0], device="cuda")
-    if cases & {"k3", "k4"}:
+    if cases & {"k3", "k4", "k6", "k7"}:
         geom = geometry_tier(gt, gt_mask, model.anchor_layout,
                              model.combo_tab, MAX_GT, 512, 16,
                              chunk_geometry_plain)
+    if cases & {"k3", "k4"}:
         libs = {"this": cuda_lib.load("assign_geometry"),
                 "parent": build_variant("assign_geometry", parent, "parent")}
     if "k3" in cases:
@@ -305,8 +336,10 @@ def main(argv=None):
         vl = model.voxel_layer
         d, h, w = model.grid_dhw
         sentinel = d * h * w
-        fns = scan_callers(cuda_lib.load("voxel_scan"),
-                           build_variant("voxel_scan", parent, "parent"))
+        fns = {"this": postsort_scan,
+               "parent": through("voxel_scan",
+                                 build_variant("voxel_scan", parent,
+                                               "parent"), postsort_scan)}
         for b in (1, 4):
             pts = torch.as_tensor(np.concatenate(
                 [x["points"] for x in batches[:b]]), device="cuda")
@@ -344,6 +377,55 @@ def main(argv=None):
                 stage, same, lambda fn: cuda_ms(fn, 50))
             out[f"voxelize B={b} kernels"] = fns_in_turns(
                 stage, same, lambda fn: kernel_ms(fn, 20))
+    if cases & {"k5", "k6", "k7"}:
+        clip_lib = cuda_lib.load("iou3d_clip")
+        parent_clip = build_variant("iou3d_clip", parent, "parent")
+    if "k5" in cases:
+        fns = aligned_callers(parent_clip, parent)
+        inputs = aligned_pair_inputs(
+            model.anchors.cpu().numpy(),
+            batches[0]["bboxes"][0][batches[0]["gt_mask"][0]])
+        for label, pair in inputs.items():
+            b1, b2 = (torch.as_tensor(x, device="cuda") for x in pair)
+            want = intersection_volume_aligned_plain(b1, b2)
+            calls = {v: (lambda fn=fn, b1=b1, b2=b2: fn(b1, b2))
+                     for v, fn in fns.items()}
+            for timer, tag in ((lambda fn: graph_ms(fn, 10), "graph"),
+                               (lambda fn: cuda_ms(fn, 10), "eager")):
+                out[f"intersection_volume_aligned {label} {tag}"] = \
+                    fns_in_turns(calls, lambda call, want=want: close(
+                        call(), want, 1e-5), timer)
+            del want
+    if cases & {"k6", "k7"}:
+        k = 512
+        rows = torch.arange(MAX_GT, dtype=torch.int32,
+                            device="cuda").repeat_interleave(k)
+        cand = model.anchors[geom["cand_idx"].reshape(-1)].contiguous()
+        safe = [torch.clamp(geom[a], 0, MAX_GT - 1) for a in ("a1", "a2")]
+        libs = {"this": clip_lib, "parent": parent_clip}
+        for case, name, fn, plain, args in (
+                ("k6", "iou_gathered", iou_gathered, iou_gathered_plain,
+                 (gt, gt_mask, rows, cand)),
+                ("k7", "iou_gathered_pair", iou_gathered_pair,
+                 iou_gathered_pair_plain,
+                 (gt, gt_mask, safe[0], safe[1], model.anchors))):
+            if case not in cases:
+                continue
+            want = plain(*args)
+            want = torch.stack(want) if isinstance(want, tuple) else want
+
+            def within(fn=fn, args=args, want=want):
+                got = fn(*args)
+                got = torch.stack(got) if isinstance(got, tuple) else got
+                err = float((got - want).abs().max())
+                if not err <= 1e-5:
+                    raise AssertionError(f"variant differs by {err}")
+
+            for timer, tag in ((lambda f: graph_ms(f, 10), "graph"),
+                               (lambda f: cuda_ms(f, 10), "eager")):
+                out[f"{name} {tag}"] = in_turns(
+                    "iou3d_clip", libs, lambda fn=fn, args=args: fn(*args),
+                    within, timer)
     print(json.dumps(out), flush=True)
     return 0
 

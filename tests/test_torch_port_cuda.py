@@ -2,8 +2,14 @@
 
 K1, K2, K3 and K4 are held bit-exact (K1 across its tile edges, rows
 and calls; K4 under row maxima and masked rows of every kind); K5, K6 and K7 (the clipper, whose
-sinf/cosf may differ from PyTorch's in the last bit) within 1e-5 of IoU
-or of the volume scale.  The conv kernels K8, K9 (forward, and the
+sine and cosine may differ from PyTorch's in the last bit) within 1e-5 of IoU
+or of the volume scale, and exactly 0 wherever the plain
+separating-plane test clears a pair.  K5 on random, far-apart, dense
+(jittered copies), one-way-cleared, face-gap and non-finite or
+zero-size pairs (NaN and inf where the plain version has them), at pair
+counts on both sides of a warp and a block, back to back and replayed
+from a CUDA graph; its wrapper refuses 2^30 pairs before it allocates.
+The conv kernels K8, K9 (forward, and the
 backward's dx and dw) and K10 sum in float32 in another order than their
 plain versions: in float32 within 1e-4 of the largest element (with TF32
 off), in bf16 within 1e-2 (a few bf16 roundings of the output, or of
@@ -63,6 +69,7 @@ from objectdetection_3d_tpu_torch.ops.zfold_conv import (
     conv2d_3x3,
     conv2d_3x3_plain,
 )
+from objectdetection_3d_tpu_torch.scene import jittered
 
 pytestmark = pytest.mark.cuda
 
@@ -216,6 +223,14 @@ def test_kernel_wrappers_reject_bad_input(cuda):
     feats = torch.zeros((8, 4), dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError):
         scatter_to_grid(feats, cells[0], (2, 2, 2))
+    # K5's list items hold p << 2: 2^30 pairs (a zero-stride view, 36 GiB
+    # if copied) are refused before any copy or allocation
+    big = torch.zeros((9,), device=cuda).expand(2 ** 30, 9)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(ValueError, match="2\\^30"):
+        intersection_volume_aligned(big, big)
+    assert torch.cuda.memory_allocated(cuda) == before
 
 
 def _random_pairs(rng, p):
@@ -448,9 +463,74 @@ def test_containment_rescue_kernel_bit_exact(cuda, case):
         assert not live[-1].any()
 
 
-@pytest.mark.parametrize("p", [1, 1000, 70000])
-def test_aligned_volume_kernel_matches_plain(cuda, p):
-    b1, b2 = _random_pairs(np.random.default_rng(p + 1), p)
+def _aligned_pairs(kind, p, rng):
+    """(boxes1, boxes2), (p, 9) float32 pairs of one kind for K5."""
+    if kind == "random":
+        return _random_pairs(rng, p)
+    # trunk-like boxes over a 40 x 40 m plot
+    b1 = np.zeros((p, 9), np.float32)
+    b1[:, :2] = rng.uniform(0, 40, (p, 2))
+    b1[:, 3:6] = rng.uniform([0.5, 0.5, 5.0], [1.8, 1.8, 20.0], (p, 3))
+    b1[:, 6] = rng.choice([0.0, 0.3142, -0.3142], p)
+    b1[:, 8] = rng.choice([0.0, 1.57], p)
+    if kind == "far":
+        b2 = b1.copy()
+        b2[:, :2] += rng.choice([-1, 1], (p, 2)) * rng.uniform(25, 40,
+                                                              (p, 2))
+        return b1, b2
+    if kind == "dense":
+        return b1, jittered(b1, rng)
+    if kind == "one-way":
+        # a small box turned 45 degrees about z, 5 cm beyond a face of a
+        # large upright box: all its corners lie beyond that face's plane,
+        # but the large box's corners straddle every plane of the small
+        # one; odd pairs swap the two boxes
+        big = np.zeros((p, 9), np.float32)
+        big[:, :2] = rng.uniform(0, 40, (p, 2))
+        big[:, 3:6] = rng.uniform(4.0, 8.0, (p, 3))
+        small = big.copy()
+        small[:, 3:6] = rng.uniform(0.3, 0.6, (p, 3))
+        small[:, 0] += big[:, 3] / 2 + small[:, 3] + 0.05
+        small[:, 2] += big[:, 5] / 3
+        small[:, 8] = np.pi / 4
+        odd = np.arange(p) % 2 == 1
+        return np.where(odd[:, None], big, small), np.where(odd[:, None],
+                                                            small, big)
+    if kind == "gaps":
+        table, ids, boxes = _separation_cases(rng, 37)
+        reps = -(-p // len(ids))
+        return (np.tile(table[ids], (reps, 1))[:p],
+                np.tile(boxes, (reps, 1))[:p])
+    # non-finite and zero-size boxes among random pairs
+    b1, b2 = _random_pairs(rng, max(p, 16))
+    b1, b2 = b1[:p], b2[:p]
+    bad = [(0, 0, np.nan), (1, 3, np.inf), (0, 6, np.nan), (1, 0, -np.inf),
+           (0, 5, np.inf), (1, 8, np.nan), (0, 2, 1e30)]
+    for i in range(p):
+        k = i % (len(bad) + 4)
+        if k < len(bad):
+            which, field, val = bad[k]
+            (b1, b2)[which][i, field] = val
+        elif k == len(bad):
+            b1[i, 3:6] = 0.0
+        elif k == len(bad) + 1:
+            b2[i, 3] = 0.0
+        elif k == len(bad) + 2:
+            # one upright box twice, 3e19 m out on every axis: the fan's
+            # products overflow to inf, and inf - inf is NaN
+            b1[i, :3] = 3e19
+            b1[i, 6:9] = 0.0
+            b2[i] = b1[i]
+    return b1, b2
+
+
+_ALIGNED_KINDS = ["random", "far", "dense", "one-way", "gaps", "nonfinite"]
+
+
+@pytest.mark.parametrize("p", [1, 31, 33, 127, 129, 1000, 70000])
+@pytest.mark.parametrize("kind", _ALIGNED_KINDS)
+def test_aligned_volume_kernel_matches_plain(cuda, kind, p):
+    b1, b2 = _aligned_pairs(kind, p, np.random.default_rng(p + 1))
     b1 = torch.from_numpy(b1).to(cuda)
     b2 = torch.from_numpy(b2).to(cuda)
     before = intersection_volume_aligned.launches
@@ -458,7 +538,62 @@ def test_aligned_volume_kernel_matches_plain(cuda, p):
     torch.cuda.synchronize()
     assert intersection_volume_aligned.launches == before + 1
     want = intersection_volume_aligned_plain(b1, b2)
-    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    # NaN and inf where the plain version has them, element for element
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    assert (got[fin] - want[fin]).abs().max() <= \
+        1e-5 * want[fin].abs().max()
+    sep = separated_directions(b1, b2)
+    both = sep.all(-1)
+    assert bool((got[both] == 0).all()) and bool((want[both] == 0).all())
+    if kind == "far":
+        assert bool(both.all())
+    elif kind == "dense" and p >= 1000:
+        # most copies overlap; a thin box tilted and lifted by up to 0.4
+        # of its height can clear its copy
+        assert float(both.float().mean()) < 0.1
+        assert float((want > 0).float().mean()) > 0.75
+    elif kind == "one-way" and p > 1:
+        one = sep.any(-1) & ~both
+        assert bool(one.all()) and bool(sep[0::2, 0].all()) and \
+            bool(sep[1::2, 1].all())
+        assert bool((want > 0).sum() == 0)
+
+
+def test_aligned_volume_graph_replays_and_back_to_back(cuda):
+    """Calls in a row on different pairs, then three replays of a CUDA
+    graph of one call: each equals its eager call, so the list's count
+    starts from zero in every call."""
+    rng = np.random.default_rng(9)
+    a = [torch.from_numpy(x).to(cuda)
+         for x in _aligned_pairs("gaps", 5000, rng)]
+    b = [torch.from_numpy(x).to(cuda)
+         for x in _aligned_pairs("dense", 3000, rng)]
+    eager_a = intersection_volume_aligned(*a)
+    eager_b = intersection_volume_aligned(*b)
+    again = [intersection_volume_aligned(*x) for x in (a, b, a)]
+    torch.cuda.synchronize()
+    for got, want in zip(again, (eager_a, eager_b, eager_a)):
+        assert torch.equal(got, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        intersection_volume_aligned(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        replayed = intersection_volume_aligned(*a)
+    before = intersection_volume_aligned.launches
+    for _ in range(3):
+        replayed.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager_a)
+        # an eager call between replays leaves its own count behind
+        assert torch.equal(intersection_volume_aligned(*b), eager_b)
+    assert intersection_volume_aligned.launches == before + 3
 
 
 @pytest.fixture

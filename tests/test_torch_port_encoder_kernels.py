@@ -20,7 +20,19 @@ program of the same knobs.
 * K5's plain version against the Pallas kernel's body
   (``_clip_volumes``), run eagerly as ``tests/test_pallas_iou3d.py`` runs
   it: interpret mode jits its ~8k-op graph, whose CPU compile takes
-  minutes.  1e-5 of the volume scale.
+  minutes.  1e-5 of the volume scale, on random pairs, on flagship
+  anchors against cloud 0's trees (K5's drive) and on flagship anchors
+  against jittered copies of themselves (dense).  The dense pairs are the
+  grid's first anchors, within 4 m of its origin: the fan sums signed
+  volumes against the origin, so a last-bit difference between XLA's and
+  PyTorch's CPU sin/cos (a few of these angles) grows with the squared
+  distance, past the gate at 40 m.  The card holds the kernel to the
+  plain version over the whole plot.  Farther out both float32 bodies
+  are held against a float64 evaluation of the port's body on dense
+  pairs 30-56 m from the origin: within 1e-3 of the volume scale, and
+  within 2.5e-4 of each other, twice the largest readings over ten seeds
+  (4.7e-4 and 1.1e-4; ``python tests/test_torch_port_encoder_kernels.py``
+  prints them by distance band).
 * Which stages take which kernel, at the flagship's depth, and that no
   knob changes a parameter name.
 """
@@ -40,6 +52,7 @@ from objectdetection_3d_tpu.models.layers import (
 from objectdetection_3d_tpu.ops.pallas_iou3d import _clip_volumes
 from objectdetection_3d_tpu_torch import configs
 from objectdetection_3d_tpu_torch.models import layers
+from objectdetection_3d_tpu_torch.models.anchors import Anchor3DRangeGenerator
 from objectdetection_3d_tpu_torch.models.detector import PointPillars
 from objectdetection_3d_tpu_torch.models.layers import SparseMiddleExtractor
 from objectdetection_3d_tpu_torch.models.weights import (
@@ -50,10 +63,12 @@ from objectdetection_3d_tpu_torch.models.weights import (
 from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
     intersection_volume_aligned,
 )
+from objectdetection_3d_tpu_torch.ops.iou3d import _clip_chunk
 from objectdetection_3d_tpu_torch.ops.zfold_conv import (
     conv2d_3x3,
     conv2d_3x3_plain,
 )
+from objectdetection_3d_tpu_torch.scene import jittered, tree_scene
 from test_torch_port_cuda import _random_pairs
 from test_torch_port_model import _leaves, _random_variables
 from tiny import tiny_batch, tiny_model_cfg
@@ -342,9 +357,39 @@ def test_conv2d_3x3_gradients_match_autograd_of_conv2d(shape):
                                yb.detach().numpy(), **tol)
 
 
-def test_aligned_volume_plain_matches_pallas_body():
-    rng = np.random.default_rng(3)
-    b1, b2 = _random_pairs(rng, 512)
+def _flagship_anchors():
+    head = configs.flagship_cfg()["head"]
+    return Anchor3DRangeGenerator(head["ranges"], head["sizes"],
+                                  head["rotations"]).flat_anchors(
+                                      (400, 400)).numpy()
+
+
+def _anchor_pairs(kind):
+    """(boxes1, boxes2): 512 pairs of flagship anchors.  ``drive``: box 1
+    a tree of ``tree_scene(0)`` (the nearest one in even rows, a random
+    one in odd rows), box 2 an anchor within 1 m of a trunk; ``dense``:
+    the grid's first anchors against copies shifted by up to 0.4 of their
+    size on each axis and turned by up to 0.3 rad about each axis."""
+    anchors = _flagship_anchors()
+    rng = np.random.default_rng(1)
+    if kind == "dense":
+        return anchors[:512], jittered(anchors[:512], rng)
+    trees = tree_scene(0)[1]
+    dist = np.linalg.norm(anchors[:, None, :2] - trees[None, :, :2], axis=-1)
+    near = rng.choice(np.nonzero(dist.min(axis=1) < 1.0)[0], 512,
+                      replace=False)
+    tree = np.where(np.arange(512) % 2 == 0, dist[near].argmin(axis=1),
+                    rng.integers(0, len(trees), 512))
+    return trees[tree], anchors[near]
+
+
+@pytest.mark.parametrize("kind", ["random", "drive", "dense"])
+def test_aligned_volume_plain_matches_pallas_body(kind):
+    if kind == "random":
+        rng = np.random.default_rng(3)
+        b1, b2 = _random_pairs(rng, 512)
+    else:
+        b1, b2 = _anchor_pairs(kind)
     with jax.disable_jit():
         want = np.asarray(_clip_volumes(
             [jnp.asarray(b1[:, i]) for i in range(9)],
@@ -354,4 +399,50 @@ def test_aligned_volume_plain_matches_pallas_body():
     assert got.dtype == torch.float32 and got.shape == (512,)
     scale = float(np.abs(want).max())
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * scale)
-    assert (want > 1e-3).sum() > 100
+    assert (want > 1e-3).sum() > {"random": 100, "drive": 200,
+                                  "dense": 400}[kind]
+
+
+def _dense_errors(lo, hi, seed):
+    """Errors of K5's plain version and of the Pallas body (both float32)
+    on 512 dense pairs of flagship anchors ``lo``-``hi`` m from the origin
+    (numpy ``default_rng(seed)``): {name: max error / volume scale}
+    against the port's body in float64 and between the two."""
+    anchors = _flagship_anchors()
+    dist = np.linalg.norm(anchors[:, :2], axis=1)
+    rng = np.random.default_rng(seed)
+    b1 = anchors[rng.choice(np.nonzero((dist >= lo) & (dist < hi))[0], 512,
+                            replace=False)]
+    b2 = jittered(b1, rng)
+    with jax.disable_jit():
+        pallas = np.asarray(_clip_volumes(
+            [jnp.asarray(b1[:, i]) for i in range(9)],
+            [jnp.asarray(b2[:, i]) for i in range(9)]))
+    plain = intersection_volume_aligned(torch.from_numpy(b1),
+                                        torch.from_numpy(b2)).numpy()
+    exact = _clip_chunk(torch.from_numpy(b1).double(),
+                        torch.from_numpy(b2).double()).numpy()
+    assert (exact > 1e-3).sum() > 350
+    scale = float(np.abs(exact).max())
+    return {"plain": float(np.abs(plain - exact).max()) / scale,
+            "pallas": float(np.abs(pallas - exact).max()) / scale,
+            "plain_vs_pallas": float(np.abs(plain - pallas).max()) / scale}
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_aligned_volume_far_field_against_float64(seed):
+    err = _dense_errors(30.0, 60.0, seed)
+    assert err["plain"] <= 1e-3 and err["pallas"] <= 1e-3
+    assert err["plain_vs_pallas"] <= 2.5e-4
+
+
+if __name__ == "__main__":
+    # the far-field readings: the largest error per distance band over
+    # seeds 1-10
+    import json
+
+    for lo, hi in ((0.0, 4.0), (10.0, 20.0), (20.0, 30.0), (30.0, 40.0),
+                   (40.0, 60.0), (30.0, 60.0)):
+        runs = [_dense_errors(lo, hi, seed) for seed in range(1, 11)]
+        print(json.dumps({"band_m": [lo, hi], **{
+            k: max(r[k] for r in runs) for k in runs[0]}}))

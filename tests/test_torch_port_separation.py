@@ -6,7 +6,10 @@
   Pallas clipper body (``_clip_volumes``, run eagerly as
   ``tests/test_pallas_iou3d.py`` runs it) both return exactly 0.  Seeded
   pairs: random, tilted, touching, nested, far apart, and faces 1.2 mm
-  and 0.8 mm apart (just outside and inside the test's margin).
+  and 0.8 mm apart (just outside and inside the test's margin).  Where
+  it clears one direction only, the plain clipper's six face volumes of
+  the cleared box are exactly +0.0, and leaving them out of the sum
+  changes no bit: what lets the kernels skip them.
 * K8's weight packings, unpacked here by plain loops over their
   documented layouts and compared exactly with the weights they came
   from: the subm weights (``pallas_conv.kernel_weights``) and the down
@@ -28,11 +31,17 @@ from objectdetection_3d_tpu_torch.ops.fused_stage import (
 )
 from objectdetection_3d_tpu_torch.ops.iou3d import (
     SEPARATION_MARGIN,
+    _face_volumes,
+    clip_work,
     intersection_volume_aligned,
     separated_directions,
 )
 from objectdetection_3d_tpu_torch.ops.pallas_conv import kernel_weights
-from test_torch_port_cuda import _random_pairs, _separation_cases
+from test_torch_port_cuda import (
+    _aligned_pairs,
+    _random_pairs,
+    _separation_cases,
+)
 
 torch.set_num_threads(1)
 
@@ -72,6 +81,51 @@ def test_cleared_pairs_clip_to_exact_zero(kind):
     assert (ref[cleared] == 0).all()
     # the test is conservative: overlapping pairs are never cleared
     assert not cleared[port > 1e-6].any()
+
+
+@pytest.mark.parametrize("kind", ["one-way", "dense", "random"])
+def test_one_way_cleared_faces_add_exact_zero(kind):
+    """On pairs cleared in one direction only, the cleared box's six face
+    volumes are exactly +0.0 and the pair's volume, summed in row order
+    without them, is the same float bit for bit."""
+    b1, b2 = (torch.from_numpy(x) for x in _aligned_pairs(
+        kind, 2000, np.random.default_rng(11)))
+    sep = separated_directions(b1, b2)
+    one = sep.any(-1) & ~sep.all(-1)
+    assert int(one.sum()) >= {"one-way": 2000, "dense": 1,
+                              "random": 20}[kind]
+    b1, b2, sep = b1[one], b2[one], sep[one]
+    rows = _face_volumes(b1, b2)
+    cleared = torch.cat([sep[:, :1].expand(-1, 6),
+                         sep[:, 1:].expand(-1, 6)], dim=1).t()
+    assert bool((rows[cleared] == 0).all())
+    assert not bool(torch.signbit(rows[cleared]).any())
+    kept = torch.zeros_like(rows[0])
+    for row in range(12):
+        kept = torch.where(cleared[row], kept, kept + rows[row])
+    vol = intersection_volume_aligned(b1, b2)
+    assert torch.equal(kept.view(torch.int32), vol.view(torch.int32))
+
+
+def test_clip_work_counts_the_live_rings():
+    """``clip_work`` counts what the clip of the open directions needs: a
+    small upright box inside a large one keeps its 4 corners through all
+    6 planes on each of its 6 faces (144 live vertices, no crossing, 12
+    fan triangles); the large box's faces, marked cleared, and pairs
+    cleared both ways count nothing."""
+    small = torch.tensor([[0.0, 0.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0]])
+    large = torch.tensor([[0.0, 0.0, 0.0, 4.0, 4.0, 4.0, 0.0, 0.0, 0.0]])
+    assert not separated_directions(small, large).any()
+    got = clip_work(small, large, torch.tensor([[False, True]]))
+    assert got == {"directions": 1, "slots": 144, "crossings": 0,
+                   "triangles": 12}
+    got = clip_work(small.repeat(3, 1), large.repeat(3, 1),
+                    torch.tensor([[False, True], [True, True],
+                                  [False, True]]))
+    assert got == {"directions": 2, "slots": 288, "crossings": 0,
+                   "triangles": 24}
+    assert clip_work(small, large, torch.ones((1, 2), dtype=torch.bool)) \
+        == {"directions": 0, "slots": 0, "crossings": 0, "triangles": 0}
 
 
 def test_margin_decides_a_face_gap():
