@@ -77,7 +77,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     detections' agreement with the default path (information);
 12. train with ``zfold_pallas``: one warm-up step, then 2 timed steps;
     losses finite, ``num_pos`` > 0, every parameter and running statistic
-    changed, K9 exactly 3 forward and 3 dx launches per step.
+    changed, K9 exactly 3 forward and 3 dx launches per step;
+13. gradient accumulation at the flagship width (bf16, the npz weights,
+    phase 9's AdamW): at B = 1 on cloud 1, ``microbatch=1`` against the
+    monolithic step from the same state (losses within 1e-5 relative;
+    the gradients the update receives within 1e-4 of each leaf's
+    largest element; parameters within 1e-4 of the leaf's largest
+    element plus 1e-5, and within 2 lr where the gradient lies below
+    its tolerance, since AdamW's first step is lr * g / (|g| + 1e-8));
+    at B = 8 (clouds 0-7) one warm-up and 2 timed steps each with
+    ``microbatch`` 1 and 2, their wall ms and peak memory printed (losses
+    finite, ``num_pos`` > 0, every array changed, K1-K4, K6, K7
+    launched); ``microbatch=3`` at B = 8 raises ``ValueError``;
+14. the pipeline at the flagship width, from a config dict
+    (``configs.flagship_cfg()``, B = 2 in chunks of 1, one epoch; the
+    dataset: clouds 4-5 for training, 6 for validation, 7 for testing,
+    written to a directory under ``build/`` in the disk contract):
+    ``run_training`` from scratch (finite losses; its artifacts; K1-K4,
+    K6, K7 launched), ``run_testing`` from a ``ckpt_best.pth`` written
+    from the npz (``test_protocol.yaml`` reads back; precision, recall
+    and F1 finite), ``run_inference`` on the testing cloud equal to
+    ``predict`` (boxes within 1e-5, labels exact); the wall seconds of
+    training, validation and testing, and ms per train step.
 
 The last lines are the ``kernels`` JSON line (all ten kernels), the card
 line and ``{"ok": true, "device": {...}}``.
@@ -940,6 +961,304 @@ def zfold_train(batches, counted):
     return k9
 
 
+OPT = dict(lr=1e-3, betas=(0.95, 0.99), weight_decay=0.01)
+CLIP = 2.0
+
+
+def _step_run(model, start, batch, microbatch):
+    """One train step from the state ``start`` with a fresh optimizer:
+    (losses, the gradients its update received, the state after)."""
+    model.net.load_state_dict(start)
+    tx = model.get_optimizer(OPT, grad_clip_value=CLIP)
+    grads, update = {}, tx.step
+
+    def step_recording(closure=None):
+        for name, p in model.net.named_parameters():
+            grads[name] = p.grad.detach().clone()
+        return update(closure)
+
+    tx.step = step_recording
+    out = model.make_train_step(tx, microbatch=microbatch)(batch)
+    torch.cuda.synchronize()
+    state = {k: v.detach().clone() for k, v in model.net.state_dict().items()}
+    return {k: float(v) for k, v in out.items()}, grads, state
+
+
+def accumulation(scenes, counted):
+    """Phase 13: gradient accumulation at the flagship width.  Returns
+    each counted kernel's launches over the timed B = 8 steps."""
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.scene import make_batch
+
+    model = PointPillars(configs.flagship_cfg(), device="cuda")
+    load_npz(model.net, NPZ)
+    p_max = model.tpu_cfg["max_points_static"]
+    start = {k: v.detach().clone() for k, v in model.net.state_dict().items()}
+
+    # B = 1: one chunk against the monolithic step, cloud 1
+    one = make_batch(scenes[1], p_max)
+    l_mono, g_mono, s_mono = _step_run(model, start, one, None)
+    l_acc, g_acc, s_acc = _step_run(model, start, one, 1)
+    for k, v in l_mono.items():
+        if abs(l_acc[k] - v) > 1e-5 * abs(v):
+            raise AssertionError(f"microbatch=1 loss {k} {l_acc[k]} vs "
+                                 f"monolithic {v}")
+    worst = {"grad": 0.0, "param": 0.0, "param_raw": 0.0, "stats": 0.0}
+    for k, want in s_mono.items():
+        got = s_acc[k]
+        scale = float(want.abs().max())
+        err = (got - want).abs()
+        if k not in g_mono:                 # running statistics
+            worst["stats"] = max(worst["stats"], float(err.max()) / scale)
+            if not bool((err <= 1e-4 * scale + 1e-5).all()):
+                raise AssertionError(f"microbatch=1 running stat {k}")
+            continue
+        g = g_mono[k].abs()
+        gscale = float(g.max())
+        gerr = float((g_acc[k] - g_mono[k]).abs().max())
+        worst["grad"] = max(worst["grad"], gerr / max(gscale, 1e-30))
+        if gerr > 1e-4 * gscale:
+            raise AssertionError(f"microbatch=1 gradient {k}: {gerr} of "
+                                 f"{gscale}")
+        # AdamW's first step moves an element by lr * g / (|g| + 1e-8):
+        # where g lies below the gradient tolerance the two differ by up
+        # to 2 lr; elsewhere 1e-4 of the leaf's largest element
+        sure = g > 1e-4 * gscale
+        worst["param_raw"] = max(worst["param_raw"], float(err.max()))
+        if bool(sure.any()):
+            worst["param"] = max(worst["param"],
+                                 float(err[sure].max()) / scale)
+        if not bool((err[sure] <= 1e-4 * scale + 1e-5).all()) or not bool(
+                (err[~sure] <= 2 * OPT["lr"] + 1e-5).all()):
+            raise AssertionError(f"microbatch=1 parameter {k}")
+    print(f"accumulation B=1: microbatch=1 == monolithic on cloud 1; "
+          f"losses {l_acc}; worst gradient {worst['grad']:.3g} of its "
+          f"leaf's largest, parameter {worst['param']:.3g} (raw "
+          f"{worst['param_raw']:.3g}), running statistic "
+          f"{worst['stats']:.3g}", flush=True)
+    del g_mono, g_acc, s_mono, s_acc
+
+    # B = 8: clouds 0-7, microbatch 1 and 2
+    items = [make_batch(sc, p_max) for sc in scenes[:8]]
+    batch8 = {k: np.concatenate([it[k] for it in items]) for k in items[0]}
+    launches = {}
+    for mb in (1, 2):
+        model.net.load_state_dict(start)
+        step = model.make_train_step(
+            model.get_optimizer(OPT, grad_clip_value=CLIP), microbatch=mb)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch8)                        # warm-up
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        times = []
+        for _ in range(2):
+            t = time.perf_counter()
+            out = step(batch8)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            vals = {k: float(v) for k, v in out.items()}
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"B=8 microbatch={mb}: non-finite "
+                                     f"{vals}")
+            if vals["num_pos"] <= 0:
+                raise AssertionError(f"B=8 microbatch={mb}: no positive")
+        counts = {name: fn.launches for name, fn in counted.items()}
+        if not all(counts.values()):
+            raise AssertionError(f"B=8 microbatch={mb}: a kernel did not "
+                                 f"launch: {counts}")
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+        after = model.net.state_dict()
+        unchanged = [k for k in start if torch.equal(start[k], after[k])]
+        if unchanged:
+            raise AssertionError(f"B=8 microbatch={mb} left {unchanged} "
+                                 f"unchanged")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"accumulation B=8 microbatch={mb}: {times[0] * 1e3:.1f}, "
+              f"{times[1] * 1e3:.1f} ms per step (wall, after one "
+              f"warm-up; losses {vals}); peak memory {peak:.2f} GiB "
+              f"(max_memory_allocated); launches in 2 steps {counts}; all "
+              f"{len(start)} arrays changed", flush=True)
+    try:
+        model.make_train_step(model.get_optimizer(OPT), microbatch=3)(
+            batch8)
+    except ValueError as e:
+        print(f"accumulation B=8 microbatch=3: ValueError ({e})")
+    else:
+        raise AssertionError("microbatch=3 at B=8 did not raise")
+    return launches
+
+
+def write_forest_split(directory, seeds):
+    """Tree scenes written in the dataset's disk contract: box z at the
+    centre, angles in degrees."""
+    from objectdetection_3d_tpu_torch.scene import tree_scene
+
+    os.makedirs(directory)
+    for seed in seeds:
+        cloud, boxes = tree_scene(seed)
+        disk = boxes.astype(np.float32).copy()
+        disk[:, 2] += disk[:, 5] / 2
+        disk[:, 6:] = np.rad2deg(disk[:, 6:])
+        np.save(os.path.join(directory, f"scene_{seed}.npy"), cloud)
+        np.save(os.path.join(directory, f"scene_{seed}_bbx.npy"), disk)
+
+
+def pipeline_cfg(root, inference_mode, resume_from=None):
+    """The pipeline's config as a dict: the flagship model, the port's
+    default static budgets with the flagship's, one train epoch of
+    B = 2 in chunks of 1."""
+    from objectdetection_3d_tpu_torch import configs
+
+    model = configs.flagship_cfg()
+    tpu = dict(model.pop("tpu"), microbatch=1)
+    return {
+        "global_args": {"device": "cuda", "seed": 0,
+                        "output_path": os.path.join(root, "output") + "/",
+                        "box_params_num": 9, "model_dim": 3},
+        "dataset": {"name": "tree_scenes",
+                    "dataset_path": os.path.join(root, "data") + "/"},
+        "model": model,
+        "tpu": tpu,
+        "pipeline": {
+            "name": "ObjectDetection", "inference_mode": inference_mode,
+            "is_resume": False, "resume_from": resume_from,
+            "training_batch_size": 2, "validation_batch_size": 1,
+            "testing_batch_size": 1, "max_epoch": 1, "save_ckpt_freq": 1,
+            "validation_freq": 1, "grad_clip_norm": CLIP,
+            "num_workers": 0, "optimizer": dict(OPT), "overlaps": [0.1]},
+    }
+
+
+def pipeline_phase(counted):
+    """Phase 14: the pipeline at the flagship width.  Returns each counted
+    kernel's launches in ``run_training``."""
+    import shutil
+    import tempfile
+
+    from objectdetection_3d_tpu_torch.config import Config
+    from objectdetection_3d_tpu_torch.entry import build_pipeline
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.pipeline import checkpoint as ckpt_io
+    from objectdetection_3d_tpu_torch.pipeline.pipeline import (
+        read_flat_yaml,
+    )
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="pipeline_", dir=os.path.join(REPO,
+                                                                  "build"))
+    try:
+        for split, seeds in (("training", (4, 5)), ("validation", (6,)),
+                             ("testing", (7,))):
+            write_forest_split(os.path.join(root, "data", split), seeds)
+
+        # run_training from scratch, with its step and validation timed
+        pipe, _ = build_pipeline(cfg=Config(pipeline_cfg(root, False)))
+        model = pipe.model
+        step_ms, valid_s = [], []
+        make_step, run_valid = model.make_train_step, pipe.run_valid
+
+        def timed_make(tx, microbatch=None):
+            step = make_step(tx, microbatch=microbatch)
+
+            def run(batch):
+                t = time.perf_counter()
+                out = step(batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+            return run
+
+        def timed_valid():
+            t = time.perf_counter()
+            out = run_valid()
+            valid_s.append(time.perf_counter() - t)
+            return out
+
+        model.make_train_step, pipe.run_valid = timed_make, timed_valid
+        for fn in counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        record = pipe.run_training()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in counted.items()}
+        if not all(launches.values()):
+            raise AssertionError(f"run_training: a kernel did not launch: "
+                                 f"{launches}")
+        for k, vals in pipe.losses.items():
+            if not np.all(np.isfinite(vals)):
+                raise AssertionError(f"run_training: non-finite {k}")
+        log_dir = pipe.cfg.log_dir
+        files = os.listdir(log_dir)
+        missing = [f for f in ("process_config.json", "training_record.csv")
+                   if f not in files]
+        if missing or not any(f.startswith("log_train_") for f in files) \
+                or not os.path.exists(os.path.join(
+                    log_dir, "checkpoint", "ckpt_00001.pth")):
+            raise AssertionError(f"run_training artifacts: {files}, "
+                                 f"missing {missing}")
+        print(f"pipeline run_training: {train_s:.2f} s wall for "
+              f"{len(step_ms)} steps (B=2 in chunks of 1) and "
+              f"{len(valid_s)} validations; train step "
+              f"{', '.join(f'{v:.1f}' for v in step_ms)} ms; validation "
+              f"{', '.join(f'{v:.2f}' for v in valid_s)} s; record "
+              f"{record}; launches {launches}", flush=True)
+        del pipe, model
+        torch.cuda.empty_cache()
+
+        # run_testing from a ckpt_best.pth written from the npz
+        version = "2026-01-01-00-00-00"
+        tester, _ = build_pipeline(cfg=Config(pipeline_cfg(root, True,
+                                                           version)))
+        ckpt_dir = os.path.join(tester.cfg.log_dir, "checkpoint")
+        os.makedirs(ckpt_dir)
+        load_npz(tester.model.net, NPZ)
+        ckpt_io.save_ckpt(os.path.join(ckpt_dir, "ckpt_best.pth"), 0,
+                          tester.model.net)
+        t = time.perf_counter()
+        protocol = tester.run_testing()
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t
+        saved = read_flat_yaml(os.path.join(tester.cfg.log_dir, "test",
+                                            "test_protocol.yaml"))
+        if repr(saved) != repr(protocol):
+            raise AssertionError(f"test_protocol.yaml reads back {saved}, "
+                                 f"not {protocol}")
+        prf = [protocol[k] for k in ("4_precision", "5_recall", "6_f1")]
+        if not all(np.isfinite(prf)):
+            raise AssertionError(f"run_testing: {protocol}")
+        print(f"pipeline run_testing: {test_s:.2f} s wall (1 cloud); "
+              f"precision {prf[0]:.2f}, recall {prf[1]:.2f}, F1 "
+              f"{prf[2]:.2f}", flush=True)
+
+        # run_inference on the testing cloud against predict
+        split = tester.dataset.get_split("testing")
+        data = tester.model.preprocess(split.get_data(0),
+                                       split.get_attr(0))
+        dets = tester.run_inference(data, validate=True)[0]
+        batch = tester.batcher.collate([{"data": data, "attr": {}}])
+        preds = tester.model.predict(batch.arrays)
+        want = tester.model.inference_end(preds)[0]
+        if len(dets) != len(want) or not dets:
+            raise AssertionError(f"run_inference: {len(dets)} detections, "
+                                 f"predict {len(want)}")
+        err = max(float(np.abs(d["bbox"] - w["bbox"]).max())
+                  for d, w in zip(dets, want))
+        if err > 1e-5 or any(d["label"] != w["label"]
+                             for d, w in zip(dets, want)):
+            raise AssertionError(f"run_inference vs predict: boxes {err}")
+        print(f"pipeline run_inference: {len(dets)} detections == predict "
+              f"(boxes within {err:.3g})", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1391,6 +1710,16 @@ def main():
     kernels["conv2d_3x3"]["launches"] = k9["forward"] + k9["dx"]
     kernels["conv2d_3x3"]["launches_forward"] = k9["forward"]
     kernels["conv2d_3x3"]["launches_dx"] = k9["dx"]
+    torch.cuda.empty_cache()
+
+    # ---- gradient accumulation and the pipeline at the flagship width ----
+    for name, count in accumulation(scenes + [tree_scene(s) for s in
+                                              range(4, 8)],
+                                    counted).items():
+        kernels[name]["launches_accumulation"] = count
+    torch.cuda.empty_cache()
+    for name, count in pipeline_phase(counted).items():
+        kernels[name]["launches_pipeline"] = count
     if len(kernels) != 10:
         raise AssertionError(f"{len(kernels)} kernels in the line, not 10")
 

@@ -7,8 +7,9 @@ the JAX package's driver entry (``__graft_entry__._flagship_cfg``);
 package's multi-chip dry run and model tests use.  ``DEFAULT_TPU_CFG``
 holds the defaults of the ``tpu`` section that the detector reads.
 
-The ``device`` key is kept for config-file compatibility only: the port's
-entry points take an explicit ``device=`` argument instead.
+The model's ``device`` key is not read by ``PointPillars``, which takes
+an explicit ``device=`` argument; the pipeline maps the config's device
+through ``utils.convert_device_name``.
 """
 
 import copy

@@ -1,0 +1,80 @@
+"""Command-line entry of the port: train or test from a YAML config.
+
+    python -m objectdetection_3d_tpu_torch.entry train [config.yaml]
+    python -m objectdetection_3d_tpu_torch.entry test [config.yaml]
+
+The config is the JAX package's schema: ``global_args`` / ``dataset`` /
+``model`` / ``pipeline`` sections (plus the optional ``tpu`` section), and
+``pipeline.inference_mode`` must agree with the command (false to train,
+true to test).  ``global_args.device`` picks the device: ``cpu``, or any
+accelerator name for the CUDA card.  The config path defaults to
+``./config.yaml``.
+"""
+
+import argparse
+import logging
+import sys
+
+from objectdetection_3d_tpu_torch.config import Config
+from objectdetection_3d_tpu_torch.dataset import Forest3D
+from objectdetection_3d_tpu_torch.models.detector import PointPillars
+from objectdetection_3d_tpu_torch.pipeline import ObjectDetection
+from objectdetection_3d_tpu_torch.utils import convert_device_name
+
+
+def build_pipeline(config_path="./config.yaml", cfg=None):
+    """Assemble (pipeline, pipeline_cfg) from a YAML file, or from
+    ``cfg``, a ``Config`` built from a dict."""
+    if cfg is None:
+        cfg = Config.load_from_file(config_path)
+    for section in ("global_args", "dataset", "model", "pipeline"):
+        if cfg.get(section) is None:
+            raise ValueError(
+                f"config is missing its '{section}' section: all of "
+                "global_args/dataset/model/pipeline are required")
+
+    global_cfg = cfg.dump()
+    cfg_dataset, cfg_pipeline, cfg_model = Config.initialize_params(cfg)
+    dataset = Forest3D(**cfg_dataset)
+    model = PointPillars(cfg_model, device=convert_device_name(
+        cfg_model.get("device", "cuda")))
+    pipeline = ObjectDetection(model, dataset, global_cfg, **cfg_pipeline)
+    return pipeline, cfg_pipeline
+
+
+def require_mode(cfg_pipeline, inference_mode, task):
+    """Fail fast when ``pipeline.inference_mode`` contradicts the task."""
+    actual = bool(cfg_pipeline.get("inference_mode"))
+    if actual != inference_mode:
+        raise ValueError(
+            f"{task} needs pipeline.inference_mode: "
+            f"{str(inference_mode).lower()} in the config "
+            f"(found {str(actual).lower()})")
+
+
+def init_logging():
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(levelname)s - %(asctime)s - %(module)s - %(message)s")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="python -m objectdetection_3d_tpu_torch.entry",
+        description="Train or test the PyTorch port from a YAML config.")
+    parser.add_argument("task", choices=("train", "test"))
+    parser.add_argument("config", nargs="?", default="./config.yaml")
+    args = parser.parse_args(argv)
+    init_logging()
+    pipeline, cfg_pipeline = build_pipeline(args.config)
+    if args.task == "train":
+        require_mode(cfg_pipeline, False, "training")
+        pipeline.run_training()
+    else:
+        require_mode(cfg_pipeline, True, "testing")
+        pipeline.run_testing()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

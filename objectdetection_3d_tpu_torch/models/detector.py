@@ -1,14 +1,17 @@
 """PointPillars detector: voxelizer, anchors, network, losses, target
-assignment, the training step, decode and NMS.
+assignment, the training and eval steps, decode, NMS and the host-side
+preprocessing.
 
 Port of the JAX package's ``models/detector.py``: the constructor,
 ``apply`` (point path, eval and train), ``loss``, ``get_optimizer``,
-``make_train_step`` (one device, no gradient accumulation),
-``_predict_single``, ``predict`` and ``make_predict_fn``.
+``make_train_step`` (one device, with or without gradient accumulation),
+``make_eval_fn``, ``_predict_single``, ``predict``, ``make_predict_fn``,
+``inference_end``, ``preprocess`` (its numpy path) and ``transform``.
 Weights and running statistics live in the ``net`` module; load trained
-or JAX-initialised ones with ``models/weights.py``.  The training state
-is the module and its optimizer, updated in place by each step (the JAX
-package threads a ``{"params", "batch_stats", "opt_state"}`` tree).
+or JAX-initialised ones with ``models/weights.py``, or draw fresh ones
+with ``network.init_parameters``.  The training state is the
+module and its optimizer, updated in place by each step (the JAX package
+threads a ``{"params", "batch_stats", "opt_state"}`` tree).
 
 Tie order of the candidate top-k: among exactly equal logits the port
 takes the lowest anchor index first (:func:`topk_lowest_index`).  The JAX
@@ -23,6 +26,10 @@ import math
 import numpy as np
 import torch
 
+from objectdetection_3d_tpu_torch.augment import (
+    ObjdetAugmentation,
+    global_outlier_check,
+)
 from objectdetection_3d_tpu_torch.configs import DEFAULT_TPU_CFG
 from objectdetection_3d_tpu_torch.losses.losses import (
     CrossEntropyLoss,
@@ -38,6 +45,7 @@ from objectdetection_3d_tpu_torch.models.assign import (
     make_anchor_layout,
     topk_rows_lowest_index,
 )
+from objectdetection_3d_tpu_torch.models.base import BaseModel
 from objectdetection_3d_tpu_torch.models.network import PointPillarsNet
 from objectdetection_3d_tpu_torch.ops.assign_geometry import combo_table
 from objectdetection_3d_tpu_torch.ops.boxes import limit_period
@@ -87,21 +95,30 @@ class ClippedAdamW(torch.optim.AdamW):
         return super().step(closure)
 
 
-class PointPillars:
+class PointPillars(BaseModel):
     """PointPillars with 9-parameter fully rotated boxes.
 
     Args:
         cfg: the model configuration dict (``configs.flagship_cfg()`` and
-            friends; the JAX package's keyword arguments as one dict).
+            friends, or the ``model`` section of a ``Config``; the JAX
+            package's keyword arguments as one dict).  ``seed`` seeds the
+            model's host RNG (``self.rng``) and its first weights;
+            ``augment`` configures the host augmentation of
+            :meth:`preprocess`.
         device: where the model runs; CUDA unless the caller asks for the
-            CPU.  The config's own ``device`` key is not read.
+            CPU.  The config's own ``device`` key is not read (the
+            pipeline maps it through ``utils.convert_device_name``).
     """
 
     def __init__(self, cfg, device="cuda"):
         cfg = dict(cfg)
+        super().__init__(cfg)
         self.device = resolve_device(device)
         self.point_cloud_range = [float(v) for v in cfg["point_cloud_range"]]
         self.classes = list(cfg.get("classes", ()))
+        self.name2lbl = {n: i for i, n in enumerate(self.classes)}
+        self.lbl2name = {i: n for i, n in enumerate(self.classes)}
+        self.classes_ids = list(range(len(self.classes)))
         self.num_classes = len(self.classes)
         self.input_features = list(cfg.get("input_features", ())) or [0, 1,
                                                                       2, 3]
@@ -140,6 +157,8 @@ class PointPillars:
                 "use_dense_backbone is not ported yet")
         if cfg.get("device_augment"):
             raise NotImplementedError("device_augment is not ported yet")
+        self.augmentor = ObjdetAugmentation(dict(cfg.get("augment") or {}),
+                                            seed=self.rng)
         self.anchor_generator = Anchor3DRangeGenerator(
             ranges=head["ranges"], sizes=head["sizes"],
             rotations=head["rotations"], box_params_num=self.box_params_num)
@@ -364,12 +383,17 @@ class PointPillars:
             betas=(float(betas[0]), float(betas[1])), eps=1e-8,
             weight_decay=float(cfg.get("weight_decay", 1e-2)))
 
-    def make_train_step(self, tx):
+    def make_train_step(self, tx, microbatch=None):
         """The training step on one device.
 
         Args:
             tx: the optimizer over ``self.net``'s parameters
                 (:meth:`get_optimizer`).
+            microbatch: ``None``: one forward and backward over the whole
+                batch.  ``m``: gradient accumulation over ``B / m``
+                chunks of ``m`` items (``ValueError`` when ``m`` does not
+                divide ``B``), then one update; peak memory is that of
+                one chunk.
         Returns:
             step(batch) -> {name: detached scalar} of the five losses and
             ``num_pos``, the batch's positive count: forward in train
@@ -377,8 +401,11 @@ class PointPillars:
             parameters and running statistics and the optimizer's state
             change in place.  The phases are ``torch.profiler`` ranges
             (``forward``, ``assignment`` inside ``loss+backward``,
-            ``optimizer``), which ``profile_train`` reads from a trace.
+            ``optimizer``; per chunk under accumulation), which
+            ``profile_train`` reads from a trace.
         """
+        if microbatch is not None:
+            return self._accum_step(tx, int(microbatch))
         record = torch.profiler.record_function
 
         def step(batch):
@@ -396,6 +423,79 @@ class PointPillars:
             return out
 
         return step
+
+    def _accum_step(self, tx, microbatch):
+        """Gradient accumulation with the pooled normalization of the
+        whole batch (the JAX package's ``train_step_accum_fn``).
+
+        Chunk i's losses are its sums over ``max(n_i, 1)``, its positive
+        count clamped.  Its gradients, taken with respect to the same
+        parameters, are multiplied by ``max(n_i, 1)`` after its backward,
+        which recovers the gradient of the sums, and added into a float32
+        buffer per parameter; the total is divided once by
+        ``max(sum n_i, 1)``, the normalization of the whole batch, and the
+        optimizer (clip, then AdamW) steps once.  Each chunk's graph is
+        freed by its own backward.  Train-mode batch norm takes its
+        statistics per chunk and updates the running statistics chunk
+        after chunk, as training at the chunk's batch size would.
+        """
+        record = torch.profiler.record_function
+        params = [p for group in tx.param_groups for p in group["params"]]
+
+        def step(batch):
+            b = batch["points"].shape[0]
+            if b % microbatch:
+                raise ValueError(
+                    f"batch {b} not divisible by microbatch {microbatch}")
+            sums = [None] * len(params)
+            loss_sums = {}
+            n_total = torch.zeros((), device=self.device)
+            for start in range(0, b, microbatch):
+                mb = {k: v[start:start + microbatch]
+                      for k, v in batch.items()}
+                with record("forward"):
+                    outs, _ = self.apply(mb, train=True)
+                with record("loss+backward"):
+                    losses, n_i = self.loss(outs, mb, with_num_pos=True)
+                    grads = torch.autograd.grad(sum(losses.values()),
+                                                params, allow_unused=True)
+                    avg_i = torch.clamp(n_i, min=1.0)
+                    for j, g in enumerate(grads):
+                        if g is None:
+                            continue
+                        g = g.float() * avg_i
+                        sums[j] = g if sums[j] is None else sums[j] + g
+                    for k, v in losses.items():
+                        loss_sums[k] = loss_sums.get(k, 0.0) + (
+                            v.detach() * avg_i)
+                    n_total = n_total + n_i
+                    # the chunk's head outputs go before the next forward
+                    del outs, grads
+            with record("optimizer"):
+                total_pos = torch.clamp(n_total, min=1.0)
+                for p, g in zip(params, sums):
+                    p.grad = (None if g is None
+                              else (g / total_pos).to(p.dtype))
+                tx.step()
+            out = {k: v / total_pos for k, v in loss_sums.items()}
+            out["num_pos"] = n_total
+            return out
+
+        return step
+
+    def make_eval_fn(self):
+        """``run(batch) -> (losses, preds)``: one eval-mode forward without
+        autograd, the batch's losses (:meth:`loss`) and its detections
+        (as :meth:`predict` decodes them)."""
+
+        @torch.no_grad()
+        def run(batch):
+            self.net.eval()
+            outs = self._forward(batch)
+            losses = self.loss(outs, batch)
+            return losses, self._decode(outs, self.anchors)
+
+        return run
 
     # ------------------------------------------------------------------
     # inference
@@ -455,10 +555,14 @@ class PointPillars:
         """
         if anchors is None:
             anchors = self.anchors
-        cls, reg, dirs = self.apply(batch)
-        outs = [self._predict_single(cls[i], reg[i], dirs[i], anchors)
-                for i in range(cls.shape[0])]
-        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return self._decode(self.apply(batch), anchors)
+
+    def _decode(self, outs, anchors):
+        """Head outputs -> stacked per-item detections."""
+        cls, reg, dirs = outs
+        items = [self._predict_single(cls[i], reg[i], dirs[i], anchors)
+                 for i in range(cls.shape[0])]
+        return {k: torch.stack([o[k] for o in items]) for k in items[0]}
 
     def make_predict_fn(self):
         """``run(batch) -> predict(batch)`` with the model's anchors."""
@@ -467,3 +571,67 @@ class PointPillars:
             return self.predict(batch, self.anchors)
 
         return run
+
+    def inference_end(self, results):
+        """Unpad predictions into per-cloud lists of detection dicts
+        ``{"bbox": (9,), "label": int, "score": float}``."""
+        def host(x):
+            return (x.detach().cpu().numpy() if torch.is_tensor(x)
+                    else np.asarray(x))
+
+        bbox, label, score, valid = (host(results[k]) for k in
+                                     ("bbox", "label", "score", "valid"))
+        out = []
+        for i in range(bbox.shape[0]):
+            out.append([{"bbox": bbox[i, j], "label": int(label[i, j]),
+                         "score": float(score[i, j])}
+                        for j in range(bbox.shape[1]) if valid[i, j]])
+        return out
+
+    # ------------------------------------------------------------------
+    # host-side preprocessing
+    # ------------------------------------------------------------------
+    def preprocess(self, data, attr, rng=None):
+        """Per-cloud host preprocessing: 5-sigma outlier rejection, range
+        cropping of points and of box centres (xy), input-feature
+        selection, then train-time augmentation (not for the test and
+        validation splits)."""
+        rng = rng if rng is not None else self.rng
+
+        bboxes = np.array(data["bboxes"], dtype=np.float32).reshape(-1, 9)
+        min_val = np.array(self.point_cloud_range[:3])
+        max_val = np.array(self.point_cloud_range[3:])
+
+        points = self._preprocess_points(np.asarray(data["point"]))
+
+        bboxes = bboxes[np.where(
+            np.all(np.logical_and(bboxes[:, :2] >= min_val[:2],
+                                  bboxes[:, :2] < max_val[:2]), axis=-1))]
+
+        if points.shape[0] == 0:
+            print("There are no points in defined range. Range is defined "
+                  "wrongly or this particular point cloud is affected with "
+                  "outliers: {}".format(attr.get("name")))
+        data = dict(data)
+        data["point"] = points
+        data["bboxes"] = bboxes
+
+        if attr.get("split") not in ("test", "testing", "val", "validation"):
+            data = self.augmentor.augment(data, attr, seed=rng)
+
+        return {"point": data["point"], "labels": data["labels"],
+                "bboxes": data["bboxes"]}
+
+    def _preprocess_points(self, points):
+        """Outlier rejection, range crop and column selection (numpy)."""
+        filtered = global_outlier_check(np.asarray(points, np.float32))
+        min_val = np.array(self.point_cloud_range[:3])
+        max_val = np.array(self.point_cloud_range[3:])
+        filtered = filtered[np.where(
+            np.all(np.logical_and(filtered[:, :3] >= min_val,
+                                  filtered[:, :3] < max_val), axis=-1))]
+        return filtered[:, self.input_features]
+
+    def transform(self, data, attr):
+        """Identity hook after :meth:`preprocess`."""
+        return data

@@ -8,11 +8,14 @@ names follow the JAX package's flax tree (``voxel_encoder``,
 leaf to leaf (``models/weights.py``).
 """
 
+import math
+
 import torch
 from torch import nn
 
 from objectdetection_3d_tpu_torch.models.layers import (
     Anchor3DHead,
+    MaskedBatchNorm,
     PillarFeatureNet,
     SparseMiddleExtractor,
     SubmanifoldSparseRPN,
@@ -115,3 +118,46 @@ class PointPillarsNet(nn.Module):
         rpn_mask = (pseudo != 0).any(dim=1, keepdim=True)
         x = self.sparse_rpn(pseudo, rpn_mask)
         return self.bbox_head(x)
+
+
+@torch.no_grad()
+def init_parameters(net, generator):
+    """Redraw every parameter of ``net`` (a ``PointPillarsNet``) from the
+    CPU ``generator``, by the laws of the modules' constructors, and reset
+    every batch norm's running statistics.  The global torch RNG is not
+    touched.
+
+    * batch norms: weight 1, bias 0, running mean 0, running var 1;
+    * Linear / Conv2d: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and
+      bias (PyTorch's default);
+    * the vertical encoder's kernels: N(0, 1/fan_in) (LeCun normal);
+    * the head's cls and reg convs: weight N(0, 0.01^2), bias -log(99)
+      and 0.
+    """
+    def put(p, value):
+        p.copy_(value.to(device=p.device, dtype=p.dtype))
+
+    def uniform(p, bound):
+        put(p, (torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+
+    def normal(p, std):
+        put(p, torch.randn(p.shape, generator=generator) * std)
+
+    for mod in net.modules():
+        if isinstance(mod, MaskedBatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+            bound = 1.0 / math.sqrt(mod.weight[0].numel())
+            uniform(mod.weight, bound)
+            if mod.bias is not None:
+                uniform(mod.bias, bound)
+    for _, p in net.pseudoimage_generator.named_parameters(recurse=False):
+        normal(p, 1.0 / math.sqrt(p[0].numel()))
+    head = net.bbox_head
+    normal(head.conv_cls.weight, 0.01)
+    head.conv_cls.bias.fill_(-math.log((1 - 0.01) / 0.01))
+    normal(head.conv_reg.weight, 0.01)
+    head.conv_reg.bias.zero_()

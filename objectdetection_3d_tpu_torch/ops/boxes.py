@@ -3,12 +3,17 @@
 Box convention (as in the JAX package's ``ops/boxes.py``):
 ``(x, y, z, dx, dy, dz, rx, ry, rz)`` where ``z`` is the **bottom** of the
 box, rotation is ``Rz @ Ry @ Rx`` about the bottom center ``(x, y, z)``,
-and angles are radians.  Only what decode and NMS use is ported here.
+and angles are radians.  What decode, NMS and the metrics use is ported
+here, with the host-side validators that ``run_inference(validate=True)``
+and ``MetricEvaluator.evaluate(validate=True)`` run on user boxes.
 """
 
 import math
 
+import numpy as np
 import torch
+
+from objectdetection_3d_tpu_torch.augment.numpy_ops import bbox2corners3D_np
 
 # Corner layout: p0=(-,-,z) p1=(+,-,z) p2=(+,+,z) p3=(-,+,z) bottom,
 # p4..p7 the same xy at z+dz (top).
@@ -70,6 +75,15 @@ def rotated_corners_2d_envelope(boxes):
     return torch.cat([mn, mx], dim=-1)
 
 
+def corners_2d_envelope(boxes):
+    """Unrotated 2D envelope, keeping rz: (..., 5) as (xmin, ymin, xmax,
+    ymax, rz)."""
+    x, y = boxes[..., 0], boxes[..., 1]
+    hx, hy = boxes[..., 3] * 0.5, boxes[..., 4] * 0.5
+    return torch.stack([x - hx, y - hy, x + hx, y + hy, boxes[..., 8]],
+                       dim=-1)
+
+
 def iou_aabb_2d(bboxes1, bboxes2, eps=1e-6):
     """Pairwise IoU of (N, 4) and (K, 4) axis-aligned boxes given as
     (x1, y1, x2, y2); returns (N, K)."""
@@ -102,3 +116,79 @@ def box_axes(boxes):
     rot = rotation_matrices(boxes[..., 6], boxes[..., 7], boxes[..., 8])
     mid = boxes[..., :3] + rot[..., :, 2] * boxes[..., 5:6] * 0.5
     return rot, mid
+
+
+# ---------------------------------------------------------------------------
+# Host-side validators (numpy, raising)
+# ---------------------------------------------------------------------------
+# The IoU on the card is padding-safe (degenerate boxes get 0), so these
+# run only at the host boundary, on user-supplied boxes.
+
+# Quad faces of the coplanarity check, as corner indices.
+_VALIDATE_PLANES = np.array(
+    [[0, 1, 2, 3], [3, 2, 6, 7], [0, 1, 5, 4],
+     [0, 3, 7, 4], [1, 2, 6, 5], [4, 5, 6, 7]])
+
+# Triangle faces of the zero-area check.
+_VALIDATE_TRIANGLES = np.array(
+    [[0, 1, 2], [0, 3, 2], [4, 5, 6], [4, 6, 7], [1, 5, 6], [1, 6, 2],
+     [0, 4, 7], [0, 7, 3], [3, 2, 6], [3, 6, 7], [0, 1, 5], [0, 4, 5]])
+
+
+def _unit(v, eps=1e-12):
+    return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), eps)
+
+
+def check_coplanar(corners, eps=1e-4):
+    """Raise ``ValueError`` when any box's quad faces are non-planar.
+
+    Args:
+        corners: (B, 8, 3) numpy corner sets.
+    """
+    corners = np.asarray(corners, np.float64)
+    v0, v1, v2, v3 = np.moveaxis(
+        corners[:, _VALIDATE_PLANES], 2, 0)  # each (B, 6, 3)
+    normal = _unit(np.cross(_unit(v1 - v0), _unit(v2 - v0)))
+    dev = np.einsum("bpk,bpk->bp", v3 - v0, normal)
+    # NaN corners compare False -> flagged
+    coplanar = np.all(np.abs(dev) < eps, axis=1)
+    if not coplanar.all():
+        raise ValueError(
+            "Plane vertices are not coplanar. This applies for bboxes in "
+            "positions: {}".format(np.flatnonzero(~coplanar)))
+
+
+def check_nonzero(corners, eps=1e-4):
+    """Raise ``ValueError`` when any box has a (near-)zero-area face.
+
+    Args:
+        corners: (B, 8, 3) numpy corner sets.
+    """
+    corners = np.asarray(corners, np.float64)
+    v0, v1, v2 = np.moveaxis(corners[:, _VALIDATE_TRIANGLES], 2, 0)
+    areas = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1) / 2
+    nonzero = ~np.any(~(areas >= eps), axis=1)  # NaN areas -> flagged
+    if not nonzero.all():
+        raise ValueError(
+            "Planes have zero areas. This applies for bboxes in "
+            "positions: {}".format(np.flatnonzero(~nonzero)))
+
+
+def validate_boxes(boxes, eps=1e-4):
+    """Validate host-side 9-param boxes: finite values, coplanar faces and
+    nonzero face areas, raising ``ValueError`` otherwise.
+
+    Args:
+        boxes: (B, 9) numpy array (any input convertible to it).
+    """
+    boxes = np.asarray(boxes, np.float64).reshape(-1, 9)
+    if boxes.size == 0:
+        return
+    if not np.isfinite(boxes).all():
+        raise ValueError(
+            "Boxes contain non-finite values. This applies for bboxes in "
+            "positions: {}".format(
+                np.flatnonzero(~np.isfinite(boxes).all(axis=1))))
+    corners = np.stack([bbox2corners3D_np(b) for b in boxes])
+    check_coplanar(corners, eps)
+    check_nonzero(corners, eps)

@@ -34,9 +34,7 @@ each output is held against the plain version first.  Cases:
 * K5 ``intersection_volume_aligned`` on the 1.92 M flagship anchors
   against a random tree of cloud 0 (``chip_smoke.py``'s drive) and
   against jittered copies of themselves (dense), in a CUDA graph and
-  eager: this source against the other checkout's, each called through
-  its own C interface (the one-pass kernel of a checkout before the
-  separating-plane test took no scratch);
+  eager: this source against the other checkout's;
 * K6 ``iou_gathered`` and K7 ``iou_gathered_pair`` on cloud 0's
   assignment pairs (``chip_smoke.py``'s phase 7), in a CUDA graph and
   eager: this source against the other checkout's.
@@ -126,37 +124,16 @@ def through(name, lib, fn):
     return call
 
 
-def aligned_callers(parent_lib, parent_csrc):
-    """{variant: fn(b1, b2)} of K5: this wrapper, and the other checkout's
-    library through its own C interface, which is this wrapper's or the
-    one-pass kernel's (boxes1, boxes2, out, p, stream)."""
+def aligned_callers(parent_lib):
+    """{variant: fn(b1, b2)} of K5: this wrapper, and the same wrapper
+    over the other checkout's library."""
     from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
         intersection_volume_aligned,
     )
 
-    fns = {"this": intersection_volume_aligned}
-    src = (Path(parent_csrc) / "iou3d_clip.cu").read_text()
-    if "aligned_test_kernel" in src:
-        fns["parent"] = through("iou3d_clip", parent_lib,
-                                intersection_volume_aligned)
-        return fns
-    fn = parent_lib.intersection_volume_aligned
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def parent(b1, b2):
-        out = torch.empty((b1.shape[0],), dtype=torch.float32,
-                          device=b1.device)
-        err = fn(b1.data_ptr(), b2.data_ptr(), out.data_ptr(), b1.shape[0],
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"intersection_volume_aligned (parent) "
-                               f"failed: {err}")
-        return out
-
-    fns["parent"] = parent
-    return fns
+    return {"this": intersection_volume_aligned,
+            "parent": through("iou3d_clip", parent_lib,
+                              intersection_volume_aligned)}
 
 
 def voxelize_with(layer, scan, points, num_points):
@@ -381,7 +358,7 @@ def main(argv=None):
         clip_lib = cuda_lib.load("iou3d_clip")
         parent_clip = build_variant("iou3d_clip", parent, "parent")
     if "k5" in cases:
-        fns = aligned_callers(parent_clip, parent)
+        fns = aligned_callers(parent_clip)
         inputs = aligned_pair_inputs(
             model.anchors.cpu().numpy(),
             batches[0]["bboxes"][0][batches[0]["gt_mask"][0]])

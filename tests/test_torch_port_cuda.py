@@ -9,7 +9,9 @@ separating-plane test clears a pair.  K5 on random, far-apart, dense
 zero-size pairs (NaN and inf where the plain version has them), at pair
 counts on both sides of a warp and a block, back to back and replayed
 from a CUDA graph; its wrapper refuses 2^30 pairs before it allocates.
-The conv kernels K8, K9 (forward, and the
+The train step with gradient accumulation and the eval step run on the
+card at the tiny width (float32, TF32 off) against their CPU runs, with
+their kernel launches counted.  The conv kernels K8, K9 (forward, and the
 backward's dx and dw) and K10 sum in float32 in another order than their
 plain versions: in float32 within 1e-4 of the largest element (with TF32
 off), in bf16 within 1e-2 (a few bf16 roundings of the output, or of
@@ -767,3 +769,124 @@ def test_conv_wrappers_reject_bad_input(cuda):
     boxes = torch.zeros((5, 9), device=cuda)
     with pytest.raises(ValueError):            # unaligned pairs
         intersection_volume_aligned(boxes, boxes[:4])
+
+
+# ---------------------------------------------------------------------------
+# the training pipeline's steps on the card
+# ---------------------------------------------------------------------------
+_STEP_KERNELS = {"postsort_scan": postsort_scan,
+                 "scatter_to_grid": scatter_to_grid,
+                 "chunk_geometry": chunk_geometry,
+                 "containment_rescue": containment_rescue,
+                 "iou_gathered": iou_gathered,
+                 "iou_gathered_pair": iou_gathered_pair}
+
+
+def _launch_counts(fn):
+    for k in _STEP_KERNELS.values():
+        k.launches = 0
+    fn()
+    torch.cuda.synchronize()
+    return {name: k.launches for name, k in _STEP_KERNELS.items()}
+
+
+def _tiny_models(device):
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.network import init_parameters
+
+    cpu = PointPillars(configs.tiny_model_cfg(), device="cpu")
+    init_parameters(cpu.net, torch.Generator().manual_seed(3))
+    card = PointPillars(configs.tiny_model_cfg(), device=device)
+    card.net.load_state_dict(cpu.net.state_dict())
+    return cpu, card
+
+
+def _recorded_grads(model, store):
+    tx = model.get_optimizer(dict(lr=1e-3, betas=(0.95, 0.99),
+                                  weight_decay=0.01), grad_clip_value=2.0)
+    update = tx.step
+
+    def step(closure=None):
+        for name, p in model.net.named_parameters():
+            store[name] = p.grad.detach().cpu().clone()
+        return update(closure)
+
+    tx.step = step
+    return tx
+
+
+def test_accumulation_step_on_card_matches_cpu(cuda, exact_fp32):
+    """Two chunks of one at the tiny width, float32: losses 1e-4, the
+    pooled gradient rtol 1e-4 of each leaf's largest element, parameters
+    1e-4 / 1e-5 where that gradient is above its tolerance and within
+    2 lr elsewhere (AdamW's first step is lr * g / (|g| + 1e-8)), running
+    statistics 1e-4 / 1e-5; every kernel of the step launched."""
+    from tiny import tiny_batch
+
+    cpu, card = _tiny_models(cuda)
+    batch = tiny_batch(batch_size=2, seed=1)
+    g_cpu, g_card = {}, {}
+    want = cpu.make_train_step(_recorded_grads(cpu, g_cpu),
+                               microbatch=1)(batch)
+    step = card.make_train_step(_recorded_grads(card, g_card), microbatch=1)
+    out = {}
+    counts = _launch_counts(lambda: out.update(step(batch)))
+    assert all(counts.values()), counts
+    assert int(want["num_pos"]) > 0
+    assert set(out) == set(want)
+    for k in want:
+        np.testing.assert_allclose(float(out[k]), float(want[k]), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+    card_state = {k: v.cpu() for k, v in card.net.state_dict().items()}
+    for k, v in cpu.net.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(card_state[k].numpy(), v.numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=k)
+            continue
+        g = g_cpu[k].abs()
+        scale = float(g.max())
+        np.testing.assert_allclose(g_card[k].numpy(), g_cpu[k].numpy(),
+                                   rtol=1e-4, atol=1e-4 * scale, err_msg=k)
+        sure = g > 1e-4 * scale
+        diff = (card_state[k] - v).abs()
+        assert bool((diff[~sure] <= 2e-3 + 1e-5).all()), k
+        np.testing.assert_allclose(card_state[k][sure].numpy(),
+                                   v[sure].numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+
+
+def test_eval_step_launches_one_forward_and_one_assignment(cuda):
+    """The eval step's launches are those of one predict forward plus one
+    target assignment, every step kernel among them."""
+    from tiny import tiny_batch
+
+    _, card = _tiny_models(cuda)
+    batch = tiny_batch(batch_size=2, seed=2)
+    eval_fn = card.make_eval_fn()
+    eval_fn(batch)                                       # warm-up
+    counts = _launch_counts(lambda: eval_fn(batch))
+    predicted = _launch_counts(lambda: card.predict(batch))
+    assigned = _launch_counts(lambda: card.assign(batch))
+    assert counts == {k: predicted[k] + assigned[k] for k in counts}
+    assert all(counts.values()), counts
+    assert counts["postsort_scan"] == counts["scatter_to_grid"] == 1
+    losses, preds = eval_fn(batch)
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    assert preds["bbox"].device.type == "cuda"
+
+
+def test_accelerator_device_names_resolve_to_the_card(cuda):
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import (
+        PointPillars,
+        resolve_device,
+    )
+    from objectdetection_3d_tpu_torch.utils import convert_device_name
+
+    for name in ("tpu", "tpu:0", "gpu", "accelerator"):
+        assert resolve_device(convert_device_name(name)).type == "cuda"
+    model = PointPillars(configs.tiny_model_cfg(),
+                         device=convert_device_name("tpu"))
+    assert model.anchors.device.type == "cuda"
+    assert next(model.net.parameters()).device.type == "cuda"
