@@ -97,15 +97,46 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     K6, K7 launched), ``run_testing`` from a ``ckpt_best.pth`` written
     from the npz (``test_protocol.yaml`` reads back; precision, recall
     and F1 finite), ``run_inference`` on the testing cloud equal to
-    ``predict`` (boxes within 1e-5, labels exact); the wall seconds of
-    training, validation and testing, and ms per train step.
+    ``predict`` (boxes within 1e-5, labels exact), ``show_inference`` on
+    the testing split (keys ``bbox``, ``label``, ``score``; its P/R/F1
+    block printed; its PNG written where matplotlib imports, else its
+    drawing replaced on that instance and the fact printed); the wall
+    seconds of training, validation, testing and the show, and ms per
+    train step;
+15. tiled inference at the flagship width (bf16, the npz weights and its
+    ``score_thr``) over ``scene.large_tree_scene()`` (160 x 160 m,
+    1,953,668 points): 25 tiles, each tile's in-window count equal on the
+    card and in numpy; the card's crop against the host's (numpy): on
+    each under-budget tile the same rows as a multiset (rounded to
+    1e-4), on each over-budget tile exactly P rows, all from its window;
+    both crops' voxels (coords, counts) equal on under-budget tiles and
+    no voxel from a ``1e9`` sentinel row; in float32 (TF32 off) the
+    per-tile detections of both crops on the under-budget tiles equal
+    (counts and labels exact, boxes within 1e-3, with PyTorch's
+    deterministic kernels; for information, tile 3 predicted twice with
+    the default kernels) and both merged scene outputs in the scene's
+    frame (each merged box a tile's box shifted by its origin; how many
+    lie inside the scene's xy bounds is printed); in bf16 the device path (one
+    warm-up, 3 timed calls), the host path (1 call) and the device path
+    at ``batch_tiles=2`` (1 call, 13 chunks): s/scene, Mpts/s,
+    detections, the merge's candidates, kept boxes, time and peak
+    memory, and K1 and K2 exactly one launch per chunk;
+16. the reference importer: a seeded synthetic reference state dict at
+    the flagship widths (``scene.reference_state_dict``), saved in the
+    reference's ``{epoch, model_state_dict, ...}`` envelope and loaded
+    with ``load_reference_pth``; every parameter and running statistic
+    written, none left at its init value, and predict on cloud 0 finite.
 
-The last lines are the ``kernels`` JSON line (all ten kernels), the card
-line and ``{"ok": true, "device": {...}}``.
+The last lines are the ``kernels`` JSON line (all ten kernels; K1 and K2
+with ``launches_tiled`` and ``launches_tiled_batch2``), the card line and
+``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import io
 import json
 import os
+import random
 import sys
 import time
 
@@ -1254,9 +1285,384 @@ def pipeline_phase(counted):
             raise AssertionError(f"run_inference vs predict: boxes {err}")
         print(f"pipeline run_inference: {len(dets)} detections == predict "
               f"(boxes within {err:.3g})", flush=True)
+
+        # show_inference on the testing split, from the same checkpoint
+        try:
+            import matplotlib  # noqa: F401
+            drawn = True
+        except ImportError:
+            drawn = False
+            print("show_inference: no matplotlib, PNG not drawn", flush=True)
+            tester._draw = lambda data, prediction: None
+        random.seed(0)
+        shown = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(shown):
+            pred = tester.show_inference()
+        show_s = time.perf_counter() - t
+        shown = shown.getvalue()
+        print(shown, end="", flush=True)
+        if set(pred) != {"bbox", "label", "score"}:
+            raise AssertionError(f"show_inference returned {set(pred)}")
+        lines = shown.splitlines()
+        head = [i for i, line in enumerate(lines)
+                if "==== Precision ==== Recall ==== F1 ====" in line]
+        if len(head) != 1 or [line.split(":")[0] for line in
+                              lines[head[0] + 1:head[0] + 4]] != [
+                "Overall_precision", "Overall_recall", "F1"]:
+            raise AssertionError("show_inference printed no P/R/F1 block")
+        pngs = [f for f in os.listdir(tester.cfg.log_dir)
+                if f.startswith("show_inference_") and f.endswith(".png")]
+        if drawn and not pngs:
+            raise AssertionError("show_inference wrote no PNG")
+        print(f"pipeline show_inference: {show_s:.2f} s wall; "
+              f"{len(pred['bbox'])} detections; PNG "
+              f"{pngs if drawn else 'not drawn'}", flush=True)
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def in_window(scene, pcr, shift):
+    """The rows of ``scene`` inside the model window at ``shift``, in the
+    window's frame (the numpy filter of the host crop)."""
+    sel = np.all((scene[:, :3] >= pcr[:3] + shift)
+                 & (scene[:, :3] < pcr[3:] + shift), axis=1)
+    rows = scene[sel].copy()
+    rows[:, :3] -= shift
+    return rows
+
+
+def sorted_rows(a):
+    """The rows of ``a`` rounded to 1e-4, lexicographically sorted."""
+    a = np.round(a, 4)
+    return a[np.lexsort(a.T[::-1])]
+
+
+def matched_boxes(got, want):
+    """(max abs box difference, count, whether they pair) of two tiles'
+    valid detections, matched by nearest centre: they pair when the
+    counts agree and the match is one to one with equal labels."""
+    gv, wv = got["valid"][0], want["valid"][0]
+    gb, wb = got["bbox"][0][gv].double(), want["bbox"][0][wv].double()
+    if len(gb) != len(wb):
+        return float("nan"), len(gb), False
+    if not len(gb):
+        return 0.0, 0, True
+    j = torch.cdist(gb[:, :3], wb[:, :3]).argmin(dim=1)
+    pair = len(set(j.tolist())) == len(j) and torch.equal(
+        got["label"][0][gv], want["label"][0][wv][j])
+    return float((gb - wb[j]).abs().max()), len(gb), pair
+
+
+def tiled_phase():
+    """Phase 15: tiled inference over the plot-scale scene.  Returns K1's
+    and K2's launches per ``TiledInference`` call at ``batch_tiles`` 1
+    and 2."""
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.ops.grid_scatter import (
+        scatter_to_grid,
+    )
+    from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
+    from objectdetection_3d_tpu_torch.pipeline.tiled_inference import (
+        SENTINEL,
+        TiledInference,
+    )
+    from objectdetection_3d_tpu_torch.scene import card_line, large_tree_scene
+
+    counted = {"postsort_scan": postsort_scan,
+               "scatter_to_grid": scatter_to_grid}
+    with np.load(NPZ) as z:
+        score_thr = float(z["score_thr"])
+
+    def trained(cfg):
+        model = PointPillars(cfg, device="cuda")
+        load_npz(model.net, NPZ)
+        model.head_cfg["score_thr"] = score_thr
+        return model
+
+    scene = large_tree_scene()
+    n_scene = len(scene)
+    model = trained(configs.flagship_cfg())
+    ti = TiledInference(model, overlap=5.0, batch_tiles=1)
+    p = ti.max_pts
+    pcr = np.asarray(model.point_cloud_range)
+    lo, hi = scene[:, :3].min(axis=0), scene[:, :3].max(axis=0)
+    tiles = [(x0, y0)
+             for x0 in ti._tile_origins(lo[0], hi[0], ti.tile_x, 5.0)
+             for y0 in ti._tile_origins(lo[1], hi[1], ti.tile_y, 5.0)]
+    shifts = np.asarray([[x0, y0, lo[2]] for x0, y0 in tiles], np.float32)
+    if len(tiles) != 25:
+        raise AssertionError(f"{len(tiles)} tiles, not 25")
+
+    # ---- tiles: in-window counts, numpy and the card -----------------
+    want = [in_window(scene, pcr, sh) for sh in shifts]
+    counts = [len(w) for w in want]
+    scene_d = torch.as_tensor(scene, device="cuda")
+    pcr_d = torch.as_tensor(pcr, device="cuda", dtype=torch.float32)
+    card = [int(((scene_d[:, :3] >= pcr_d[:3] + sh)
+                 & (scene_d[:, :3] < pcr_d[3:] + sh)).all(dim=1).sum())
+            for sh in torch.as_tensor(shifts, device="cuda")]
+    if card != counts:
+        raise AssertionError(f"in-window counts: card {card}, numpy "
+                             f"{counts}")
+    over = [t for t, c in enumerate(counts) if c > p]
+    print(f"tiled scene: {n_scene} points, {len(tiles)} tiles (5 x 5 at "
+          f"5 m overlap); in-window per tile {counts} against P = {p} "
+          f"(card == numpy); over the budget: tiles {over}", flush=True)
+    if not over:
+        raise AssertionError("no tile exceeds the point budget")
+
+    # ---- crop: the card's against the host's --------------------------
+    lo0 = float(lo[0])
+    t0 = time.perf_counter()
+    ss, key = ti._sort_scene_cols(scene_d, lo0)
+    dev = ti._crop_cols(ss, key, torch.as_tensor(shifts, device="cuda"),
+                        lo0, ti._compaction_draws(scene_d.device))
+    torch.cuda.synchronize()
+    crop_ms = (time.perf_counter() - t0) * 1e3
+    del ss, key
+    dev_np = dev.cpu().numpy()
+    sorted_pts, starts, grid = ti._bucket_sort(scene, lo)
+    host_buf = np.zeros((len(tiles), p, scene.shape[1]), np.float32)
+    host_n = np.zeros((len(tiles),), np.int32)
+    for t, (x0, y0) in enumerate(tiles):
+        local = ti._crop_tile(sorted_pts, starts, grid, lo, pcr, x0, y0)
+        host_buf[t, :len(local)] = local
+        host_n[t] = len(local)
+    pcr32 = pcr.astype(np.float32)
+    n_sent = []
+    for t in range(len(tiles)):
+        rows = dev_np[t]
+        inr = np.all((rows[:, :3] >= pcr32[:3]) & (rows[:, :3] < pcr32[3:]),
+                     axis=1)
+        n_sent.append(int((rows == SENTINEL).all(axis=1).sum()))
+        if t in over:
+            got = {tuple(r) for r in np.round(rows, 4)}
+            if not (int(inr.sum()) == p == len(got) == host_n[t]
+                    and got <= {tuple(r) for r in np.round(want[t], 4)}):
+                raise AssertionError(f"tile {t}: the over-budget crop is "
+                                     f"not {p} rows of its window")
+        elif not (np.array_equal(sorted_rows(rows[inr]),
+                                 sorted_rows(host_buf[t, :host_n[t]]))
+                  and host_n[t] == counts[t]):
+            raise AssertionError(f"tile {t}: the card's crop differs from "
+                                 f"the host's")
+    print(f"crop: the card's sort + 25 crops {crop_ms:.1f} ms (first "
+          f"call); under-budget tiles == the host crop as multisets "
+          f"(1e-4); the over-budget tile {p} rows of its window; sentinel "
+          f"rows per tile {n_sent}", flush=True)
+
+    # ---- voxelizer on both crops ---------------------------------------
+    vl = model.voxel_layer
+    full = torch.full((len(tiles),), p, dtype=torch.int32, device="cuda")
+    vd = vl.points_batch(dev, full)
+    vh = vl.points_batch(torch.as_tensor(host_buf, device="cuda"),
+                         torch.as_tensor(host_n, device="cuda"))
+    for t in range(len(tiles)):
+        if t in over:
+            continue
+        for k in ("coords", "num_points_per_voxel", "num_voxels"):
+            if not torch.equal(vd[k][t], vh[k][t]):
+                raise AssertionError(f"tile {t}: voxel {k} differ between "
+                                     f"the crops")
+    sent = (vd["points"] == SENTINEL).all(dim=-1)
+    if int(sent.sum()) != sum(n_sent) or bool(vd["pt_valid"][sent].any()):
+        raise AssertionError("a sentinel row reached a voxel")
+    print(f"voxelizer: under-budget tiles' voxels (coords, counts) equal "
+          f"between the crops; {sum(n_sent)} sentinel rows add no voxel; "
+          f"voxels per tile {vd['num_voxels'].tolist()}", flush=True)
+    del vd, vh
+
+    # ---- float32 detections: the card's crop against the host's --------
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32 = trained(configs.flagship_cfg({"compute_dtype": "float32"}))
+    worst, n_det = 0.0, 0
+    # the PFN's scatter-add atomics make float32 predict differ from run
+    # to run (information: tile 3's device crop predicted twice); the
+    # deterministic kernels compare the crops, not the atomics' order
+    twice = [model32.predict({"points": dev[3:4], "num_points": full[:1]})
+             for _ in range(2)]
+    noise = matched_boxes(*twice)
+    dims = twice[0]["bbox"][0][twice[0]["valid"][0]][:, 3:6]
+    largest = float(dims.max()) if dims.numel() else 0.0
+    print(f"float32 run to run (default kernels), tile 3 twice: boxes "
+          f"differ by {noise[0]:.3g} over {noise[1]} detections (paired "
+          f"{noise[2]}; the largest box dimension {largest:.1f} m)",
+          flush=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for t in range(len(tiles)):
+            if t in over:
+                continue
+            err, n, pair = matched_boxes(
+                model32.predict({"points": dev[t:t + 1],
+                                 "num_points": full[:1]}),
+                model32.predict({"points": host_buf[t:t + 1],
+                                 "num_points": host_n[t:t + 1]}))
+            if not (pair and err <= 1e-3):
+                raise AssertionError(f"tile {t}: float32 detections of the "
+                                     f"crops differ (paired {pair}, boxes "
+                                     f"{err})")
+            worst, n_det = max(worst, err), n_det + n
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # the merged output is in the scene's frame: each merged box is one of
+    # its tile's boxes shifted by the tile's origin.  (The npz weights
+    # regress some centres out of their own window, so "inside the
+    # scene's bounds" is counted, not required.)
+    merged = {}
+    for device_crop in (True, False):
+        local = []
+        own = model32.make_predict_fn()
+
+        def recording(batch, own=own, local=local):
+            out = own(batch)
+            local.append({k: v.cpu() for k, v in out.items()})
+            return out
+
+        dets = TiledInference(model32, overlap=5.0, predict_fn=recording,
+                              device_crop=device_crop)(scene)
+        shifted = set()
+        for (x0, y0), out in zip(tiles, local):
+            b = out["bbox"][0][out["valid"][0]].numpy().copy()
+            b[:, 0] += x0
+            b[:, 1] += y0
+            b[:, 2] += lo[2]
+            shifted.update(map(tuple, b))
+        if not dets or any(tuple(d["bbox"]) not in shifted for d in dets):
+            raise AssertionError(f"float32 merged detections (device_crop "
+                                 f"{device_crop}) are not tile detections "
+                                 f"in the scene's frame")
+        xy = np.stack([d["bbox"][:2] for d in dets])
+        inside = np.all((xy >= lo[:2]) & (xy <= hi[:2]), axis=1)
+        merged[device_crop] = (len(dets), int(inside.sum()))
+    print(f"float32 (TF32 off, deterministic kernels): {n_det} "
+          f"detections on the "
+          f"{len(tiles) - len(over)} under-budget tiles, card crop == "
+          f"host crop (counts and labels exact, boxes within {worst:.3g}); "
+          f"merged scene detections (in the scene's frame, of them inside "
+          f"its xy bounds): device crop {merged[True]}, host crop "
+          f"{merged[False]}", flush=True)
+    del model32, dev, host_buf
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = tf32
+    torch.cuda.empty_cache()
+
+    # ---- bf16: timing, merge, launch counts ---------------------------
+    def instrument(tiled):
+        """Record each merge's candidates, kept boxes, wall time and
+        peak memory on the instance."""
+        log = []
+        merge_host = tiled._merge_host
+
+        def run(boxes, scores, labels):
+            torch.cuda.synchronize()
+            before = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = merge_host(boxes, scores, labels)
+            torch.cuda.synchronize()
+            log.append({"candidates": sum(len(b) for b in boxes),
+                        "kept": len(out),
+                        "ms": (time.perf_counter() - t) * 1e3,
+                        "peak_gib": torch.cuda.max_memory_allocated()
+                        / 2 ** 30, "before_gib": before / 2 ** 30})
+            return out
+        tiled._merge_host = run
+        return log
+
+    def timed(tiled, reps):
+        log = instrument(tiled)
+        walls, launches = [], []
+        for _ in range(reps):
+            for fn in counted.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            dets = tiled(scene)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            launches.append({k: fn.launches for k, fn in counted.items()})
+        peak = max(max(e["peak_gib"], e["before_gib"]) for e in log)
+        return walls, launches, dets, log, peak
+
+    ti(scene)                               # warm-up
+    torch.cuda.synchronize()
+    runs = {"device crop, batch_tiles=1": (ti, 3),
+            "host crop, batch_tiles=1": (TiledInference(
+                model, overlap=5.0, device_crop=False), 1),
+            "device crop, batch_tiles=2": (TiledInference(
+                model, overlap=5.0, batch_tiles=2), 1)}
+    result = {}
+    for label, (tiled, reps) in runs.items():
+        walls, launches, dets, log, peak = timed(tiled, reps)
+        chunks = -(-len(tiles) // tiled.batch_tiles)
+        for count in launches:
+            if count != {k: chunks for k in counted}:
+                raise AssertionError(f"{label}: launches {count}, not "
+                                     f"{chunks} per kernel")
+        if not dets:
+            raise AssertionError(f"{label}: no detection")
+        m = log[-1]
+        print(f"tiled {label}: " + ", ".join(
+            f"{w:.3f}" for w in walls) + f" s/scene ("
+            f"{n_scene / np.median(walls) / 1e6:.2f} Mpts/s at the median), "
+            f"{len(dets)} detections; merge {m['candidates']} candidates "
+            f"-> {m['kept']} kept in {m['ms']:.1f} ms (peak "
+            f"{m['peak_gib']:.2f} GiB in the merge); call peak {peak:.2f} "
+            f"GiB; K1/K2 launches per call {launches[0]} ({chunks} chunks)",
+            flush=True)
+        result[tiled.batch_tiles] = launches[0]
+    print(f"tiled card: {card_line()}", flush=True)
+    return result
+
+
+def importer_phase(batch):
+    """Phase 16: a seeded synthetic reference state dict at the flagship
+    widths, saved in the reference's checkpoint envelope and loaded with
+    ``load_reference_pth`` into a card model; every array written, and
+    one predict finite."""
+    import tempfile
+
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.torch_import import (
+        load_reference_pth,
+    )
+    from objectdetection_3d_tpu_torch.scene import reference_state_dict
+
+    model = PointPillars(configs.flagship_cfg(), device="cuda")
+    before = {k: v.clone() for k, v in model.net.state_dict().items()}
+    sd = reference_state_dict(model.net, seed=0)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO,
+                                                      "build")) as root:
+        path = os.path.join(root, "reference.pth")
+        torch.save({"epoch": 0, "model_state_dict": {
+            k: torch.from_numpy(v) for k, v in sd.items()},
+            "optimizer_state_dict": {}}, path)
+        t = time.perf_counter()
+        load_reference_pth(model.net, path)
+        load_s = time.perf_counter() - t
+    after = model.net.state_dict()
+    same = [k for k in before if torch.equal(before[k], after[k])]
+    if set(after) != set(before) or same:
+        raise AssertionError(f"the import left {same} at their init values")
+    out = model.predict(batch)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(out[k]).all()) for k in ("bbox",
+                                                            "score")):
+        raise AssertionError("predict after the import is not finite")
+    print(f"importer: {len(sd)} reference arrays -> all {len(after)} "
+          f"parameters and running statistics of the flagship net written "
+          f"({load_s:.2f} s from a .pth envelope); predict on cloud 0 "
+          f"finite, {int(out['valid'].sum())} valid detections", flush=True)
 
 
 def main():
@@ -1720,6 +2126,15 @@ def main():
     torch.cuda.empty_cache()
     for name, count in pipeline_phase(counted).items():
         kernels[name]["launches_pipeline"] = count
+    torch.cuda.empty_cache()
+
+    # ---- tiled inference over the plot-scale scene; the importer -------
+    tiled = tiled_phase()
+    for name in ("postsort_scan", "scatter_to_grid"):
+        kernels[name]["launches_tiled"] = tiled[1][name]
+        kernels[name]["launches_tiled_batch2"] = tiled[2][name]
+    torch.cuda.empty_cache()
+    importer_phase(batches[0])
     if len(kernels) != 10:
         raise AssertionError(f"{len(kernels)} kernels in the line, not 10")
 

@@ -1,13 +1,15 @@
-"""Command-line entry of the port: train or test from a YAML config.
+"""Command-line entry of the port: train, test or show one test cloud
+from a YAML config.
 
     python -m objectdetection_3d_tpu_torch.entry train [config.yaml]
     python -m objectdetection_3d_tpu_torch.entry test [config.yaml]
+    python -m objectdetection_3d_tpu_torch.entry show [config.yaml]
 
 The config is the JAX package's schema: ``global_args`` / ``dataset`` /
 ``model`` / ``pipeline`` sections (plus the optional ``tpu`` section), and
 ``pipeline.inference_mode`` must agree with the command (false to train,
-true to test).  ``global_args.device`` picks the device: ``cpu``, or any
-accelerator name for the CUDA card.  The config path defaults to
+true to test or show).  ``global_args.device`` picks the device: ``cpu``,
+or any accelerator name for the CUDA card.  The config path defaults to
 ``./config.yaml``.
 """
 
@@ -61,8 +63,9 @@ def init_logging():
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m objectdetection_3d_tpu_torch.entry",
-        description="Train or test the PyTorch port from a YAML config.")
-    parser.add_argument("task", choices=("train", "test"))
+        description="Train, test or show the PyTorch port from a YAML "
+                    "config.")
+    parser.add_argument("task", choices=("train", "test", "show"))
     parser.add_argument("config", nargs="?", default="./config.yaml")
     args = parser.parse_args(argv)
     init_logging()
@@ -70,9 +73,12 @@ def main(argv=None):
     if args.task == "train":
         require_mode(cfg_pipeline, False, "training")
         pipeline.run_training()
-    else:
+    elif args.task == "test":
         require_mode(cfg_pipeline, True, "testing")
         pipeline.run_testing()
+    else:
+        require_mode(cfg_pipeline, True, "show_inference")
+        pipeline.show_inference()
     return 0
 
 

@@ -10,9 +10,10 @@ model's train step (with gradient accumulation under ``tpu.microbatch``),
 eval step and predict on the pipeline's device.
 
 The state is the model's net and its optimizer.  One device only:
-``data_parallel`` or ``spatial_parallel`` above 1 raises (ROADMAP A11),
-and so does ``show_inference`` (not ported yet).  Needs neither pandas nor
-PyYAML: the record is written with ``csv``, the test protocol by hand.
+``data_parallel`` or ``spatial_parallel`` above 1 raises (ROADMAP A11).
+``show_inference`` draws with open3d where it imports, else writes a
+matplotlib PNG.  Needs neither pandas nor PyYAML: the record is written
+with ``csv``, the test protocol by hand.
 """
 
 import csv
@@ -20,6 +21,7 @@ import json
 import logging
 import math
 import os
+import random
 import re
 import signal
 from datetime import datetime
@@ -34,6 +36,10 @@ except ImportError:  # pragma: no cover
     def tqdm(x, **kwargs):
         return x
 
+from objectdetection_3d_tpu_torch.augment.numpy_ops import (
+    bbox2corners3D_np,
+    rotation_matrix_zyx,
+)
 from objectdetection_3d_tpu_torch.dataset.loader import (
     DataLoader,
     PreprocessedDataset,
@@ -292,8 +298,124 @@ class ObjectDetection(BasePipeline):
         return self.model.inference_end(preds)
 
     def show_inference(self):
-        raise NotImplementedError(
-            "show_inference (the matplotlib/open3d view) is not ported yet")
+        """Metric and visual check of one random test cloud from this
+        run's checkpoint (reference pipeline/pipeline.py:160-229): prints
+        its precision, recall and F1, draws it, and returns its
+        detections ``{"bbox", "label", "score"}`` (numpy)."""
+        test_dataset = self.dataset.get_split("test")
+        test_split = PreprocessedDataset(dataset=test_dataset,
+                                         preprocess=self.model.preprocess,
+                                         transform=self.model.transform)
+        idx = random.sample(range(0, len(test_dataset)), 1)
+        print(idx)
+        data_item = test_split[idx[0]]
+        print(test_dataset.get_attr(idx[0]))
+
+        self.load_ckpt()
+        batch = self.batcher.collate([data_item])
+        preds = self.model.predict(self._device_arrays(batch))
+        preds = {k: v.cpu().numpy() for k, v in preds.items()}
+
+        data = data_item["data"]
+        target = [self._target_for_metric(data["bboxes"], data["labels"])]
+        prediction = [self._pred_for_metric(preds, 0)]
+
+        precision, recall = self.ME.evaluate(
+            prediction, target, self.model.classes_ids,
+            self.cfg.get("overlaps", [0.1]))
+
+        print("")
+        print(f' {" ": <9} "==== Precision ==== Recall ==== F1 ====" ')
+        precision = np.mean(precision[:, -1])
+        recall = np.mean(recall[:, -1])
+        f1 = 2 * precision * recall / (precision + recall)
+        print("Overall_precision: {:.2f}".format(precision))
+        print("Overall_recall: {:.2f}".format(recall))
+        print("F1: {:.2f}".format(f1))
+
+        self._draw(data, prediction[0])
+        return prediction[0]
+
+    def _draw(self, data, prediction):
+        """Open3D viewer with red predictions / green GT, if available;
+        headless matplotlib PNG in the run directory otherwise."""
+        try:
+            import open3d as o3d
+        except ImportError:
+            log.info("open3d not available; rendering matplotlib PNG")
+            self._draw_matplotlib(data, prediction)
+            return
+
+        geometries = []
+        pcd = o3d.geometry.PointCloud()
+        pcd.points = o3d.utility.Vector3dVector(data["point"][:, :3])
+        geometries.append(pcd)
+
+        for box in prediction["bbox"]:
+            roll, pitch, yaw = rotation_matrix_zyx(*box[6:9])
+            o3box = o3d.geometry.OrientedBoundingBox(
+                box[:3], yaw @ pitch @ roll, box[3:6])
+            o3box.color = (1, 0, 0)
+            geometries.append(o3box)
+
+        for box in np.array(data["bboxes"]):
+            box = box.copy()
+            box[2] = box[2] + box[5] / 2
+            roll, pitch, yaw = rotation_matrix_zyx(*box[6:9])
+            o3box = o3d.geometry.OrientedBoundingBox(
+                box[:3], yaw @ pitch @ roll, box[3:6])
+            o3box.color = (0, 1, 0)
+            geometries.append(o3box)
+
+        o3d.visualization.draw_geometries(geometries)
+
+    def _draw_matplotlib(self, data, prediction, max_points=60_000):
+        """Headless stand-in for the reference's open3d viewer: the cloud
+        with red predicted and green GT wireframes, saved as
+        ``show_inference_<time>.png`` in the run's log directory."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        pts = np.asarray(data["point"])[:, :3]
+        if len(pts) > max_points:
+            sel = np.random.default_rng(0).choice(len(pts), max_points,
+                                                  replace=False)
+            pts = pts[sel]
+
+        fig = plt.figure(figsize=(10, 10))
+        ax = fig.add_subplot(projection="3d")
+        ax.scatter(pts[:, 0], pts[:, 1], pts[:, 2], s=0.3, c=pts[:, 2],
+                   cmap="viridis", alpha=0.5, linewidths=0)
+
+        # bottom ring, top ring, verticals of the 8-corner ordering
+        edges = [(0, 1), (1, 2), (2, 3), (3, 0),
+                 (4, 5), (5, 6), (6, 7), (7, 4),
+                 (0, 4), (1, 5), (2, 6), (3, 7)]
+
+        def wires(box, color):
+            c = bbox2corners3D_np(np.asarray(box, np.float64))
+            for a, b in edges:
+                ax.plot(*zip(c[a], c[b]), color=color, linewidth=1.2)
+
+        for box in np.asarray(prediction["bbox"]):
+            box = np.array(box, np.float64).copy()
+            box[2] -= box[5] / 2  # decode emits z at the centre
+            wires(box, "red")
+        for box in np.asarray(data["bboxes"]):
+            wires(box, "green")  # GT z is at the bottom already
+
+        ax.set_xlabel("x [m]")
+        ax.set_ylabel("y [m]")
+        ax.set_zlabel("z [m]")
+        ax.set_title("red = predicted, green = ground truth")
+        out = join(self.cfg.log_dir,
+                   "show_inference_{}.png".format(
+                       datetime.now().strftime("%Y-%m-%d_%H:%M:%S")))
+        fig.savefig(out, dpi=130, bbox_inches="tight")
+        plt.close(fig)
+        log.info("visualization written to %s", out)
+        print(f"visualization written to {out}")
 
     # ------------------------------------------------------------------
     # evaluation loops

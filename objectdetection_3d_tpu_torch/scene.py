@@ -4,7 +4,8 @@ name and power limit.
 ``chip_smoke.py``, ``profile_predict`` and ``profile_train`` build their
 clouds and ground-truth boxes here, so all three run the same inputs;
 ``chip_smoke.py`` and ``variant_times`` build the aligned clipper's box
-pairs here too.
+pairs here too, and ``chip_smoke.py`` its plot-scale scene and its
+synthetic reference state dict.
 """
 
 import subprocess
@@ -58,6 +59,38 @@ def tree_scene(seed, extent=40.0, n_trees=12, n_points=N_POINTS):
             np.asarray(boxes, np.float32))
 
 
+def large_tree_scene(extent=160.0, n_trees=80, n_noise=1_700_000, seed=0):
+    """A plot larger than the model's window: ``n_trees`` trunk columns
+    over ``n_noise`` clutter points on an ``extent`` x ``extent`` m square,
+    (N, 4) float32 (x, y, z, reflectance), trunks first.
+
+    The same array, bit for bit, as the JAX package's benchmark scene
+    (``bench.py::_tree_scene``); the defaults are its 160 x 160 m,
+    1,953,668-point scene, 25 tiles of the flagship's 40 x 40 m window at
+    5 m overlap.
+    """
+    rng = np.random.default_rng(seed)
+    pts = []
+    for _ in range(n_trees):
+        cx, cy = rng.uniform(2.0, extent - 2.0, 2)
+        z0 = rng.uniform(0.2, 1.0)
+        height = rng.uniform(10.0, 14.0)
+        radius = rng.uniform(0.25, 0.45)
+        k = int(rng.integers(2500, 4000))
+        ang = rng.uniform(0, 2 * np.pi, k)
+        rad = radius * np.sqrt(rng.uniform(0, 1, k))
+        z = z0 + height * rng.uniform(0, 1, k) ** 0.7
+        trunk = np.stack([cx + rad * np.cos(ang),
+                          cy + rad * np.sin(ang), z], -1)
+        refl = rng.uniform(0.3, 1.0, (k, 1))
+        pts.append(np.concatenate([trunk, refl], -1))
+    noise = np.concatenate(
+        [rng.uniform([0, 0, 0], [extent, extent, 25], (n_noise, 3)),
+         rng.uniform(0, 0.3, (n_noise, 1))], -1)
+    pts.append(noise)
+    return np.concatenate(pts).astype(np.float32)
+
+
 def make_batch(scene, max_points, max_gt=MAX_GT):
     """A B=1 batch: the padded cloud and its boxes padded to ``max_gt``
     under ``gt_mask``."""
@@ -103,3 +136,60 @@ def aligned_pair_inputs(anchors, gt_boxes):
                                              len(anchors))
     return {"drive": (gt_boxes[ridx], anchors),
             "dense": (anchors, jittered(anchors, np.random.default_rng(1)))}
+
+
+def reference_state_dict(net, seed=0):
+    """A synthetic state dict of the reference detector, in its own names
+    and layouts (spconv KRSC convs, three direction convs), at the widths
+    of the port's ``PointPillarsNet`` ``net``: what
+    ``models/torch_import.load_reference_pth`` reads.  Weights are drawn
+    from ``default_rng(seed)`` at a 1 / fan-in variance; batch norms get
+    random affines and running statistics.
+    """
+    rng = np.random.default_rng(seed)
+    shape = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+    sd = {}
+
+    def conv(name, dims, fan_in):
+        sd[name] = rng.normal(0, np.sqrt(1.0 / fan_in),
+                              dims).astype(np.float32)
+
+    def bn(prefix, c):
+        sd[prefix + ".weight"] = rng.uniform(0.5, 1.5, c)
+        sd[prefix + ".bias"] = rng.normal(0, 0.1, c)
+        sd[prefix + ".running_mean"] = rng.normal(0, 0.3, c)
+        sd[prefix + ".running_var"] = rng.uniform(0.5, 2.0, c)
+
+    i = 0
+    while f"voxel_encoder.pfn_{i}.linear.weight" in shape:
+        out, cin = shape[f"voxel_encoder.pfn_{i}.linear.weight"]
+        conv(f"voxel_encoder.pfn_layers.{i}.linear.weight", (out, cin), cin)
+        bn(f"voxel_encoder.pfn_layers.{i}.norm", out)
+        i += 1
+    i = 0
+    mid = "pseudoimage_generator.middle_conv"
+    while f"pseudoimage_generator.subm_{i}_kernel" in shape:
+        out, cin = shape[f"pseudoimage_generator.subm_{i}_kernel"][:2]
+        conv(f"{mid}.{6 * i}.weight", (out, 3, 3, 3, cin), 27 * cin)
+        bn(f"{mid}.{6 * i + 1}", out)
+        out, cin = shape[f"pseudoimage_generator.down_{i}_kernel"][:2]
+        conv(f"{mid}.{6 * i + 3}.weight", (out, 3, 1, 1, cin), 3 * cin)
+        bn(f"{mid}.{6 * i + 4}", out)
+        i += 1
+    k = 0
+    while f"sparse_rpn.conv_{k}.weight" in shape:
+        out, cin = shape[f"sparse_rpn.conv_{k}.weight"][:2]
+        conv(f"sparse_rpn.blocks.{3 * k}.weight", (out, 3, 3, cin), 9 * cin)
+        bn(f"sparse_rpn.blocks.{3 * k + 1}", out)
+        k += 1
+    for name in ("conv_cls", "conv_reg"):
+        out, cin = shape[f"bbox_head.{name}.weight"][:2]
+        conv(f"bbox_head.{name}.weight", (out, cin, 1, 1), cin)
+        sd[f"bbox_head.{name}.bias"] = rng.normal(0, 0.1, out)
+    out, cin = shape["bbox_head.conv_dir.weight"][:2]
+    for ax in "xyz":
+        conv(f"bbox_head.conv_dir_cls_{ax}.weight", (out // 3, cin, 1, 1),
+             cin)
+        sd[f"bbox_head.conv_dir_cls_{ax}.bias"] = rng.normal(0, 0.1,
+                                                             out // 3)
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}

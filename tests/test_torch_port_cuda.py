@@ -890,3 +890,71 @@ def test_accelerator_device_names_resolve_to_the_card(cuda):
                          device=convert_device_name("tpu"))
     assert model.anchors.device.type == "cuda"
     assert next(model.net.parameters()).device.type == "cuda"
+
+
+def test_tiled_inference_on_card(cuda, exact_fp32):
+    """Tiled inference at the tiny width on the card: the device crop
+    delivers each tile's numpy in-window set (as a multiset), K1 and K2
+    launch once per chunk, and, with weights trained on the card until
+    they detect, the detections on a scene of two copies of the training
+    cloud equal the CPU's host-crop run (a nonzero count and the labels
+    exact, boxes within 1e-3)."""
+    from tiny import tiny_batch
+
+    from objectdetection_3d_tpu_torch.pipeline.tiled_inference import (
+        TiledInference,
+    )
+
+    cpu, card = _tiny_models(cuda)
+    batch = tiny_batch(batch_size=2, seed=7)
+    step = card.make_train_step(card.get_optimizer(
+        dict(lr=1e-2, betas=[0.95, 0.99], weight_decay=0.01),
+        grad_clip_value=2.0))
+    for _ in range(60):
+        step(batch)
+    cpu.net.load_state_dict(card.net.state_dict())
+    rng = np.random.default_rng(3)
+    scene = np.concatenate([rng.uniform([0, 0, 0], [20, 14, 3], (1800, 3)),
+                            rng.uniform(0, 1, (1800, 1))],
+                           axis=1).astype(np.float32)
+    recorded = []
+    predict = card.make_predict_fn()
+
+    def recording(batch):
+        recorded.append(batch["points"].cpu().numpy())
+        return predict(batch)
+
+    ti = TiledInference(card, overlap=2.0, batch_tiles=2,
+                        predict_fn=recording, max_merge_boxes=64)
+    counts = _launch_counts(lambda: ti(scene))
+    lo = scene[:, :3].min(0)
+    tiles = [(x0, y0)
+             for x0 in ti._tile_origins(lo[0], scene[:, 0].max(), 8.0, 2.0)
+             for y0 in ti._tile_origins(lo[1], scene[:, 1].max(), 8.0, 2.0)]
+    assert counts["postsort_scan"] == counts["scatter_to_grid"] == len(
+        recorded) == -(-len(tiles) // 2)
+    pcr = np.asarray(card.point_cloud_range, np.float32)
+    pts = np.concatenate(recorded)
+    for t, (x0, y0) in enumerate(tiles):
+        shift = np.array([x0, y0, lo[2]], np.float32)
+        inw = np.all((pts[t, :, :3] >= pcr[:3]) & (pts[t, :, :3] < pcr[3:]),
+                     axis=1)
+        sel = np.all((scene[:, :3] >= pcr[:3] + shift)
+                     & (scene[:, :3] < pcr[3:] + shift), axis=1)
+        want = scene[sel].copy()
+        want[:, :3] -= shift
+        assert sorted(map(tuple, np.round(pts[t, inw], 4))) == sorted(
+            map(tuple, np.round(want, 4)))
+    cloud = batch["points"][0][: int(batch["num_points"][0])]
+    shifted = cloud.copy()
+    shifted[:, 0] += 8.0
+    scene = (np.concatenate([cloud, shifted])
+             + np.float32([30.0, 10.0, 5.0, 0.0])).astype(np.float32)
+    got = TiledInference(card, overlap=2.0, max_merge_boxes=64)(scene)
+    want = TiledInference(cpu, overlap=2.0, max_merge_boxes=64,
+                          device_crop=False)(scene)
+    assert len(got) == len(want) > 0
+    key = lambda d: (d["label"], round(float(d["bbox"][0]), 2))  # noqa: E731
+    for a, b in zip(sorted(got, key=key), sorted(want, key=key)):
+        assert a["label"] == b["label"]
+        np.testing.assert_allclose(a["bbox"], b["bbox"], atol=1e-3)

@@ -16,14 +16,20 @@ synthetic forest workspace and config of ``tests/test_pipeline.py``
 * ``.pth`` checkpoints: round trip of the net and the optimizer, the
   host snapshot, the async writer's error propagation, the atomic write;
   ``ckpt_backend: orbax`` raises.
+* ``show_inference`` from the same weights in both packages: with
+  Python's ``random`` seeded alike, the same P/R/F1 block, detections
+  equal to ``run_inference`` on the same item, a PNG in the run
+  directory; ``entry show`` refuses ``inference_mode: false``.
 * ``MetricEvaluator`` against the JAX package's on the cases of
   ``tests/test_metrics.py``, in 2D and 3D: precision and recall equal to
   1e-9 relative; ``validate_boxes`` raises where the JAX package's does.
 """
 
+import glob
 import json
 import logging
 import os
+import random
 import shutil
 import signal
 import threading
@@ -296,8 +302,6 @@ def test_unported_pipeline_options_raise(workspace):
         build(port_cfg(workspace, out="dp_out", data_parallel=2))
     with pytest.raises(ValueError, match="orbax"):
         build(port_cfg(workspace, out="orbax_out", ckpt_backend="orbax"))
-    with pytest.raises(NotImplementedError):
-        build(port_cfg(workspace, out="show_out")).show_inference()
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +365,93 @@ def test_run_testing_matches_the_jax_pipeline(workspace):
     data["bboxes"] = np.array([[1, 1, 0, 0, 1, 1, 0, 0, 0]], np.float32)
     with pytest.raises(ValueError, match="zero areas"):
         tp.run_inference(data, validate=True)
+
+
+@pytest.fixture(scope="module")
+def show_pair(workspace):
+    """A JAX and a port pipeline in inference mode over the same random
+    weights (a ``.pkl`` and a ``.pth`` best checkpoint)."""
+    cfg = make_cfg(workspace, inference_mode=True, resume_from=VERSION)
+    cfg.global_args["output_path"] = str(workspace / "jax_show") + "/"
+    global_cfg = cfg.dump()
+    ds, pl, md = JaxConfig.initialize_params(cfg)
+    jp = JaxPipeline(JaxPointPillars(**md), JaxForest3D(**ds), global_cfg,
+                     **pl)
+    variables = _random_variables(
+        jp.model.init_variables(jax.random.PRNGKey(1)), seed=3)
+    jdir = os.path.join(jp.cfg.log_dir, "checkpoint")
+    os.makedirs(jdir, exist_ok=True)
+    jax_ckpt.save_ckpt(os.path.join(jdir, "ckpt_best.pkl"), 4,
+                       {"params": variables["params"],
+                        "batch_stats": variables["batch_stats"],
+                        "opt_state": None})
+    tp = _inference_pipeline(workspace, VERSION, out="port_show")
+    from_jax_variables(tp.model.net, variables)
+    tdir = os.path.join(tp.cfg.log_dir, "checkpoint")
+    os.makedirs(tdir, exist_ok=True)
+    ckpt_io.save_ckpt(os.path.join(tdir, "ckpt_best.pth"), 4, tp.model.net)
+    tp._init_state()                      # fresh weights until the load
+    return jp, tp
+
+
+def _new_pngs(log_dir, since):
+    """``show_inference`` PNGs in ``log_dir`` written at or after
+    ``since`` (their names carry the time to the second, so a second
+    drawing in the same second overwrites the first)."""
+    return [p for p in glob.glob(os.path.join(log_dir,
+                                              "show_inference_*.png"))
+            if os.path.getmtime(p) >= since]
+
+
+def _pr_block(out):
+    """The header and the three lines of precision, recall and F1."""
+    lines = out.splitlines()
+    (i,) = [j for j, line in enumerate(lines) if "==== Precision" in line]
+    return lines[i:i + 4]
+
+
+def test_show_inference_matches_run_inference_and_jax(show_pair, capsys):
+    jp, tp = show_pair
+    since = time.time() - 0.1
+    random.seed(11)
+    got = tp.show_inference()
+    out = capsys.readouterr().out
+    random.seed(11)
+    jp.show_inference()
+    jax_out = capsys.readouterr().out
+    assert set(got) == {"bbox", "label", "score"}
+    block = _pr_block(out)
+    assert block == _pr_block(jax_out)
+    assert block[1].startswith("Overall_precision: ")
+    assert block[3].startswith("F1: ")
+    assert _new_pngs(tp.cfg.log_dir, since)
+
+    random.seed(11)
+    split = tp.dataset.get_split("test")
+    (idx,) = random.sample(range(0, len(split)), 1)
+    data = tp.model.preprocess(split.get_data(idx), split.get_attr(idx))
+    dets = tp.run_inference({"data": data, "attr": split.get_attr(idx)})[0]
+    assert len(dets) == len(got["bbox"]) > 0
+    for j, d in enumerate(dets):
+        np.testing.assert_array_equal(d["bbox"], got["bbox"][j])
+        assert d["label"] == got["label"][j]
+        assert d["score"] == got["score"][j]
+
+
+def test_entry_show_needs_inference_mode(show_pair, workspace, tmp_path):
+    """``python -m objectdetection_3d_tpu_torch.entry show``."""
+    yaml = pytest.importorskip("yaml")
+    _, tp = show_pair
+    d = port_cfg(workspace, out="port_show", resume_from=VERSION).dump()
+    path = tmp_path / "config.yaml"
+    path.write_text(yaml.safe_dump(d))
+    with pytest.raises(ValueError, match="inference_mode: true"):
+        entry_main(["show", str(path)])
+    d["pipeline"]["inference_mode"] = True
+    path.write_text(yaml.safe_dump(d))
+    since = time.time() - 0.1
+    assert entry_main(["show", str(path)]) == 0
+    assert _new_pngs(tp.cfg.log_dir, since)
 
 
 def test_init_parameters_draws_from_the_generator_only():

@@ -99,3 +99,30 @@ def test_sort_order_is_cell_then_reflectance_then_index():
     assert pts_s[0, :, 3].tolist() == pytest.approx([0.9, 0.2, 0.2, 0.5,
                                                      1.0])
     assert pts_s[0, 1, 0].item() == pytest.approx(0.1)
+
+
+@pytest.mark.parametrize("voxel_size", [(0.5, 0.5, 1.0), (0.1, 0.1, 0.25)])
+def test_sentinel_rows_add_no_voxel(voxel_size):
+    """The tiled device crop pads tiles with rows of 1e9 in every column.
+    Their cell index (2e9 at 0.5 m, 1e10 at the flagship's 0.1 m: past
+    int32) must land out of range, so the voxels of a cloud are the same
+    with sentinel rows mixed in as without them."""
+    kw = dict(voxel_size=voxel_size,
+              point_cloud_range=(0.0, 0.0, 0.0, 8.0, 8.0, 4.0),
+              max_points_per_voxel=8, max_voxels=1024)
+    cloud = _cloud(5, 1500, 1500, 7)
+    n_sent = 600
+    rows = np.concatenate([cloud, np.full((n_sent, 4), 1e9, np.float32)])
+    mixed = rows[np.random.default_rng(0).permutation(len(rows))]
+    want = voxelize_points(torch.from_numpy(cloud), 1500, **kw)
+    got = voxelize_points(torch.from_numpy(mixed), len(mixed), **kw)
+    assert int(want["num_voxels"]) > 0
+    for key in ("coords", "num_points_per_voxel", "num_voxels",
+                "voxel_mask"):
+        assert torch.equal(got[key], want[key]), key
+    assert int(got["pt_valid"].sum()) == int(want["pt_valid"].sum())
+    # every sentinel row is dropped
+    sent = (got["points"] == 1e9).all(dim=-1)
+    assert int(sent.sum()) == n_sent
+    assert not bool(got["pt_valid"][sent].any())
+    assert bool((got["pt_voxel"][sent] == kw["max_voxels"]).all())
