@@ -6,9 +6,10 @@ Run from the repository root:
     python3 chip_smoke.py [--quick]
 
 ``--quick`` runs phases 1-2, then K10 on cloud 0's stage 0-1 inputs, K1
-on clouds 0-3, K3/K4 on cloud 0's GT chunks 0-1 and K5 on both of its
-inputs against their plain versions, timed as in phases 3, 7 and 10, and
-stops: the short first call after a kernel change.
+on clouds 0-3, K3/K4 on cloud 0's GT chunks 0-1 (and phase 7's C9 gate)
+and K5 on both of its inputs against their plain versions, timed as in
+phases 3, 7 and 10, and stops: the short first call after a kernel
+change.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -25,9 +26,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 5. predict: the flagship ``PointPillars`` (100x400x400 grid, 12 anchors per
    cell, bf16) with the trained ``artifacts/overfit_ckpt.npz`` on four
    100k-point clouds; outputs must be finite and every kernel of the path
-   must have launched;
-6. float32: one cloud again in float32 (TF32 off), and how many of its
-   detections the bf16 run matches (information, not a gate);
+   must have launched; cloud 0's warm-up and timed predicts bitwise
+   equal with PyTorch's deterministic mode off (C8);
+6. float32: one cloud again in float32 (TF32 off), twice, bitwise equal
+   (C8); the PFN's fixed-point centroid sum against the float32
+   ``index_add_`` it replaced on the cloud's rows (device ms, and
+   whether 20 calls agree bit for bit); how many of its detections the
+   bf16 run matches (information, not a gate);
 7. assignment kernels: K3 and K4 bit-exact, K6 and K7 within 1e-5 of
    IoU, each against its plain version on cloud 0's real assignment
    inputs (128 padded GT boxes, 1.92 M anchors, K = 512), both timed
@@ -36,6 +41,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    chunks under each row's own containment maximum and under the row
    maxima and rescue flags of cloud 0's flagship assignment, with the
    live (GT, combo) pairs counted, and over the assignment's 8 chunks);
+   C9: chunk 0 with three live trees' dims negated, K3 launched raw
+   against the plain version (the outputs that differ are printed), its
+   wrapper refusing those rows (``ValueError`` naming them) and
+   bit-exact with them masked;
    every pair that the plain separating-plane test clears is exactly 0
    from K6/K7 and from their plain versions, and their bounds count the
    least work of these pairs: the test, and the clip of what it leaves
@@ -50,10 +59,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1e-3, betas (0.95, 0.99), weight decay 0.01, gradient value clip 2.0):
    one warm-up step, then 3 timed steps on clouds 1-3; every loss finite,
    ``num_pos`` > 0, parameters and running statistics changed, and all
-   six kernels launched during the timed steps; then one more step of
-   the same step function under ``torch.profiler``, its device time split
-   by the step's own phase ranges (forward, assignment, loss + backward,
-   optimizer);
+   six kernels launched during the timed steps; the same three steps
+   again from the state after the warm-up, first with the centroid's
+   float32 ``index_add_`` (the step before the C8 repair, timed), then as
+   they ran: losses and every parameter and running statistic bitwise
+   equal (C8); then one more step of the same step function under
+   ``torch.profiler``, its device time split by the step's own phase
+   ranges (forward, assignment, loss + backward, optimizer);
 10. encoder kernels: K10 (stages 0-1), K9 (stages 0-2, forward, and the
     backward's dx and dw), K8 (stages 0-2) on cloud 0's real stage inputs
     with the npz weights, each against its plain version in float32
@@ -110,11 +122,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     each under-budget tile the same rows as a multiset (rounded to
     1e-4), on each over-budget tile exactly P rows, all from its window;
     both crops' voxels (coords, counts) equal on under-budget tiles and
-    no voxel from a ``1e9`` sentinel row; in float32 (TF32 off) the
-    per-tile detections of both crops on the under-budget tiles equal
-    (counts and labels exact, boxes within 1e-3, with PyTorch's
-    deterministic kernels; for information, tile 3 predicted twice with
-    the default kernels) and both merged scene outputs in the scene's
+    no voxel from a ``1e9`` sentinel row; in float32 (TF32 off, PyTorch's
+    deterministic mode off) tile 3 predicted twice bitwise equal (C8),
+    the per-tile detections of both crops on the under-budget tiles equal
+    (counts and labels exact, boxes within 1e-3) and both merged scene
+    outputs in the scene's
     frame (each merged box a tile's box shifted by its origin; how many
     lie inside the scene's xy bounds is printed); in bf16 the device path (one
     warm-up, 3 timed calls), the host path (1 call) and the device path
@@ -125,14 +137,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the flagship widths (``scene.reference_state_dict``), saved in the
     reference's ``{epoch, model_state_dict, ...}`` envelope and loaded
     with ``load_reference_pth``; every parameter and running statistic
-    written, none left at its init value, and predict on cloud 0 finite.
+    written, none left at its init value, and predict on cloud 0 finite;
+17. the data path at the flagship width, in a workspace under ``build/``
+    (deleted after): ``tools.prepare_data.prepare_cloud`` on a 100k-point
+    cloud with ``config.yaml``'s ``model.preprocess`` (the numpy
+    featurizer, the MLP filter on the card with 37 input channels from a
+    synthetic reference-layout ``mlp.pth``, the density voxelizer), the
+    card's mask equal to the CPU's but rows within 1e-5 of
+    ``trunk_confidence``, each step timed; the GT database of clouds of
+    leaning trunks (``scene.tilted_tree_scene``) through
+    ``tools.build_gt_database``, the card's ``points_in_boxes`` equal to
+    float64 but point-box pairs within 1e-4 m of a face (counted); one
+    flagship batch through ``device_augment`` (rotate, scale, flip_x,
+    flip_y, translate): every real box holds the same points but those
+    within 1e-4 m of a face; ``run_training`` (B = 2 in chunks of 1,
+    epochs 0-1) with ``ObjectSample`` (``sample_dict {0: 16}``) and
+    ``device_augment``: finite losses, ``num_pos`` > 0, objects pasted in
+    each epoch, K1-K4, K6 and K7 launched.
 
 The last lines are the ``kernels`` JSON line (all ten kernels; K1 and K2
-with ``launches_tiled`` and ``launches_tiled_batch2``), the card line and
+with ``launches_tiled`` and ``launches_tiled_batch2``; K1-K4, K6 and K7
+with ``launches_data_path``), the card line and
 ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -401,6 +431,163 @@ def geometry_kernels(model, geom, gt_mask, batch):
           f"{len(chunk_args)} chunks {entry['k3_step_ms']:.4f} ms "
           f"({entry['k3_step_eager_ms']:.4f} eager)", flush=True)
     return {"chunk_geometry": entry, "containment_rescue": k4}
+
+
+def negative_dims_gate(model, batch):
+    """C9: K3 on GT rows with negative dims.  Cloud 0's GT chunk 0 with
+    three trees' dims negated (one dim, two dims, all three at -30 m),
+    launched raw (past the wrapper's check) against the plain version:
+    the outputs that differ are printed.  The wrapper must refuse the
+    live rows, naming them, and stay bit-exact with the rows masked."""
+    from objectdetection_3d_tpu_torch.ops import assign_geometry as geo
+    from objectdetection_3d_tpu_torch.ops import cuda_lib
+    from objectdetection_3d_tpu_torch.scene import MAX_GT
+
+    layout, combo = model.anchor_layout, model.combo_tab
+    cells = layout[0]
+    gt = torch.as_tensor(batch["bboxes"][0][:16], device="cuda").clone()
+    live = torch.as_tensor(batch["gt_mask"][0][:16], device="cuda")
+    gt[1, 3] = -gt[1, 3]
+    gt[5, 4:6] = -gt[5, 4:6]
+    gt[7, 3:6] = -30.0
+    gid = torch.arange(16, dtype=torch.int32, device="cuda")
+    ftab, tabs = geo.chunk_tables(gt, live, layout)
+    gch, m, nc = 16, combo.shape[1], cells.shape[0]
+    n = nc * m
+    key = torch.empty((gch, n), dtype=torch.float32, device="cuda")
+    outf = torch.empty((4, n), dtype=torch.float32, device="cuda")
+    outi = torch.empty((5, n), dtype=torch.int32, device="cuda")
+    rmax = torch.empty((gch, nc), dtype=torch.float32, device="cuda")
+    cuda_lib.launch("assign_geometry", "chunk_geometry", geo._ARGS_GEOMETRY,
+                    (ftab.data_ptr(), gid.data_ptr(), tabs.data_ptr(),
+                     combo.data_ptr(), cells.data_ptr(), gch, m, nc, MAX_GT,
+                     key.data_ptr(), outf.data_ptr(), outi.data_ptr(),
+                     rmax.data_ptr()), torch.device("cuda"))
+    want = geo.chunk_geometry_plain(ftab, gid, tabs, combo, cells, MAX_GT)
+    torch.cuda.synchronize()
+    got = {"key": key, "rmax": rmax,
+           **dict(zip(("cm", "v1", "v2", "v3"), outf)),
+           **dict(zip(("cb", "a1", "a2", "a3", "mb"), outi))}
+    differ = {k: int((got[k] != want[k]).sum()) for k in want
+              if not torch.equal(got[k], want[k])}
+    print(f"C9 K3 raw launch on 3 live rows with negative dims: outputs "
+          f"that differ from the plain version (count of elements) "
+          f"{differ or 'none'}; plain rmax minimum "
+          f"{float(want['rmax'].min()):.4g}, the kernel's "
+          f"{float(rmax.min()):.4g}", flush=True)
+    try:
+        geo.chunk_geometry(ftab, gid, tabs, combo, cells, MAX_GT)
+    except ValueError as e:
+        if "[1, 5, 7]" not in str(e):
+            raise AssertionError(f"C9: the refusal names other rows: {e}")
+    else:
+        raise AssertionError("C9: chunk_geometry took live rows with "
+                             "negative dims")
+    masked = live.clone()
+    masked[[1, 5, 7]] = False
+    ftab, tabs = geo.chunk_tables(gt, masked, layout)
+    got = geo.chunk_geometry(ftab, gid, tabs, combo, cells, MAX_GT)
+    want = geo.chunk_geometry_plain(ftab, gid, tabs, combo, cells, MAX_GT)
+    torch.cuda.synchronize()
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"C9: with the negative rows masked, "
+                                 f"chunk_geometry {k!r} differs from its "
+                                 f"plain version")
+    print("C9 K3 wrapper: refuses the live rows [1, 5, 7] (ValueError); "
+          "with them masked, bit-exact on all 11 outputs", flush=True)
+    return differ
+
+
+def _index_add_centroid(values, seg, num_segments, frac_bits):
+    """The PFN's centroid sum before the C8 repair: float32 atomics."""
+    out = torch.zeros((num_segments, values.shape[1]), dtype=values.dtype,
+                      device=values.device)
+    return out.index_add_(0, seg, values).double()
+
+
+def centroid_sums(model, batch):
+    """C8: the PFN's fixed-point centroid sum against the float32
+    ``index_add_`` it replaced, on cloud 0's flagship rows (the voxelizer's
+    ``seg``, valid xyz): device ms, and whether 20 calls give one bit
+    pattern."""
+    from objectdetection_3d_tpu_torch.models.layers import (
+        fixed_point_segment_sum,
+    )
+
+    pts = torch.as_tensor(batch["points"], device="cuda")
+    vox = model.voxel_layer.points_batch(
+        pts, torch.as_tensor(batch["num_points"], device="cuda"))
+    nseg = vox["num_points_per_voxel"].shape[1] + 1
+    seg = vox["pt_voxel"].reshape(-1).long()
+    vals = torch.where(vox["pt_valid"].reshape(-1)[:, None],
+                       vox["points"].reshape(-1, pts.shape[-1])[:, :3], 0.0)
+    bits = model.net.voxel_encoder.frac_bits
+    out = {}
+    for name, fn in (("fixed_point", fixed_point_segment_sum),
+                     ("index_add_", _index_add_centroid)):
+        first = fn(vals, seg, nseg, bits)
+        same = all(torch.equal(first, fn(vals, seg, nseg, bits))
+                   for _ in range(20))
+        out[name] = {"ms": cuda_ms(lambda fn=fn: fn(vals, seg, nseg, bits),
+                                   100), "reproducible": same}
+    if not out["fixed_point"]["reproducible"]:
+        raise AssertionError("C8: the fixed-point centroid sum differs "
+                             "between calls")
+    print(f"C8 centroid sum, {seg.numel()} rows into {nseg} voxels: "
+          f"fixed point {out['fixed_point']['ms']:.4f} ms (20 calls "
+          f"bitwise equal), float32 index_add_ "
+          f"{out['index_add_']['ms']:.4f} ms (20 calls bitwise equal: "
+          f"{out['index_add_']['reproducible']})", flush=True)
+    return out
+
+
+def reproducible_steps(model, tx, step, batches, start, losses, times):
+    """C8: phase 9's three timed steps again from the same start (the
+    state after the warm-up), deterministic mode off: first with the
+    centroid's float32 ``index_add_`` (the step before the repair, timed
+    only), then as they ran: losses and every parameter and running
+    statistic bitwise equal."""
+    from objectdetection_3d_tpu_torch.models import layers
+
+    first = {k: v.detach().clone() for k, v in model.net.state_dict().items()}
+    runs = {}
+    for name, sum_fn in (("index_add_", _index_add_centroid),
+                         ("fixed_point", layers.fixed_point_segment_sum)):
+        model.net.load_state_dict(start[0])
+        tx.load_state_dict(copy.deepcopy(start[1]))
+        kept, layers.fixed_point_segment_sum = (
+            layers.fixed_point_segment_sum, sum_fn)
+        try:
+            ms, outs = [], []
+            for i in (1, 2, 3):
+                t = time.perf_counter()
+                outs.append(step(batches[i]))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+        finally:
+            layers.fixed_point_segment_sum = kept
+        runs[name] = (ms, outs)
+    again = runs["fixed_point"][1]
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("C8: deterministic mode is on")
+    for a, b in zip(losses, again):
+        if not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"C8: the repeated steps' losses differ: "
+                                 f"{a} vs {b}")
+    second = model.net.state_dict()
+    differ = [k for k in first if not torch.equal(first[k], second[k])]
+    if differ:
+        raise AssertionError(f"C8: after the repeated steps {len(differ)} "
+                             f"arrays differ: {differ[:5]}")
+    print(f"C8 three bf16 train steps twice from one start (deterministic "
+          f"mode off): losses and all {len(first)} arrays bitwise equal; "
+          f"step ms fixed-point {', '.join(f'{t * 1e3:.1f}' for t in times)}"
+          f" / index_add_ "
+          f"{', '.join(f'{t:.1f}' for t in runs['index_add_'][0])} / "
+          f"fixed-point again "
+          f"{', '.join(f'{t:.1f}' for t in runs['fixed_point'][0])}",
+          flush=True)
 
 
 def assignment_rescue_args(model, batch):
@@ -1124,14 +1311,15 @@ def accumulation(scenes, counted):
     return launches
 
 
-def write_forest_split(directory, seeds):
-    """Tree scenes written in the dataset's disk contract: box z at the
-    centre, angles in degrees."""
+def write_forest_split(directory, seeds, scene_fn=None):
+    """Tree scenes (``scene_fn``, default ``scene.tree_scene``) written in
+    the dataset's disk contract: box z at the centre, angles in
+    degrees."""
     from objectdetection_3d_tpu_torch.scene import tree_scene
 
     os.makedirs(directory)
     for seed in seeds:
-        cloud, boxes = tree_scene(seed)
+        cloud, boxes = (scene_fn or tree_scene)(seed)
         disk = boxes.astype(np.float32).copy()
         disk[:, 2] += disk[:, 5] / 2
         disk[:, 6:] = np.rad2deg(disk[:, 6:])
@@ -1323,6 +1511,248 @@ def pipeline_phase(counted):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def face_gap64(points, boxes):
+    """(P, N) float64 distance of each point to the nearest face plane of
+    each box along the box's axes, and the (P, N) float64 membership
+    (numpy, the reference of the card's ``points_in_boxes``)."""
+    from objectdetection_3d_tpu_torch.scene import _rotation_zyx
+
+    points = np.asarray(points, np.float64)[:, :3]
+    boxes = np.asarray(boxes, np.float64)
+    rot = np.stack([_rotation_zyx(*b[6:9]) for b in boxes])   # (N, 3, 3)
+    mid = boxes[:, :3] + rot[:, :, 2] * boxes[:, 5:6] / 2
+    proj = np.einsum("pnk,nkj->pnj", points[:, None] - mid[None], rot)
+    excess = np.abs(proj) * 2 - boxes[None, :, 3:6]
+    return np.abs(excess).min(-1) / 2, (excess < 0).all(-1)
+
+
+def card_in_boxes(points, boxes):
+    """The card's ``points_in_boxes`` of numpy or tensor inputs, as a
+    numpy (P, N) mask."""
+    from objectdetection_3d_tpu_torch.ops.boxes import points_in_boxes
+
+    return points_in_boxes(
+        torch.as_tensor(points, device="cuda")[:, :3].float().contiguous(),
+        torch.as_tensor(boxes, device="cuda").float()).cpu().numpy()
+
+
+DEVICE_AUGMENT = {"rotate": {"min": 0.0, "max": 6.283}, "scale": {},
+                  "flip_x": True, "flip_y": True, "translate": {"std": 0.5}}
+
+
+def data_path_phase(counted):
+    """Phase 17: the data-preparation and augmentation path at the
+    flagship width.  Returns each counted kernel's launches in its
+    ``run_training``."""
+    import shutil
+    import tempfile
+
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.config import Config
+    from objectdetection_3d_tpu_torch.entry import build_pipeline
+    from objectdetection_3d_tpu_torch.models import preprocess_tools as pre
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.scene import (
+        make_batch,
+        reference_mlp_state_dict,
+        tilted_tree_scene,
+        tree_scene,
+    )
+    from objectdetection_3d_tpu_torch.tools import build_gt_database
+    from objectdetection_3d_tpu_torch.tools.prepare_data import prepare_cloud
+
+    def quiet(*args):
+        return None
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="data_path_", dir=os.path.join(REPO,
+                                                                   "build"))
+    try:
+        # ---- prepare: featurize (numpy), filter (MLP on the card),
+        # density voxelizer (host) on a 100k-point cloud ---------------
+        models_dir = os.path.join(root, "models")
+        os.makedirs(models_dir)
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    reference_mlp_state_dict(37, seed=0).items()},
+                   os.path.join(models_dir, "mlp.pth"))
+        cfg = configs.preprocess_cfg(models_dir + "/")
+        cfg["featurizer"]["backend"] = "numpy"
+        cloud, _ = tree_scene(0)
+        t = time.perf_counter()
+        feats = pre.Featurizer(**cfg["featurizer"]).generate_features(cloud)
+        feat_s = time.perf_counter() - t
+        card = pre.ForegroundFilter(cfg["filter"], device="cuda")
+        host = pre.ForegroundFilter(cfg["filter"], device="cpu")
+        card.probabilities(feats)          # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p_card = card.probabilities(feats)
+        filt_ms = (time.perf_counter() - t) * 1e3
+        p_host = host.probabilities(feats)
+        thr = card.trunk_prob
+        near = np.abs(p_host - thr) <= 1e-5
+        mask = p_card > thr
+        wrong = int(((mask != (p_host > thr)) & ~near).sum())
+        if wrong:
+            raise AssertionError(f"prepare: the card's filter mask differs "
+                                 f"from the CPU's on {wrong} rows")
+        t = time.perf_counter()
+        vox = pre.CustomVoxelizer(**cfg["voxelization"]).voxelize(
+            cloud[mask])
+        vox_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        out = prepare_cloud(cloud, cfg, log=quiet, device="cuda")
+        chain_s = time.perf_counter() - t
+        if not np.array_equal(out, np.ascontiguousarray(
+                vox[:, :cloud.shape[1]], np.float32)):
+            raise AssertionError("prepare: prepare_cloud differs from its "
+                                 "steps run one by one")
+        print(f"data path prepare ({len(cloud)} points, config.yaml's "
+              f"model.preprocess, a synthetic reference mlp.pth, 37 input "
+              f"channels): featurizer (numpy) {feat_s:.2f} s -> "
+              f"{feats.shape[1]} columns; MLP filter on the card "
+              f"{filt_ms:.1f} ms, kept {int(mask.sum())} (card == CPU, "
+              f"{int(near.sum())} rows within 1e-5 of {thr}); density "
+              f"voxelizer {vox_ms:.1f} ms -> {len(vox)} points; "
+              f"prepare_cloud {chain_s:.2f} s -> {out.shape}", flush=True)
+        del feats, p_card, p_host
+
+        # ---- GT database of leaning trunks ---------------------------
+        data = os.path.join(root, "data")
+        for split, seeds in (("training", (0, 1)), ("validation", (2,)),
+                             ("testing", (3,))):
+            write_forest_split(os.path.join(data, split), seeds,
+                               tilted_tree_scene)
+        db_path = os.path.join(root, "gt_database.pkl")
+        ds_cfg = Config({"dataset": {"name": "tilted_trees",
+                                     "dataset_path": data + "/", "seed": 0,
+                                     "gt_db_min_points": 5}})
+        t = time.perf_counter()
+        db = build_gt_database.build(ds_cfg, db_path, device="cuda",
+                                     log=quiet)
+        db_s = time.perf_counter() - t
+        from objectdetection_3d_tpu_torch.dataset import Forest3D
+        split = Forest3D(**ds_cfg.dataset).get_split("training")
+        n_near = n_pts = 0
+        for i in range(len(split)):
+            item = split.get_data(i)
+            got = card_in_boxes(item["point"], item["bboxes"])
+            gap, want = face_gap64(item["point"], item["bboxes"])
+            bad = (got != want) & (gap >= 1e-4)
+            if bad.any():
+                raise AssertionError(f"GT database: the card's "
+                                     f"points_in_boxes differs from float64 "
+                                     f"on {int(bad.sum())} point-box pairs "
+                                     f"off the faces")
+            n_near += int(((got != want) | (gap < 1e-4)).sum())
+            n_pts += int(got.sum())
+        n_obj = sum(len(v) for v in db.values())
+        print(f"data path GT database: {n_obj} objects ({n_pts} interior "
+              f"points) from {len(split)} training clouds of leaning "
+              f"trunks in {db_s:.2f} s; the card's points_in_boxes == "
+              f"float64 but {n_near} point-box pairs within 1e-4 m of a "
+              f"face", flush=True)
+        if n_obj == 0:
+            raise AssertionError("GT database: no object")
+
+        # ---- one augmented flagship batch on the card -----------------
+        aug_cfg = dict(configs.flagship_cfg(), device_augment=DEVICE_AUGMENT)
+        model = PointPillars(aug_cfg, device="cuda")
+        scene = tilted_tree_scene(4)
+        batch = make_batch(scene, model.tpu_cfg["max_points_static"])
+        t = time.perf_counter()
+        out = model.augment(batch)
+        torch.cuda.synchronize()
+        aug_ms = (time.perf_counter() - t) * 1e3
+        n = int(batch["num_points"][0])
+        g = len(scene[1])
+        before_pts = batch["points"][0, :n]
+        after_pts = out["points"][0, :n].cpu().numpy()
+        after_boxes = out["bboxes"][0, :g].cpu().numpy()
+        in0 = card_in_boxes(before_pts, scene[1])
+        in1 = card_in_boxes(after_pts, after_boxes)
+        gap0, _ = face_gap64(before_pts, scene[1])
+        gap1, _ = face_gap64(after_pts, after_boxes)
+        near = (gap0 < 1e-4) | (gap1 < 1e-4)
+        moved = int(((in0 != in1) & ~near).sum())
+        if moved or int(in0.sum()) == 0:
+            raise AssertionError(f"augment: {moved} point-box memberships "
+                                 f"changed off the faces")
+        print(f"data path augment (rotate, scale, flip_x, flip_y, "
+              f"translate) of a flagship batch of leaning trunks: "
+              f"{aug_ms:.2f} ms; each of the {g} boxes holds the same "
+              f"points ({int(in0.sum())} memberships) but "
+              f"{int((near & (in0 | in1)).sum())} within 1e-4 m of a face",
+              flush=True)
+        del model, out
+
+        # ---- run_training with ObjectSample and device_augment --------
+        pcfg = pipeline_cfg(root, False)
+        pcfg["model"]["augment"] = {"PointShuffle": True, "ObjectSample": {
+            "db_path": db_path, "sample_dict": {0: 16}}}
+        pcfg["model"]["device_augment"] = DEVICE_AUGMENT
+        pipe, _ = build_pipeline(cfg=Config(pcfg))
+        model = pipe.model
+        pasted, num_pos, step_ms = [], [], []
+        sample = model.augmentor.ObjectSample
+
+        def counting_sample(data, cfg, rng=None):
+            before = len(data["bboxes"])
+            data = sample(data, cfg, rng=rng)
+            pasted.append(len(data["bboxes"]) - before)
+            return data
+
+        model.augmentor.ObjectSample = counting_sample
+        make_step = model.make_train_step
+
+        def recording_make(tx, microbatch=None):
+            step = make_step(tx, microbatch=microbatch)
+
+            def run(batch):
+                t = time.perf_counter()
+                out = step(batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                num_pos.append(float(out["num_pos"]))
+                return out
+            return run
+
+        model.make_train_step = recording_make
+        for fn in counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        pipe.run_training()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in counted.items()}
+        if not all(launches.values()):
+            raise AssertionError(f"data path run_training: a kernel did not "
+                                 f"launch: {launches}")
+        for k, vals in pipe.losses.items():
+            if not np.all(np.isfinite(vals)):
+                raise AssertionError(f"data path run_training: non-finite "
+                                     f"{k}")
+        half = len(pasted) // 2
+        if len(pasted) != 4 or not (sum(pasted[:half]) > 0
+                                    and sum(pasted[half:]) > 0):
+            raise AssertionError(f"data path run_training: pasted objects "
+                                 f"per augmented cloud {pasted}, not one a "
+                                 f"epoch")
+        if not num_pos or min(num_pos) <= 0:
+            raise AssertionError(f"data path run_training: num_pos "
+                                 f"{num_pos}")
+        print(f"data path run_training (flagship, B=2 in chunks of 1, "
+              f"epochs 0-1, ObjectSample sample_dict {{0: 16}} and "
+              f"device_augment): {train_s:.2f} s wall; pasted objects per "
+              f"augmented cloud {pasted}; num_pos per step {num_pos}; step "
+              f"{', '.join(f'{v:.1f}' for v in step_ms)} ms; launches "
+              f"{launches}", flush=True)
+        del pipe, model
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def in_window(scene, pcr, shift):
     """The rows of ``scene`` inside the model window at ``shift``, in the
     window's frame (the numpy filter of the host crop)."""
@@ -1483,35 +1913,26 @@ def tiled_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     model32 = trained(configs.flagship_cfg({"compute_dtype": "float32"}))
     worst, n_det = 0.0, 0
-    # the PFN's scatter-add atomics make float32 predict differ from run
-    # to run (information: tile 3's device crop predicted twice); the
-    # deterministic kernels compare the crops, not the atomics' order
+    # C8: tile 3's device crop predicted twice gives the same bits
     twice = [model32.predict({"points": dev[3:4], "num_points": full[:1]})
              for _ in range(2)]
-    noise = matched_boxes(*twice)
-    dims = twice[0]["bbox"][0][twice[0]["valid"][0]][:, 3:6]
-    largest = float(dims.max()) if dims.numel() else 0.0
-    print(f"float32 run to run (default kernels), tile 3 twice: boxes "
-          f"differ by {noise[0]:.3g} over {noise[1]} detections (paired "
-          f"{noise[2]}; the largest box dimension {largest:.1f} m)",
-          flush=True)
-    torch.use_deterministic_algorithms(True)
-    try:
-        for t in range(len(tiles)):
-            if t in over:
-                continue
-            err, n, pair = matched_boxes(
-                model32.predict({"points": dev[t:t + 1],
-                                 "num_points": full[:1]}),
-                model32.predict({"points": host_buf[t:t + 1],
-                                 "num_points": host_n[t:t + 1]}))
-            if not (pair and err <= 1e-3):
-                raise AssertionError(f"tile {t}: float32 detections of the "
-                                     f"crops differ (paired {pair}, boxes "
-                                     f"{err})")
-            worst, n_det = max(worst, err), n_det + n
-    finally:
-        torch.use_deterministic_algorithms(False)
+    if not all(torch.equal(twice[0][k], twice[1][k]) for k in twice[0]):
+        raise AssertionError("C8: two float32 predicts of tile 3 differ")
+    print(f"float32 run to run, tile 3 twice: bitwise equal "
+          f"({int(twice[0]['valid'].sum())} detections)", flush=True)
+    for t in range(len(tiles)):
+        if t in over:
+            continue
+        err, n, pair = matched_boxes(
+            model32.predict({"points": dev[t:t + 1],
+                             "num_points": full[:1]}),
+            model32.predict({"points": host_buf[t:t + 1],
+                             "num_points": host_n[t:t + 1]}))
+        if not (pair and err <= 1e-3):
+            raise AssertionError(f"tile {t}: float32 detections of the "
+                                 f"crops differ (paired {pair}, boxes "
+                                 f"{err})")
+        worst, n_det = max(worst, err), n_det + n
     # the merged output is in the scene's frame: each merged box is one of
     # its tile's boxes shifted by the tile's origin.  (The npz weights
     # regress some centres out of their own window, so "inside the
@@ -1542,8 +1963,7 @@ def tiled_phase():
         xy = np.stack([d["bbox"][:2] for d in dets])
         inside = np.all((xy >= lo[:2]) & (xy <= hi[:2]), axis=1)
         merged[device_crop] = (len(dets), int(inside.sum()))
-    print(f"float32 (TF32 off, deterministic kernels): {n_det} "
-          f"detections on the "
+    print(f"float32 (TF32 off): {n_det} detections on the "
           f"{len(tiles) - len(over)} under-budget tiles, card crop == "
           f"host crop (counts and labels exact, boxes within {worst:.3g}); "
           f"merged scene detections (in the scene's frame, of them inside "
@@ -1749,6 +2169,7 @@ def main():
                              int(model.tpu_cfg["assign_candidates_per_gt"]),
                              16, chunk_geometry)
         geometry_kernels(model, geom, gt_mask, batches[0])
+        negative_dims_gate(model, batches[0])
         aligned_clipper(model, batches[0])
         print("quick check passed", flush=True)
         return 0
@@ -1846,7 +2267,7 @@ def main():
     postsort_scan.launches = 0
     scatter_to_grid.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    predict(batches[0])                     # warm-up
+    warm = predict(batches[0])              # warm-up
     torch.cuda.synchronize()
     times, preds = [], []
     for batch in batches:
@@ -1875,6 +2296,13 @@ def main():
     print(f"predict: median {np.median(times) * 1e3:.1f} ms per cloud over "
           f"{len(times)} clouds (B=1, bf16, after one warm-up); launches "
           f"{launches}; peak memory {peak:.2f} GiB", flush=True)
+    # C8: the warm-up and the timed call of cloud 0, deterministic mode off
+    if torch.are_deterministic_algorithms_enabled() or not all(
+            torch.equal(warm[k], preds[0][k]) for k in warm):
+        raise AssertionError("C8: two bf16 predicts of cloud 0 differ")
+    print("C8 bf16 predict of cloud 0 twice (deterministic mode off): "
+          "bitwise equal", flush=True)
+    del warm
 
     # ---- float32 run of cloud 0 ----------------------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -1883,7 +2311,14 @@ def main():
                            device="cuda")
     load_npz(model32.net, NPZ)
     out32 = model32.make_predict_fn()(batches[0])
+    again = model32.make_predict_fn()(batches[0])
     torch.cuda.synchronize()
+    if not all(torch.equal(out32[k], again[k]) for k in out32):
+        raise AssertionError("C8: two float32 predicts of cloud 0 differ")
+    print("C8 float32 predict of cloud 0 twice (TF32 off, deterministic "
+          "mode off): bitwise equal", flush=True)
+    centroid_sums(model32, batches[0])
+    del again
     matched = centre_matches(out32, preds[0])
     print(f"float32 vs bf16 on cloud 0: {matched} of "
           f"{int(out32['valid'][0].sum())} float32 detections have a bf16 "
@@ -1899,6 +2334,8 @@ def main():
     geom = geometry_tier(gt, gt_mask, model.anchor_layout, model.combo_tab,
                          MAX_GT, k, 16, chunk_geometry)
     kernels.update(geometry_kernels(model, geom, gt_mask, batches[0]))
+    kernels["chunk_geometry"]["c9_raw_differs"] = negative_dims_gate(
+        model, batches[0])
 
     rows = torch.arange(MAX_GT, dtype=torch.int32,
                         device="cuda").repeat_interleave(k)
@@ -2041,14 +2478,17 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     step(batches[0])                        # warm-up
     torch.cuda.synchronize()
+    start = (copy.deepcopy(model.net.state_dict()),
+             copy.deepcopy(tx.state_dict()))
     for fn in counted.values():
         fn.launches = 0
-    times = []
+    times, losses = [], []
     for i in (1, 2, 3):
         t = time.perf_counter()
         out = step(batches[i])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
+        losses.append(out)
         vals = {k_: float(v) for k_, v in out.items()}
         if not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"step on cloud {i}: non-finite {vals}")
@@ -2082,6 +2522,8 @@ def main():
           f"{len(times)} steps (B=1, bf16, after one warm-up); launches in "
           f"3 steps {launches}; peak memory {peak:.2f} GiB; changed "
           f"{changed}", flush=True)
+    reproducible_steps(model, tx, step, batches, start, losses, times)
+    del start, losses
 
     # one more step of the same step function, traced; its phase ranges
     # split the device time (not counted above)
@@ -2135,6 +2577,11 @@ def main():
         kernels[name]["launches_tiled_batch2"] = tiled[2][name]
     torch.cuda.empty_cache()
     importer_phase(batches[0])
+    torch.cuda.empty_cache()
+
+    # ---- the data-preparation and augmentation path ---------------------
+    for name, count in data_path_phase(counted).items():
+        kernels[name]["launches_data_path"] = count
     if len(kernels) != 10:
         raise AssertionError(f"{len(kernels)} kernels in the line, not 10")
 

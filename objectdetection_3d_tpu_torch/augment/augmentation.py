@@ -3,26 +3,27 @@
 The port's copy of the JAX package's ``augment/augmentation.py``: a table
 of pure transforms, each taking (rng, array, cfg), which the augmentor
 composes in a fixed order (recenter, normalize, rotate, scale,
-ObjectRangeFilter, PointShuffle).  The same seed gives the same arrays as
-the JAX package.  ``ObjectSample`` (GT-database pasting) is not ported yet
-(ROADMAP A9) and raises.
+ObjectSample, ObjectRangeFilter, PointShuffle).  The same seed gives the
+same arrays as the JAX package.  ``ObjectSample`` pastes objects of a GT
+database (``augment/gt_database.py``); its box tests run on the device the
+augmentor is given.
 """
 
+import threading
 import warnings
 
 import numpy as np
+import torch
 
 from objectdetection_3d_tpu_torch.augment import numpy_ops as npo
+from objectdetection_3d_tpu_torch.augment.gt_database import load_gt_database
+from objectdetection_3d_tpu_torch.ops import sampling
 
 #: every method name the config may give; anything else warns
 KNOWN_METHODS = (
     "recenter", "normalize", "rotate", "scale", "noise", "PointShuffle",
     "ObjectRangeFilter", "ObjectSample",
 )
-
-_OBJECT_SAMPLE_MSG = ("augment.ObjectSample (GT-database pasting) is not "
-                      "ported yet (ROADMAP A9)")
-
 
 # --------------------------------------------------------------------------
 # primitive transforms (pure: rng in, arrays out)
@@ -136,13 +137,19 @@ class Augmentation:
 
 class ObjdetAugmentation(Augmentation):
     """Detection augmentor: applies the configured transforms in a fixed
-    order (recenter, normalize, rotate, scale, ObjectRangeFilter,
-    PointShuffle)."""
+    order (recenter, normalize, rotate, scale, ObjectSample,
+    ObjectRangeFilter, PointShuffle).
 
-    def __init__(self, cfg, seed=None):
+    ``device``: where ``ObjectSample``'s point and collision tests run.
+    One augmentor serves all the loader's threads: the GT database loads
+    once, under a lock, and the per-item RNG is passed down, never stored.
+    """
+
+    def __init__(self, cfg, seed=None, device="cpu"):
         super().__init__(cfg, seed=seed)
-        if (cfg or {}).get("ObjectSample"):
-            raise NotImplementedError(_OBJECT_SAMPLE_MSG)
+        self.device = torch.device(device)
+        self._db_lock = threading.Lock()
+        self._gt_db = None
         for name in (cfg or {}):
             if name not in KNOWN_METHODS:
                 warnings.warn(f"Augmentation method : {name} does not "
@@ -151,6 +158,71 @@ class ObjdetAugmentation(Augmentation):
     def PointShuffle(self, data, rng=None):
         data["point"] = npo.point_shuffle(
             data["point"], rng if rng is not None else self.rng)
+        return data
+
+    def _database(self, path):
+        if self._gt_db is None:
+            with self._db_lock:
+                if self._gt_db is None:
+                    self._gt_db = load_gt_database(path)
+        return self._gt_db
+
+    def ObjectSample(self, data, cfg, rng=None):
+        """Paste collision-checked GT-database objects into the scene.
+
+        ``cfg`` keys:
+
+        * ``db_path``: GT database pickle (``augment.gt_database`` /
+          ``python -m objectdetection_3d_tpu_torch.tools.build_gt_database``).
+        * ``sample_dict``: {class_label: target object count per scene};
+          up to ``target - current`` objects are added.
+        * ``min_points_dict`` (optional): {label: min interior points}
+          filter on database candidates.
+        * ``remove_points`` (default True): drop scene points falling
+          inside a pasted box before pasting its crop.
+        """
+        rng = rng if rng is not None else self.rng
+        db = self._database(cfg["db_path"])
+
+        points = np.asarray(data["point"], np.float32)
+        boxes = np.asarray(data["bboxes"], np.float32).reshape(-1, 9)
+        labels = np.asarray(data["labels"]).reshape(-1)
+
+        min_pts = dict(cfg.get("min_points_dict", {}) or {})
+        new_entries = []
+        scene_boxes = [b for b in boxes]
+        for label, target in dict(cfg["sample_dict"]).items():
+            have = int((labels == label).sum()) + sum(
+                1 for e in new_entries if e["label"] == label)
+            want = int(target) - have
+            candidates = db.get(label, [])
+            if min_pts:
+                candidates = sampling.filter_by_min_points(candidates,
+                                                           min_pts)
+            if want <= 0 or not candidates:
+                continue
+            picked = sampling.sample_class(want, scene_boxes, candidates,
+                                           rng=rng, device=self.device)
+            new_entries.extend(picked)
+            scene_boxes.extend(np.asarray(e["bbox"], np.float32)
+                               for e in picked)
+
+        if not new_entries:
+            return data
+
+        new_boxes = np.stack([e["bbox"] for e in new_entries]).astype(
+            np.float32)
+        if cfg.get("remove_points", True):
+            points = sampling.remove_points_in_boxes(points, new_boxes,
+                                                     device=self.device)
+        crops = [np.asarray(e["points_inside_box"],
+                            np.float32)[:, :points.shape[1]]
+                 for e in new_entries]
+        data["point"] = np.concatenate([points] + crops, axis=0)
+        data["bboxes"] = np.concatenate([boxes, new_boxes], axis=0)
+        data["labels"] = np.concatenate(
+            [labels, np.array([e["label"] for e in new_entries],
+                              labels.dtype if labels.size else np.int64)])
         return data
 
     @staticmethod
@@ -186,6 +258,8 @@ class ObjdetAugmentation(Augmentation):
             data["point"] = rotate(rng, data["point"], cfg["rotate"])
         if "scale" in cfg:
             data["point"] = scale(rng, data["point"], cfg["scale"])
+        if cfg.get("ObjectSample", False):
+            data = self.ObjectSample(data, cfg["ObjectSample"], rng=rng)
         if cfg.get("ObjectRangeFilter", False):
             data = self.ObjectRangeFilter(
                 data, cfg["ObjectRangeFilter"]["point_cloud_range"])

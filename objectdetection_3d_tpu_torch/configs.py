@@ -6,6 +6,8 @@ the JAX package's driver entry (``__graft_entry__._flagship_cfg``);
 ``tiny_cfg`` and ``tiny_model_cfg`` are the small configurations the JAX
 package's multi-chip dry run and model tests use.  ``DEFAULT_TPU_CFG``
 holds the defaults of the ``tpu`` section that the detector reads.
+``preprocess_cfg`` is the repository ``config.yaml``'s ``model.preprocess``
+section, for runs that have no YAML reader.
 
 The model's ``device`` key is not read by ``PointPillars``, which takes
 an explicit ``device=`` argument; the pipeline maps the config's device
@@ -145,6 +147,23 @@ def tiny_model_cfg():
                  max_gt_static=8, assign_candidates_per_gt=64,
                  max_detections=32, compute_dtype="float32"),
         seed=0,
+    )
+
+
+def preprocess_cfg(filter_path="./models/"):
+    """``config.yaml``'s ``model.preprocess`` (the offline chain of
+    ``tools.prepare_data``), with the filter's checkpoint folder
+    ``filter_path``."""
+    return dict(
+        voxelization=dict(voxel_size=[0.03, 0.03, 0.03],
+                          max_voxel_points=15, reflectance_sampling=True),
+        featurizer=dict(normal_rad=0.1, normal_max_nn=50, fpfh_rad=0.1,
+                        fpfh_max_nn=50),
+        filter=dict(path=filter_path, filter_type="mlp",
+                    mlp=dict(device="tpu",
+                             classes={0: "background", 1: "foreground"},
+                             input_channels=37, trunk_confidence=0.5),
+                    xgboost=dict(trunk_confidence=0.75)),
     )
 
 

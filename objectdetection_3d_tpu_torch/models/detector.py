@@ -30,6 +30,10 @@ from objectdetection_3d_tpu_torch.augment import (
     ObjdetAugmentation,
     global_outlier_check,
 )
+from objectdetection_3d_tpu_torch.augment.device_ops import (
+    augment_batch,
+    parse_device_augment_cfg,
+)
 from objectdetection_3d_tpu_torch.configs import DEFAULT_TPU_CFG
 from objectdetection_3d_tpu_torch.losses.losses import (
     CrossEntropyLoss,
@@ -102,9 +106,13 @@ class PointPillars(BaseModel):
         cfg: the model configuration dict (``configs.flagship_cfg()`` and
             friends, or the ``model`` section of a ``Config``; the JAX
             package's keyword arguments as one dict).  ``seed`` seeds the
-            model's host RNG (``self.rng``) and its first weights;
-            ``augment`` configures the host augmentation of
-            :meth:`preprocess`.
+            model's host RNG (``self.rng``), its first weights and
+            ``augment_generator``; ``augment`` configures the host
+            augmentation of :meth:`preprocess` (its ``ObjectSample`` box
+            tests run on ``device``); ``device_augment`` the train steps'
+            augmentation of each batch on the device
+            (``augment/device_ops.py``), drawn from
+            ``augment_generator``.
         device: where the model runs; CUDA unless the caller asks for the
             CPU.  The config's own ``device`` key is not read (the
             pipeline maps it through ``utils.convert_device_name``).
@@ -155,10 +163,13 @@ class PointPillars(BaseModel):
         if cfg.get("use_dense_backbone", False):
             raise NotImplementedError(
                 "use_dense_backbone is not ported yet")
-        if cfg.get("device_augment"):
-            raise NotImplementedError("device_augment is not ported yet")
+        self.device_augment = parse_device_augment_cfg(
+            cfg.get("device_augment"))
+        self.augment_generator = torch.Generator(
+            device=self.device).manual_seed(int(cfg.get("seed", 0) or 0))
         self.augmentor = ObjdetAugmentation(dict(cfg.get("augment") or {}),
-                                            seed=self.rng)
+                                            seed=self.rng,
+                                            device=self.device)
         self.anchor_generator = Anchor3DRangeGenerator(
             ranges=head["ranges"], sizes=head["sizes"],
             rotations=head["rotations"], box_params_num=self.box_params_num)
@@ -383,6 +394,20 @@ class PointPillars(BaseModel):
             betas=(float(betas[0]), float(betas[1])), eps=1e-8,
             weight_decay=float(cfg.get("weight_decay", 1e-2)))
 
+    def augment(self, batch):
+        """The batch with ``device_augment``'s transforms applied on the
+        model's device, drawn from ``augment_generator`` (the batch as it
+        is when ``device_augment`` is empty)."""
+        if not self.device_augment:
+            return batch
+        batch = dict(batch)
+        for key in ("points", "num_points", "bboxes", "gt_mask"):
+            batch[key] = torch.as_tensor(batch[key], device=self.device)
+        batch["points"] = batch["points"].to(torch.float32)
+        batch["bboxes"] = batch["bboxes"].to(torch.float32)
+        return augment_batch(batch, self.device_augment,
+                             self.augment_generator)
+
     def make_train_step(self, tx, microbatch=None):
         """The training step on one device.
 
@@ -396,19 +421,21 @@ class PointPillars(BaseModel):
                 one chunk.
         Returns:
             step(batch) -> {name: detached scalar} of the five losses and
-            ``num_pos``, the batch's positive count: forward in train
-            mode, assignment, losses, backward, clip and update; the net's
-            parameters and running statistics and the optimizer's state
-            change in place.  The phases are ``torch.profiler`` ranges
-            (``forward``, ``assignment`` inside ``loss+backward``,
-            ``optimizer``; per chunk under accumulation), which
-            ``profile_train`` reads from a trace.
+            ``num_pos``, the batch's positive count: ``device_augment``
+            (:meth:`augment`; once per chunk under accumulation), forward
+            in train mode, assignment, losses, backward, clip and update;
+            the net's parameters and running statistics and the
+            optimizer's state change in place.  The phases are
+            ``torch.profiler`` ranges (``forward``, ``assignment`` inside
+            ``loss+backward``, ``optimizer``; per chunk under
+            accumulation), which ``profile_train`` reads from a trace.
         """
         if microbatch is not None:
             return self._accum_step(tx, int(microbatch))
         record = torch.profiler.record_function
 
         def step(batch):
+            batch = self.augment(batch)
             with record("forward"):
                 outs, _ = self.apply(batch, train=True)
             with record("loss+backward"):
@@ -451,8 +478,8 @@ class PointPillars(BaseModel):
             loss_sums = {}
             n_total = torch.zeros((), device=self.device)
             for start in range(0, b, microbatch):
-                mb = {k: v[start:start + microbatch]
-                      for k, v in batch.items()}
+                mb = self.augment({k: v[start:start + microbatch]
+                                   for k, v in batch.items()})
                 with record("forward"):
                     outs, _ = self.apply(mb, train=True)
                 with record("loss+backward"):

@@ -1,7 +1,8 @@
 """Network building blocks of the port.
 
 Port of the point-PFN, dense-masked vertical encoder, submanifold RPN and
-head of the JAX package's ``models/layers.py``.  The sparse convolutions
+head of the JAX package's ``models/layers.py``, and of its foreground
+filter ``MLP``.  The sparse convolutions
 of the reference are dense convolutions times an activity mask, exactly
 as in the JAX package:
 
@@ -181,12 +182,30 @@ class PFNLayerPoints(nn.Module):
                            torch.maximum(pooled, floor[None, :]), pooled)
 
 
+def fixed_point_segment_sum(values, seg, num_segments, frac_bits):
+    """Per-segment sums of the rows of ``values`` (N, C), bit-reproducible.
+
+    Each value is rounded to a multiple of ``2**-frac_bits`` and the
+    segments are summed as int64, which is associative: CUDA's atomics
+    add in an order that changes from call to call, but integer sums do
+    not depend on it.  The caller picks ``frac_bits`` so that no segment's
+    sum reaches 2**62.  Returns (num_segments, C) float64.
+    """
+    scale = float(2 ** frac_bits)
+    q = torch.round(values.double() * scale).to(torch.int64)
+    sums = torch.zeros((num_segments, values.shape[1]), dtype=torch.int64,
+                       device=values.device)
+    return sums.index_add_(0, seg, q).double() / scale
+
+
 class PillarFeatureNet(nn.Module):
     """Voxel feature encoder, point-granularity path.
 
     Decorates each point with its offset from the voxel point centroid (3)
     and from the pillar xy center (2), runs the single PFN layer, and
-    appends ``num_points`` as the final output channel.
+    appends ``num_points`` as the final output channel.  The centroid's
+    sum is :func:`fixed_point_segment_sum`, so predict and the train step
+    give the same bits on every call (float atomics would not).
     """
 
     def __init__(self, in_channels, feat_channels, voxel_size,
@@ -201,6 +220,17 @@ class PillarFeatureNet(nn.Module):
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
         self.dtype = dtype
+        # a valid point lies inside the range, and a voxel sums at most
+        # max_slots of them: the fraction bits that keep |sum| < 2**62
+        int_bits = math.ceil(math.log2(
+            max(abs(v) for v in self.point_cloud_range) + 1))
+        self.frac_bits = 62 - int_bits - math.ceil(math.log2(max_slots + 1))
+        if self.frac_bits < 24:
+            raise ValueError(
+                f"point_cloud_range {self.point_cloud_range} and "
+                f"{max_slots} points per voxel leave {self.frac_bits} "
+                f"fraction bits for the centroid's fixed-point sum; at "
+                f"least 24 are needed")
         self.pfn_0 = PFNLayerPoints(in_channels + 5, chans[0] - 1, max_slots,
                                     dtype=dtype)
 
@@ -219,11 +249,10 @@ class PillarFeatureNet(nn.Module):
         nseg = counts.shape[0]
         xyz = points[:, :3]
         validf = pt_valid.to(points.dtype)[:, None]
-        cnt = counts.clamp(min=1).to(points.dtype)
-        centroid = torch.zeros((nseg, 3), dtype=points.dtype,
-                               device=points.device)
-        centroid = centroid.index_add_(0, seg.long(),
-                                       xyz * validf) / cnt[:, None]
+        cnt = counts.clamp(min=1).double()
+        centroid = (fixed_point_segment_sum(
+            torch.where(pt_valid[:, None], xyz, 0.0), seg.long(), nseg,
+            self.frac_bits) / cnt[:, None]).to(points.dtype)
 
         vx, vy = self.voxel_size[0], self.voxel_size[1]
         x_off = vx / 2 + self.point_cloud_range[0]
@@ -503,3 +532,33 @@ class Anchor3DHead(nn.Module):
             y = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt))
             outs.append(y.float().permute(0, 2, 3, 1))
         return tuple(outs)
+
+
+class MLP(nn.Module):
+    """Foreground/background point classifier: five blocks of Linear,
+    BatchNorm1d, ReLU and dropout, then a Linear to one logit and a
+    sigmoid.  Module names follow the JAX package's flax tree
+    (``dense_i``, ``bn_i``, ``out``), so ``models/weights.py`` carries its
+    variables; the batch norms take flax's epsilon (1e-5) and its
+    momentum (0.99 of the old statistics kept)."""
+
+    def __init__(self, input_channels=37, hidden=(100, 500, 250, 100, 25),
+                 dropout=0.2):
+        super().__init__()
+        self.hidden = tuple(int(h) for h in hidden)
+        self.dropout = float(dropout)
+        width = int(input_channels)
+        for i, h in enumerate(self.hidden):
+            self.add_module(f"dense_{i}", nn.Linear(width, h))
+            self.add_module(f"bn_{i}", nn.BatchNorm1d(h, eps=1e-5,
+                                                      momentum=0.01))
+            width = h
+        self.out = nn.Linear(width, 1)
+
+    def forward(self, x):
+        """(N, input_channels) float32 -> (N, 1) probabilities."""
+        for i in range(len(self.hidden)):
+            x = getattr(self, f"dense_{i}")(x)
+            x = F.relu(getattr(self, f"bn_{i}")(x))
+            x = F.dropout(x, self.dropout, self.training)
+        return torch.sigmoid(self.out(x))

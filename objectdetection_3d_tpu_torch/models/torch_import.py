@@ -1,12 +1,13 @@
-"""Import the reference PyTorch detector's checkpoints into the port.
+"""Import the reference PyTorch checkpoints into the port.
 
 The reference ships training checkpoints ``{epoch, model_state_dict,
 optimizer_state_dict}`` (reference pipeline/pipeline.py:36-50) of its
-spconv ``PointPillars``.  Port of the detector half of the JAX package's
-``models/torch_import.py``: the state dict becomes the JAX package's
-``{"params", "batch_stats"}`` tree of numpy arrays, which
+spconv ``PointPillars``, and its foreground-filter MLP as
+``model/models/mlp.pth`` (reference model/utils.py:107-124).  Port of the
+JAX package's ``models/torch_import.py``: a state dict becomes the JAX
+package's ``{"params", "batch_stats"}`` tree of numpy arrays, which
 ``models/weights.from_jax_variables`` loads into the port's
-``PointPillarsNet``.
+``PointPillarsNet`` or ``MLP``.
 
 Layout conversions (reference -> tree):
 
@@ -18,8 +19,6 @@ Layout conversions (reference -> tree):
 * ``spconv.SparseConv3d`` (3,1,1) weight (out, 3, 1, 1, in) -> (3, in, out)
 * ``nn.BatchNorm``  weight/bias/running_mean/running_var ->
                     scale/bias (params) + mean/var (batch_stats)
-
-The foreground-filter MLP's importer comes with that MLP (ROADMAP A9).
 """
 
 import os
@@ -59,6 +58,34 @@ def _bn(sd, prefix):
     stats = {"mean": sd[prefix + ".running_mean"].astype(np.float32),
              "var": sd[prefix + ".running_var"].astype(np.float32)}
     return params, stats
+
+
+def mlp_variables_from_torch(state_dict_or_path):
+    """Reference foreground-filter MLP (model/mlp.py) state dict -> the
+    variable tree of ``models.layers.MLP``: torch names
+    ``hidden{1..5}`` / ``bn{1..5}`` / ``hidden6`` map onto ``dense_{0..4}``
+    / ``bn_{0..4}`` / ``out``."""
+    sd = _state_dict(state_dict_or_path)
+    params, stats = {}, {}
+    for i in range(5):
+        params[f"dense_{i}"] = {
+            "kernel": sd[f"hidden{i + 1}.weight"].T.astype(np.float32),
+            "bias": sd[f"hidden{i + 1}.bias"].astype(np.float32),
+        }
+        params[f"bn_{i}"], stats[f"bn_{i}"] = _bn(sd, f"bn{i + 1}")
+    params["out"] = {
+        "kernel": sd["hidden6.weight"].T.astype(np.float32),
+        "bias": sd["hidden6.bias"].astype(np.float32),
+    }
+    return {"params": params, "batch_stats": stats}
+
+
+def load_reference_mlp(mlp, path_or_state_dict):
+    """Load a reference-layout ``mlp.pth`` (a path, bare state dict or
+    checkpoint envelope) or a {name: array} state dict into the port's
+    ``MLP`` ``mlp``; a missing weight raises ``KeyError``, a width that
+    does not match ``mlp`` ``ValueError``."""
+    from_jax_variables(mlp, mlp_variables_from_torch(path_or_state_dict))
 
 
 def _conv2d_kernel(w):

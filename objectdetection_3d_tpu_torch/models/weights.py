@@ -15,6 +15,10 @@ flax leaf                      port name                   layout change
 ``.../bias``                   ``.../bias``                none
 ``batch_stats/.../mean|var``   ``.../running_mean|var``    none
 =============================  ==========================  ================
+
+The same map carries the foreground filter's ``MLP`` (``dense_i``,
+``bn_i``, ``out``); its ``BatchNorm1d`` counters
+(``num_batches_tracked``) have no flax leaf and are left as they are.
 """
 
 import numpy as np
@@ -22,6 +26,8 @@ import torch
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
+# BatchNorm1d's step counter: no flax leaf
+_COUNTER = "num_batches_tracked"
 
 
 def _flatten(tree, prefix=()):
@@ -90,7 +96,8 @@ def from_jax_variables(net, variables):
     Every leaf must map to a parameter or buffer of matching shape, and
     every parameter and buffer of ``net`` must be covered.
     """
-    state = net.state_dict()
+    state = {k: v for k, v in net.state_dict().items()
+             if not k.endswith(_COUNTER)}
     loaded = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _flatten(dict(variables.get(collection, {}))):
@@ -106,7 +113,8 @@ def from_jax_variables(net, variables):
     missing = sorted(set(state) - set(loaded))
     if missing:
         raise KeyError(f"JAX variables lack {missing}")
-    net.load_state_dict(loaded, strict=True)
+    # every other entry is checked above; the counters keep their values
+    net.load_state_dict(loaded, strict=False)
 
 
 def to_jax_variables(net):
@@ -114,6 +122,8 @@ def to_jax_variables(net):
     (the inverse of :func:`from_jax_variables`)."""
     tree = {"params": {}, "batch_stats": {}}
     for name, val in net.state_dict().items():
+        if name.endswith(_COUNTER):
+            continue
         arr = val.detach().to("cpu", torch.float32).numpy()
         collection, path, arr = _port_to_leaf(name, arr)
         node = tree[collection]

@@ -286,12 +286,26 @@ def chunk_geometry(ftab, gid, tabs, combo, cells, g_sentinel):
         keys and GT ids); and ``rmax`` (gch, Nc), each GT's containment
         maximum over the combos of a cell.  N = Nc * M in flat cell-major
         order.
+    Raises:
+        ValueError: on the card, for a live GT row (mask > 0) with a
+            negative or NaN dim, naming its id.
     """
     dev, gch, m, nc = _check(ftab, tabs, combo, cells, {
         "gid": (gid, (ftab.shape[0],), torch.int32)})
     if dev.type == "cpu":
         return chunk_geometry_plain(ftab, gid, tabs, combo, cells,
                                     g_sentinel)
+    # the kernel keeps a (GT, cell) containment maximum only where it is
+    # >= 0: a live GT with a negative (or NaN) dim, whose containment IoUs
+    # can all be negative, is refused (not while a CUDA graph is being
+    # captured: the check reads the flags back to the host)
+    if not torch.cuda.is_current_stream_capturing():
+        bad = (ftab[:, 16] > 0) & ~(ftab[:, 9:12] >= 0).all(dim=1)
+        if bool(bad.any()):
+            raise ValueError(
+                f"chunk_geometry: GT rows {gid[bad].tolist()} have a "
+                f"negative or NaN dim; the kernel takes boxes with "
+                f"non-negative dims")
     n = nc * m
     key = torch.empty((gch, n), dtype=torch.float32, device=dev)
     outf = torch.empty((4, n), dtype=torch.float32, device=dev)

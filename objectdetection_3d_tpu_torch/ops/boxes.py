@@ -4,16 +4,16 @@ Box convention (as in the JAX package's ``ops/boxes.py``):
 ``(x, y, z, dx, dy, dz, rx, ry, rz)`` where ``z`` is the **bottom** of the
 box, rotation is ``Rz @ Ry @ Rx`` about the bottom center ``(x, y, z)``,
 and angles are radians.  What decode, NMS and the metrics use is ported
-here, with the host-side validators that ``run_inference(validate=True)``
-and ``MetricEvaluator.evaluate(validate=True)`` run on user boxes.
+here, with the point and collision tests of GT sampling
+(``ops/sampling.py``) and the host-side validators that
+``run_inference(validate=True)`` and
+``MetricEvaluator.evaluate(validate=True)`` run on user boxes.
 """
 
 import math
 
 import numpy as np
 import torch
-
-from objectdetection_3d_tpu_torch.augment.numpy_ops import bbox2corners3D_np
 
 # Corner layout: p0=(-,-,z) p1=(+,-,z) p2=(+,+,z) p3=(-,+,z) bottom,
 # p4..p7 the same xy at z+dz (top).
@@ -118,6 +118,47 @@ def box_axes(boxes):
     return rot, mid
 
 
+# point-box pairs per chunk of points_in_boxes: its (chunk, N, 3)
+# temporaries stay near 200 MB in float32 (1.95 M points x 100 boxes in one
+# piece would take 2.3 GB each)
+POINTS_IN_BOXES_PAIRS = 2 ** 24
+
+
+def points_in_boxes(points, boxes, eps=0.0):
+    """Mask of points inside rotated boxes: a point p is inside box b iff
+    ``|axis_i . (p - mid)| * 2 < dim_i + eps`` on all three axes.
+
+    Args:
+        points: (P, >=3) tensor.
+        boxes: (N, 9) tensor on the same device.
+    Returns:
+        (P, N) bool mask, computed in chunks of points of at most
+        ``POINTS_IN_BOXES_PAIRS`` point-box pairs.
+    """
+    rot, mid = box_axes(boxes)
+    limit = boxes[None, :, 3:6] + eps
+    step = max(POINTS_IN_BOXES_PAIRS // max(boxes.shape[0], 1), 1)
+    out = []
+    for start in range(0, points.shape[0], step):
+        d = points[start:start + step, None, :3] - mid[None]   # (p, N, 3)
+        # axis coordinates, summed in the order of a 3-term dot product
+        proj = (d[..., 0:1] * rot[None, :, 0] + d[..., 1:2] * rot[None, :, 1]
+                + d[..., 2:3] * rot[None, :, 2])
+        out.append((proj.abs() * 2 < limit).all(dim=-1))
+    if not out:
+        return torch.zeros((0, boxes.shape[0]), dtype=torch.bool,
+                           device=boxes.device)
+    return torch.cat(out)
+
+
+def box_collision_test(boxes, qboxes):
+    """(N, K) bool: the BEV envelopes of the rotated corners of ``boxes``
+    and ``qboxes`` overlap."""
+    a = rotated_corners_2d_envelope(boxes)
+    b = rotated_corners_2d_envelope(qboxes)
+    return iou_aabb_2d(a, b) > 0
+
+
 # ---------------------------------------------------------------------------
 # Host-side validators (numpy, raising)
 # ---------------------------------------------------------------------------
@@ -189,6 +230,11 @@ def validate_boxes(boxes, eps=1e-4):
             "Boxes contain non-finite values. This applies for bboxes in "
             "positions: {}".format(
                 np.flatnonzero(~np.isfinite(boxes).all(axis=1))))
+    # here, not at the top: the augment package imports this module
+    from objectdetection_3d_tpu_torch.augment.numpy_ops import (
+        bbox2corners3D_np,
+    )
+
     corners = np.stack([bbox2corners3D_np(b) for b in boxes])
     check_coplanar(corners, eps)
     check_nonzero(corners, eps)

@@ -1,7 +1,9 @@
 """Training-state checkpoints as ``.pth`` files.
 
 A checkpoint is ``torch.save`` of ``{epoch, model_state_dict,
-optimizer_state_dict}`` in ``ckpt_{epoch:05d}.pth`` (periodic) or
+optimizer_state_dict}``, with ``augment_rng_state`` (the state of the
+train step's ``device_augment`` generator) when there is one, in
+``ckpt_{epoch:05d}.pth`` (periodic) or
 ``ckpt_best.pth`` (best validation F1).  The state is copied to host
 memory before a save returns, and written to a temporary file that is
 then renamed, so a preemption mid-write never leaves a truncated file
@@ -41,15 +43,18 @@ def _to_host(obj):
     return obj
 
 
-def snapshot(epoch, net, optimizer=None):
-    """The checkpoint payload of ``net`` (and ``optimizer``) on the
-    host."""
-    return {
+def snapshot(epoch, net, optimizer=None, generator=None):
+    """The checkpoint payload of ``net`` (and ``optimizer``, and the state
+    of the ``torch.Generator`` ``generator``) on the host."""
+    payload = {
         "epoch": int(epoch),
         "model_state_dict": _to_host(net.state_dict()),
         "optimizer_state_dict": (None if optimizer is None
                                  else _to_host(optimizer.state_dict())),
     }
+    if generator is not None:
+        payload["augment_rng_state"] = generator.get_state()
+    return payload
 
 
 def _write(path, payload):
@@ -59,9 +64,10 @@ def _write(path, payload):
     os.replace(tmp, path)
 
 
-def save_ckpt(path, epoch, net, optimizer=None):
-    """Write a checkpoint of ``net`` and ``optimizer`` to ``path``."""
-    _write(path, snapshot(epoch, net, optimizer))
+def save_ckpt(path, epoch, net, optimizer=None, generator=None):
+    """Write a checkpoint of ``net``, ``optimizer`` and ``generator``'s
+    state to ``path``."""
+    _write(path, snapshot(epoch, net, optimizer, generator))
 
 
 class AsyncSaver:
@@ -78,8 +84,8 @@ class AsyncSaver:
             max_workers=1, thread_name_prefix="ckpt-writer")
         self._pending = []
 
-    def save(self, path, epoch, net, optimizer=None):
-        payload = snapshot(epoch, net, optimizer)
+    def save(self, path, epoch, net, optimizer=None, generator=None):
+        payload = snapshot(epoch, net, optimizer, generator)
         self._pending = [f for f in self._pending if not f.done()]
         self._pending.append(self._executor.submit(_write, path, payload))
 

@@ -166,9 +166,10 @@ class ObjectDetection(BasePipeline):
             if not hasattr(self, "_ckpt_saver"):
                 self._ckpt_saver = ckpt_io.AsyncSaver()
             self._ckpt_saver.save(path, epoch, self.model.net,
-                                  self.optimizer)
+                                  self.optimizer, self._augment_generator())
         else:
-            ckpt_io.save_ckpt(path, epoch, self.model.net, self.optimizer)
+            ckpt_io.save_ckpt(path, epoch, self.model.net, self.optimizer,
+                              self._augment_generator())
         log.info(f"Epoch {epoch:3d}: save ckpt to {path:s}")
 
     def wait_for_ckpts(self):
@@ -231,6 +232,9 @@ class ObjectDetection(BasePipeline):
                 self.optimizer.load_state_dict(opt_state)
             except (ValueError, KeyError) as e:  # another optimizer layout
                 log.warning("Could not restore optimizer state: %s", e)
+        rng_state = payload.get("augment_rng_state")
+        if rng_state is not None and self._augment_generator() is not None:
+            self.model.augment_generator.set_state(rng_state.cpu())
         return epoch, ckpt_path
 
     # ------------------------------------------------------------------
@@ -238,9 +242,20 @@ class ObjectDetection(BasePipeline):
     # ------------------------------------------------------------------
     def _init_state(self):
         """Fresh parameters and running statistics, drawn through a
-        ``torch.Generator`` seeded from the pipeline's RNG."""
+        ``torch.Generator`` seeded from the pipeline's RNG; with
+        ``device_augment``, the model's ``augment_generator`` seeded from
+        the next draw of that RNG."""
         seed = int(self.rng.integers(np.iinfo(np.int32).max))
         init_parameters(self.model.net, torch.Generator().manual_seed(seed))
+        if self.model.device_augment:
+            self.model.augment_generator.manual_seed(
+                int(self.rng.integers(np.iinfo(np.int32).max)))
+
+    def _augment_generator(self):
+        """The generator whose state a checkpoint carries: the model's
+        ``augment_generator`` under ``device_augment``, else None."""
+        return (self.model.augment_generator if self.model.device_augment
+                else None)
 
     def _device_arrays(self, batch):
         return {k: torch.as_tensor(v, device=self.device)

@@ -62,7 +62,7 @@ class TiledInference:
 
     def __init__(self, model, overlap=5.0, batch_tiles=1,
                  max_merge_boxes=2048, predict_fn=None, device_crop=True,
-                 crop_cols=8, fused=None):
+                 crop_cols=8):
         """
         Args:
             model: the port's ``PointPillars``, weights loaded; tiles run
@@ -73,20 +73,14 @@ class TiledInference:
             max_merge_boxes: budget of the global NMS merge; above it the
                 top-scoring candidates are kept.
             predict_fn: external ``predict(batch)``, e.g. a
-                ``model.make_predict_fn()`` of another model.  Supplying
-                one turns ``fused`` off by default.
+                ``model.make_predict_fn()`` of another model; default the
+                model's own ``predict``.
             device_crop: crop tiles on the model's device; False = numpy
                 host crop.
             crop_cols: x-columns per tile width for the sort grid.  The
                 crop is exact in y; finer columns cut the out-of-window
                 x-margin (wasted point budget) at the cost of more gather
                 runs per tile.
-            fused: with ``device_crop``, predict with the model's own
-                ``predict`` instead of ``predict_fn``.  In the JAX
-                package this selects one jitted whole-scene program over
-                an external predict; in the port both run the same crop
-                code and differ only in the predict they call.  Default:
-                on when no ``predict_fn`` is given.
         """
         self.model = model
         self.overlap = float(overlap)
@@ -94,7 +88,6 @@ class TiledInference:
         self.max_merge_boxes = int(max_merge_boxes)
         self.device_crop = bool(device_crop)
         self.crop_cols = int(crop_cols)
-        self.fused = (predict_fn is None) if fused is None else bool(fused)
         self._predict = predict_fn or model.make_predict_fn()
 
         pcr = model.point_cloud_range
@@ -314,7 +307,6 @@ class TiledInference:
                 [shifts_np, np.repeat(shifts_np[-1:], pad_tiles, 0)])
 
         if self.device_crop:
-            predict = self.model.predict if self.fused else self._predict
             lo0 = float(lo[0])
             sorted_scene, key = self._sort_scene_cols(
                 torch.as_tensor(points, device=dev), lo0)
@@ -322,7 +314,6 @@ class TiledInference:
             u = self._compaction_draws(dev)
             num = torch.full((bt,), max_pts, dtype=torch.int32, device=dev)
         else:
-            predict = self._predict
             sorted_pts, starts, grid = self._bucket_sort(points, lo)
 
         # every chunk is enqueued before any result is read back
@@ -343,7 +334,7 @@ class TiledInference:
                     batch_pts[j, :local.shape[0]] = local
                     batch_n[j] = local.shape[0]
                 batch = {"points": batch_pts, "num_points": batch_n}
-            pending.append(predict(batch))
+            pending.append(self._predict(batch))
 
         # one copy to the host for the whole scene
         packed = torch.cat([torch.cat(

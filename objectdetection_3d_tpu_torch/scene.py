@@ -4,8 +4,9 @@ name and power limit.
 ``chip_smoke.py``, ``profile_predict`` and ``profile_train`` build their
 clouds and ground-truth boxes here, so all three run the same inputs;
 ``chip_smoke.py`` and ``variant_times`` build the aligned clipper's box
-pairs here too, and ``chip_smoke.py`` its plot-scale scene and its
-synthetic reference state dict.
+pairs here too, and ``chip_smoke.py`` its plot-scale scene, its scenes of
+leaning trunks and its synthetic reference state dicts (the detector's
+and the foreground filter MLP's).
 """
 
 import subprocess
@@ -49,6 +50,57 @@ def tree_scene(seed, extent=40.0, n_trees=12, n_points=N_POINTS):
         refl = rng.uniform(0.3, 1.0, (k, 1))
         pts.append(np.concatenate([trunk, refl], -1))
         boxes.append([cx, cy, z0, 2 * radius, 2 * radius, height, 0, 0, 0])
+    n_noise = n_points - sum(len(p) for p in pts)
+    noise = np.concatenate(
+        [rng.uniform([0, 0, 0], [extent, extent, 25], (n_noise, 3)),
+         rng.uniform(0, 0.3, (n_noise, 1))], -1)
+    pts.append(noise)
+    cloud = np.concatenate(pts).astype(np.float32)
+    return (cloud[rng.permutation(len(cloud))],
+            np.asarray(boxes, np.float32))
+
+
+def _rotation_zyx(rx, ry, rz):
+    """Rz @ Ry @ Rx, float64 (the box convention of ``ops/boxes.py``)."""
+    cx, sx, cy, sy, cz, sz = (np.cos(rx), np.sin(rx), np.cos(ry),
+                              np.sin(ry), np.cos(rz), np.sin(rz))
+    rot_x = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    rot_y = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    rot_z = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return rot_z @ rot_y @ rot_x
+
+
+def tilted_tree_scene(seed, extent=40.0, n_trees=12, n_points=N_POINTS,
+                      max_tilt=0.15):
+    """A 40x40 m plot of leaning trunks over uniform clutter: as
+    :func:`tree_scene`, but each trunk leans by rx and ry drawn from
+    U(-max_tilt, max_tilt) rad about its bottom centre, and its yaw rz
+    from U(-pi, pi).
+
+    Returns exactly ``n_points`` points of (x, y, z, reflectance) and each
+    trunk's box (cx, cy, z0, 2r, 2r, height, rx, ry, rz), z at the box
+    bottom, angles in radians; every trunk point lies inside its box.
+    """
+    rng = np.random.default_rng(seed)
+    pts, boxes = [], []
+    for _ in range(n_trees):
+        cx, cy = rng.uniform(2.0, extent - 2.0, 2)
+        z0 = rng.uniform(0.2, 1.0)
+        height = rng.uniform(10.0, 14.0)
+        radius = rng.uniform(0.25, 0.45)
+        rx, ry = rng.uniform(-max_tilt, max_tilt, 2)
+        rz = rng.uniform(-np.pi, np.pi)
+        k = int(rng.integers(2500, 4000))
+        ang = rng.uniform(0, 2 * np.pi, k)
+        # 0.98: keep each point off the box faces by float rounding
+        rad = 0.98 * radius * np.sqrt(rng.uniform(0, 1, k))
+        z = height * (0.005 + 0.99 * rng.uniform(0, 1, k) ** 0.7)
+        local = np.stack([rad * np.cos(ang), rad * np.sin(ang), z], -1)
+        trunk = local @ _rotation_zyx(rx, ry, rz).T + [cx, cy, z0]
+        refl = rng.uniform(0.3, 1.0, (k, 1))
+        pts.append(np.concatenate([trunk, refl], -1))
+        boxes.append([cx, cy, z0, 2 * radius, 2 * radius, height, rx, ry,
+                      rz])
     n_noise = n_points - sum(len(p) for p in pts)
     noise = np.concatenate(
         [rng.uniform([0, 0, 0], [extent, extent, 25], (n_noise, 3)),
@@ -192,4 +244,28 @@ def reference_state_dict(net, seed=0):
              cin)
         sd[f"bbox_head.conv_dir_cls_{ax}.bias"] = rng.normal(0, 0.1,
                                                              out // 3)
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def reference_mlp_state_dict(input_channels=37, seed=0,
+                             hidden=(100, 500, 250, 100, 25)):
+    """A synthetic state dict of the reference's foreground-filter MLP
+    (``hidden1``-``hidden6`` Linear layers, ``bn1``-``bn5`` batch norms)
+    in its own names and layouts: what
+    ``models/torch_import.load_reference_mlp`` reads.  Weights from
+    ``default_rng(seed)`` at a 1 / fan-in variance; batch norms get random
+    affines and running statistics."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    widths = (int(input_channels),) + tuple(hidden) + (1,)
+    for i in range(len(widths) - 1):
+        cin, out = widths[i], widths[i + 1]
+        sd[f"hidden{i + 1}.weight"] = rng.normal(0, np.sqrt(1.0 / cin),
+                                                 (out, cin))
+        sd[f"hidden{i + 1}.bias"] = rng.normal(0, 0.1, out)
+        if i < len(hidden):
+            sd[f"bn{i + 1}.weight"] = rng.uniform(0.5, 1.5, out)
+            sd[f"bn{i + 1}.bias"] = rng.normal(0, 0.1, out)
+            sd[f"bn{i + 1}.running_mean"] = rng.normal(0, 0.3, out)
+            sd[f"bn{i + 1}.running_var"] = rng.uniform(0.5, 2.0, out)
     return {k: np.asarray(v, np.float32) for k, v in sd.items()}

@@ -121,6 +121,45 @@ def test_chunk_geometry_plain_matches_interpret(tiny_geometry):
     assert (got["cm"] > 0).any() and (got["mb"] == 0).any()
 
 
+def test_chunk_geometry_plain_matches_interpret_on_negative_dims(
+        tiny_geometry):
+    """C9: GT rows with negative dims (one dim, and all three) go through
+    the plain version as through the JAX body; on the card K3 refuses
+    them (``tests/test_torch_port_cuda.py``)."""
+    _, layout, _, gt, mask, t_layout = tiny_geometry
+    gt = gt.copy()
+    gt[0, 3] *= -1.0
+    gt[2, 4:6] *= -1.0
+    gt[1, 3:6] = -20.0          # its containment IoUs are negative
+    gch = gt.shape[0]
+    nc = layout[0].shape[0]
+    want = jax_chunk_geometry(
+        jnp.asarray(gt), jnp.asarray(mask), jnp.arange(gch, dtype=jnp.int32),
+        layout, jnp.asarray(_pad_cells(layout[0])[0]),
+        jnp.asarray(_combo_table(layout)), 7, interpret=True)
+    ftab, tabs = geo.chunk_tables(torch.from_numpy(gt),
+                                  torch.from_numpy(mask), t_layout)
+    cell, cell_on_v = geo._anchor_frame(geo.combo_table(t_layout),
+                                        t_layout[0])
+    iou, _, _ = geo._containment(ftab[1], tabs, 1, geo.combo_table(t_layout),
+                                 cell, cell_on_v, False)
+    assert float(iou.min()) < 0.0
+    got = geo.chunk_geometry(ftab, torch.arange(gch, dtype=torch.int32),
+                             tabs, geo.combo_table(t_layout), t_layout[0], 7)
+    np.testing.assert_allclose(got["key"].numpy(),
+                               _m_major_to_flat(want["key"], nc), **KEY_TOL)
+    for name in ("cm", "v1", "v2", "v3"):
+        np.testing.assert_allclose(got[name].numpy(),
+                                   _m_major_to_flat(want[name], nc),
+                                   **KEY_TOL, err_msg=name)
+    for name in ("cb", "a1", "a2", "a3", "mb"):
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      _m_major_to_flat(want[name], nc),
+                                      err_msg=name)
+    np.testing.assert_allclose(got["rmax"].numpy(),
+                               np.asarray(want["rmax"])[:, :nc], **KEY_TOL)
+
+
 @pytest.mark.parametrize("ok", [(1, 1, 1, 1, 1), (0, 1, 0, 0, 0)])
 def test_containment_rescue_plain_matches_interpret(tiny_geometry, ok):
     _, layout, _, gt, mask, t_layout = tiny_geometry

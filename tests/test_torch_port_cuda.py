@@ -15,7 +15,11 @@ their kernel launches counted.  The conv kernels K8, K9 (forward, and the
 backward's dx and dw) and K10 sum in float32 in another order than their
 plain versions: in float32 within 1e-4 of the largest element (with TF32
 off), in bf16 within 1e-2 (a few bf16 roundings of the output, or of
-K8's intermediate, land on the other side).
+K8's intermediate, land on the other side).  C8: predict (float32 and
+bf16) and three train steps (with and without ``device_augment``) give
+the same bits on every run with PyTorch's deterministic mode off.  C9:
+K3's wrapper refuses live GT rows with a negative or NaN dim and stays
+bit-exact with them masked.
 
 Marked ``cuda``: without a CUDA device (or without nvcc) every test skips
 with its reason.  On the card:
@@ -958,3 +962,92 @@ def test_tiled_inference_on_card(cuda, exact_fp32):
     for a, b in zip(sorted(got, key=key), sorted(want, key=key)):
         assert a["label"] == b["label"]
         np.testing.assert_allclose(a["bbox"], b["bbox"], atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_predict_is_bitwise_reproducible_on_card(cuda, exact_fp32, dtype):
+    """C8: two predicts of one batch with PyTorch's deterministic mode
+    off give the same bits (the PFN's centroid sums in integers)."""
+    from tiny import tiny_batch
+
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+
+    _, card = _tiny_models(cuda)
+    cfg = configs.tiny_model_cfg()
+    cfg["tpu"] = dict(cfg["tpu"], compute_dtype=dtype)
+    # the seeded weights score every anchor near 0.01: keep them all
+    cfg["head"] = dict(cfg["head"], score_thr=0.0)
+    model = PointPillars(cfg, device=cuda)
+    model.net.load_state_dict(card.net.state_dict())
+    assert not torch.are_deterministic_algorithms_enabled()
+    batch = tiny_batch(batch_size=2, seed=4)
+    first = model.predict(batch)
+    for _ in range(3):
+        again = model.predict(batch)
+        for key in first:
+            assert torch.equal(first[key], again[key]), key
+    assert bool(first["valid"].any())
+
+
+@pytest.mark.parametrize("augment", [False, True])
+def test_train_steps_are_bitwise_reproducible_on_card(cuda, augment):
+    """C8: three train steps from one start, run twice with the
+    deterministic mode off, give the same losses and every parameter and
+    running statistic bit for bit (with ``device_augment``, from the same
+    generator seed)."""
+    from tiny import tiny_batch
+
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+
+    start, _ = _tiny_models(cuda)
+    cfg = configs.tiny_model_cfg()
+    if augment:
+        cfg["device_augment"] = {"rotate": {}, "flip_x": True,
+                                 "translate": {"std": 0.3}}
+    runs = []
+    for _ in range(2):
+        model = PointPillars(cfg, device=cuda)
+        model.net.load_state_dict(start.net.state_dict())
+        step = model.make_train_step(model.get_optimizer(
+            dict(lr=1e-3), grad_clip_value=2.0))
+        losses = [step(tiny_batch(batch_size=2, seed=s)) for s in (1, 2, 3)]
+        runs.append((losses, model.net.state_dict()))
+    for a, b in zip(runs[0][0], runs[1][0]):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+    for name, val in runs[0][1].items():
+        assert torch.equal(val, runs[1][1][name]), name
+
+
+def test_chunk_geometry_refuses_live_rows_with_negative_dims(cuda):
+    """C9: K3 keeps a (GT, cell) containment maximum only where it is
+    >= 0, so its wrapper refuses a live GT row with a negative (or NaN)
+    dim, naming it; masked rows with negative dims stay bit-exact."""
+    rng = np.random.default_rng(7)
+    anchors, layout = _grid_layout(rng, 1001, cuda)
+    gt = np.zeros((5, 9), np.float32)
+    gt[:, :2] = rng.uniform(0, 40, (5, 2))
+    gt[:, 3:6] = [0.8, 0.8, 12.0]
+    gt[2, 3:6] = -30.0
+    gt[4, 4] = np.nan
+    combo = combo_table(layout)
+    gid = torch.arange(10, 15, dtype=torch.int32, device=cuda)
+    for live, named in (([1, 1, 1, 1, 0], "[12]"),
+                        ([1, 1, 0, 1, 1], "[14]")):
+        mask = torch.tensor(live, dtype=torch.bool, device=cuda)
+        ftab, tabs = chunk_tables(torch.from_numpy(gt).to(cuda), mask,
+                                  layout)
+        before = chunk_geometry.launches
+        with pytest.raises(ValueError, match=named.replace("[", r"\[")):
+            chunk_geometry(ftab, gid, tabs, combo, layout[0], 128)
+        assert chunk_geometry.launches == before
+    gt[4, 4] = 0.8
+    mask = torch.tensor([1, 1, 0, 1, 1], dtype=torch.bool, device=cuda)
+    ftab, tabs = chunk_tables(torch.from_numpy(gt).to(cuda), mask, layout)
+    got = chunk_geometry(ftab, gid, tabs, combo, layout[0], 128)
+    want = chunk_geometry_plain(ftab, gid, tabs, combo, layout[0], 128)
+    torch.cuda.synchronize()
+    for name in want:
+        assert torch.equal(got[name], want[name]), name

@@ -250,13 +250,21 @@ def test_augmentation_matches_jax(name):
         _assert_items_equal(got, want)
 
 
-def test_object_sample_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A9"):
-        ObjdetAugmentation({"ObjectSample": {"db_path": "x"}})
-    cfg = configs.tiny_model_cfg()
-    cfg["augment"] = {"ObjectSample": {"db_path": "x"}}
-    with pytest.raises(NotImplementedError, match="A9"):
-        PointPillars(cfg, device="cpu")
+def test_object_sample_is_not_ported(tmp_path):
+    """ObjectSample is ported (its parity tests are in
+    ``test_torch_port_gt_sampling.py``): the augmentor and the model take
+    it, and the database is read at the first augment, where a missing
+    file raises."""
+    cfg = {"ObjectSample": {"db_path": str(tmp_path / "none.pkl"),
+                            "sample_dict": {0: 2}}}
+    aug = ObjdetAugmentation(cfg)
+    model_cfg = configs.tiny_model_cfg()
+    model_cfg["augment"] = cfg
+    PointPillars(model_cfg, device="cpu")
+    data = {"point": np.zeros((4, 4), np.float32),
+            "bboxes": np.zeros((0, 9), np.float32), "labels": np.zeros(0)}
+    with pytest.raises(FileNotFoundError):
+        aug.augment(data, {}, seed=0)
 
 
 @pytest.fixture(scope="module")

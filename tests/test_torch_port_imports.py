@@ -44,6 +44,19 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# the data-preparation and augmentation modules, walked like the rest
+DATA_PATH_MODULES = (
+    "augment/device_ops.py", "augment/gt_database.py",
+    "dataset/rdb_tools.py", "models/preprocess_tools.py",
+    "models/xgb_infer.py", "ops/sampling.py", "tools/__init__.py",
+    "tools/build_gt_database.py", "tools/prepare_data.py")
+
+
+@pytest.mark.parametrize("module", DATA_PATH_MODULES)
+def test_data_path_modules_are_walked(module):
+    assert PORT / module in _sources()
+
+
 def test_rule_tells_the_port_from_the_jax_package():
     assert _forbidden("objectdetection_3d_tpu.ops.boxes")
     assert _forbidden("jax.numpy")

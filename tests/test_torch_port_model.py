@@ -19,6 +19,7 @@ import jax
 from objectdetection_3d_tpu.models import PointPillars as JaxPointPillars
 from objectdetection_3d_tpu_torch import configs
 from objectdetection_3d_tpu_torch.models.detector import PointPillars
+from objectdetection_3d_tpu_torch.models.layers import fixed_point_segment_sum
 from objectdetection_3d_tpu_torch.models.weights import (
     from_jax_variables,
     load_npz,
@@ -190,4 +191,28 @@ def test_unported_paths_raise(key, value):
     else:
         cfg[key] = value
     with pytest.raises(NotImplementedError):
+        PointPillars(cfg, device="cpu")
+
+
+def test_centroid_sum_is_exact_and_order_free():
+    """C8: the PFN's centroid sum is integer arithmetic, so no order of
+    its atomics on the card changes a bit: here, a permutation of the
+    rows.  Each value is within 2^-frac_bits of float64's sum."""
+    rng = np.random.default_rng(0)
+    seg = torch.as_tensor(np.sort(rng.integers(0, 300, 5000)))
+    vals = torch.as_tensor(rng.uniform(0, 40, (5000, 3)).astype(np.float32))
+    net = PointPillars(configs.flagship_cfg(), device="cpu").net
+    bits = net.voxel_encoder.frac_bits
+    assert bits == 50
+    got = fixed_point_segment_sum(vals, seg, 301, bits)
+    want = torch.zeros((301, 3), dtype=torch.float64).index_add_(
+        0, seg, vals.double())
+    counts = torch.bincount(seg, minlength=301)[:, None].double()
+    assert bool(((got - want).abs() <= counts * 2.0 ** -bits).all())
+    perm = torch.as_tensor(rng.permutation(5000))
+    assert torch.equal(fixed_point_segment_sum(vals[perm], seg[perm], 301,
+                                               bits), got)
+    cfg = configs.tiny_model_cfg()
+    cfg["point_cloud_range"] = [0.0, 0.0, 0.0, 8.0, 8.0, 4.0e12]
+    with pytest.raises(ValueError, match="fraction bits"):
         PointPillars(cfg, device="cpu")

@@ -302,21 +302,7 @@ def test_device_path_matches_the_host_path(trained, batch_tiles):
                           device_crop=False)(scene)
     ti = TiledInference(port, overlap=2.0, max_merge_boxes=64,
                         batch_tiles=batch_tiles)
-    assert ti.fused
     _same_detections(ti(scene), host, 1e-3)
-
-
-def test_fused_selects_the_models_predict(trained):
-    _, _, port, batch = trained
-    scene = _two_tree_scene(batch)
-    recorded = []
-    external = TiledInference(port, overlap=2.0, max_merge_boxes=64,
-                              predict_fn=_recorder(recorded))
-    assert not external.fused and external(scene) == [] and recorded
-    recorded.clear()
-    own = TiledInference(port, overlap=2.0, max_merge_boxes=64,
-                         predict_fn=_recorder(recorded), fused=True)
-    assert own(scene) and not recorded
 
 
 def test_merge_suppresses_duplicates(trained):
