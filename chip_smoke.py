@@ -153,11 +153,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     within 1e-4 m of a face; ``run_training`` (B = 2 in chunks of 1,
     epochs 0-1) with ``ObjectSample`` (``sample_dict {0: 16}``) and
     ``device_augment``: finite losses, ``num_pos`` > 0, objects pasted in
-    each epoch, K1-K4, K6 and K7 launched.
+    each epoch, K1-K4, K6 and K7 launched;
+18. serving: the packed top-k against the former cumsum + ``nonzero``
+    version on cloud 0's 1.92 M head logits (k = 500) and on the step's
+    eight (16, N) prefilter keys (k = 512), equal, both timed; then the
+    flagship predict (bf16, the npz) under the default, ``fused_stages``
+    and ``pallas_subm_conv`` + ``zfold_pallas`` exported by
+    ``serving.export_predict`` at B = 1 (seconds, ``model.pt2`` bytes)
+    and saved under ``build/serving_*`` (deleted after); a fresh process
+    that imports only ``serving`` (none of the model's modules, nor JAX)
+    loads the three artifacts and calls each on clouds 0-3; in this
+    process too, each is called on clouds 0-3: bitwise equal to the live
+    predict, or boxes and scores within 1e-6 and labels and ``valid``
+    exact (the largest difference printed), with exact launches through
+    the artifact (K1 and K2 one a cloud, K8 3, K10 2, K9 1); the served
+    and live ms per cloud in turns after a warm-up (median of 4), and the
+    host syncs of one served and one live call
+    (``torch.cuda.set_sync_debug_mode``, ``profile_predict.host_syncs``).
 
-The last lines are the ``kernels`` JSON line (all ten kernels; K1 and K2
-with ``launches_tiled`` and ``launches_tiled_batch2``; K1-K4, K6 and K7
-with ``launches_data_path``), the card line and
+The last lines are the ``serving`` JSON line (phase 18's readings), the
+``kernels`` JSON line (all ten kernels; K1 and K2 with
+``launches_tiled`` and ``launches_tiled_batch2``; K1-K4, K6 and K7 with
+``launches_data_path``; K1, K2, K8, K9 and K10 with ``launches_serving``,
+over phase 18's twelve served calls), the card line and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2085,6 +2103,249 @@ def importer_phase(batch):
           f"finite, {int(out['valid'].sum())} valid detections", flush=True)
 
 
+def _old_topk_rows(key, k):
+    """The top-k that ``models/assign.py`` ran before its packed key: the
+    k-th value, the ties below it by a cumsum, read back with
+    ``nonzero`` (a host sync)."""
+    kth = torch.topk(key, k, dim=1).values[:, -1:]
+    above = key > kth
+    ties = key == kth
+    room = k - above.sum(dim=1, keepdim=True)
+    take = above | (ties & (torch.cumsum(ties, dim=1, dtype=torch.int32)
+                            <= room))
+    return take.nonzero()[:, 1].reshape(key.shape[0], k)
+
+
+def topk_gate(model, batch):
+    """Phase 18's top-k gate: the packed top-k against the former cumsum
+    + ``nonzero`` version on cloud 0's 1.92 M head logits (k = nms_pre)
+    and on the step's (16, N) prefilter keys (k = K, all 8 GT chunks of
+    cloud 0's assignment); equal index sets (and, for predict's, the same
+    order), both timed."""
+    from objectdetection_3d_tpu_torch.models import assign
+    from objectdetection_3d_tpu_torch.models.detector import (
+        topk_lowest_index,
+    )
+
+    cls, _, _ = model.apply(batch)
+    row = cls[0].reshape(-1, max(model.num_classes, 1)).amax(dim=-1)
+    k = int(model.head_cfg.get("nms_pre", 100))
+
+    def old_ordered():
+        idx = _old_topk_rows(row[None], k)[0]
+        return idx[torch.sort(row[idx], descending=True, stable=True).indices]
+
+    if not torch.equal(topk_lowest_index(row, k), old_ordered()):
+        raise AssertionError("the packed top-k of predict's logits differs "
+                             "from the cumsum version")
+    out = {"predict": {
+        "n": row.numel(), "k": k,
+        "distinct": int(torch.unique(row).numel()),
+        "ms": cuda_ms(lambda: topk_lowest_index(row, k), 20),
+        "old_ms": cuda_ms(old_ordered, 20)}}
+    keys = []
+    packed = assign.topk_rows_lowest_index
+
+    def recording(key, kk):
+        keys.append((key.clone(), kk))
+        return packed(key, kk)
+
+    assign.topk_rows_lowest_index = recording
+    try:
+        model.assign(batch)
+    finally:
+        assign.topk_rows_lowest_index = packed
+    for key, kk in keys:
+        if not torch.equal(packed(key, kk), _old_topk_rows(key, kk)):
+            raise AssertionError(f"the packed top-k of a {tuple(key.shape)} "
+                                 f"prefilter key differs from the cumsum "
+                                 f"version")
+    key, kk = keys[0]
+    out["prefilter"] = {
+        "shape": list(key.shape), "k": kk, "chunks": len(keys),
+        "ms": cuda_ms(lambda: packed(key, kk), 20),
+        "old_ms": cuda_ms(lambda: _old_topk_rows(key, kk), 20)}
+    for name, r in out.items():
+        print(f"top-k {name} {r.get('shape', r.get('n'))} k={r['k']}: packed "
+              f"== cumsum + nonzero ({r.get('chunks', 1)} inputs); "
+              f"{r['ms']:.4f} ms vs {r['old_ms']:.4f} ms", flush=True)
+    return out
+
+
+_SERVE_SCRIPT = """
+import json, sys
+import torch
+from objectdetection_3d_tpu_torch.serving import load_serving
+from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
+from objectdetection_3d_tpu_torch.ops.grid_scatter import scatter_to_grid
+from objectdetection_3d_tpu_torch.ops.fused_stage import fused_stage
+from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
+from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
+counted = (postsort_scan, scatter_to_grid, fused_stage, subm_conv3d,
+           conv2d_3x3)
+inputs = torch.load(sys.argv[1])
+report = {}
+for path in sys.argv[2:]:
+    serve, manifest = load_serving(path)
+    for fn in counted:
+        fn.launches = 0
+    outs = [serve(b) for b in inputs]
+    torch.cuda.synchronize()
+    torch.save([{k: v.cpu() for k, v in o.items()} for o in outs],
+               path + "/served.pt")
+    report[path] = {fn.__name__: fn.launches for fn in counted}
+mods = [m for m in sys.modules if m.startswith((
+    "objectdetection_3d_tpu_torch.models", "objectdetection_3d_tpu_torch.config",
+    "objectdetection_3d_tpu_torch.pipeline", "jax", "objectdetection_3d_tpu."))]
+print(json.dumps({"launches": report, "model_modules": mods}))
+"""
+
+SERVING_KNOBS = (
+    ("default", {}, {}),
+    ("fused_stages", {"fused_stages": True}, {"fused_stage": 3}),
+    ("pallas_subm_conv+zfold_pallas",
+     {"pallas_subm_conv": True, "zfold_pallas": True},
+     {"subm_conv3d": 2, "conv2d_3x3": 1}))
+
+
+def _same_detections(label, got, want):
+    """Bitwise equal, or boxes and scores within 1e-6 with labels and
+    ``valid`` exact; returns the largest difference."""
+    err = max(max_abs_err(got[k].float(), want[k].float())
+              for k in ("bbox", "score"))
+    if not (torch.equal(got["label"], want["label"])
+            and torch.equal(got["valid"], want["valid"]) and err <= 1e-6):
+        raise AssertionError(f"{label}: the artifact differs from the live "
+                             f"predict (boxes/scores {err})")
+    return err
+
+
+def serving_phase(batches):
+    """Phase 18: predict exported, reloaded and served.  Returns the
+    kernels' launches through the three artifacts and the phase's
+    readings."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from objectdetection_3d_tpu_torch import configs, serving
+    from objectdetection_3d_tpu_torch.profile_predict import host_syncs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.ops.fused_stage import fused_stage
+    from objectdetection_3d_tpu_torch.ops.grid_scatter import scatter_to_grid
+    from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
+    from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
+    from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
+
+    counted = (postsort_scan, scatter_to_grid, fused_stage, subm_conv3d,
+               conv2d_3x3)
+    report = {}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="serving_", dir=os.path.join(REPO,
+                                                                 "build"))
+    launches = {fn.__name__: 0 for fn in counted}
+    try:
+        inputs = [{k: torch.as_tensor(b[k], device="cuda")
+                   for k in ("points", "num_points")} for b in batches]
+        torch.save(inputs, os.path.join(root, "inputs.pt"))
+        cells = {}
+        for name, tpu, per_cloud in SERVING_KNOBS:
+            knob_model = PointPillars(configs.flagship_cfg(tpu),
+                                      device="cuda")
+            load_npz(knob_model.net, NPZ)
+            if not tpu:
+                report["topk"] = topk_gate(knob_model, batches[0])
+            t = time.perf_counter()
+            program, manifest = serving.export_predict(knob_model)
+            export_s = time.perf_counter() - t
+            path = os.path.join(root, name.replace("+", "_"))
+            serving.save_exported(program, manifest, path)
+            del program
+            nbytes = os.path.getsize(os.path.join(path, "model.pt2"))
+            cells[name] = {"model": knob_model, "path": path,
+                           "per_cloud": per_cloud, "export_s": export_s,
+                           "artifact_bytes": nbytes}
+            print(f"serving {name}: export {export_s:.2f} s, model.pt2 "
+                  f"{nbytes} bytes", flush=True)
+        # a fresh process that only loads and calls the artifacts
+        paths = [c["path"] for c in cells.values()]
+        run = subprocess.run(
+            [sys.executable, "-c", _SERVE_SCRIPT,
+             os.path.join(root, "inputs.pt"), *paths], cwd=REPO,
+            capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"the serving process failed:\n"
+                                 f"{run.stderr[-4000:]}")
+        child = json.loads(run.stdout.strip().splitlines()[-1])
+        if child["model_modules"]:
+            raise AssertionError(f"the serving process imported "
+                                 f"{child['model_modules']}")
+        for name, cell in cells.items():
+            model_k, path = cell["model"], cell["path"]
+            live = model_k.make_predict_fn()
+            serve, _ = serving.load_serving(path)
+            want = {"postsort_scan": 1, "scatter_to_grid": 1,
+                    **cell["per_cloud"]}
+            want = {k: want.get(k, 0) * len(batches) for k in launches}
+            if child["launches"][path] != want:
+                raise AssertionError(f"serving {name} in its own process: "
+                                     f"launches {child['launches'][path]}, "
+                                     f"expected {want}")
+            lives = [live(b) for b in batches]
+            served_child = torch.load(os.path.join(path, "served.pt"))
+            serve(inputs[0])                    # warm-up
+            torch.cuda.synchronize()
+            for fn in counted:
+                fn.launches = 0
+            served = [serve(b) for b in inputs]
+            torch.cuda.synchronize()
+            got = {fn.__name__: fn.launches for fn in counted}
+            if got != want:
+                raise AssertionError(f"serving {name}: launches {got}, "
+                                     f"expected {want}")
+            for k, v in got.items():
+                launches[k] += v
+            bitwise, err = True, 0.0
+            for i, (s, c, w) in enumerate(zip(served, served_child, lives)):
+                for out in (s, {k: v.to("cuda") for k, v in c.items()}):
+                    err = max(err, _same_detections(
+                        f"serving {name} cloud {i}", out, w))
+                    bitwise &= all(torch.equal(out[k], w[k]) for k in w)
+            # served and live ms per cloud, in turns after the warm-ups
+            served_ms, live_ms = [], []
+            for b, x in zip(batches, inputs):
+                for fn, times in ((lambda: serve(x), served_ms),
+                                  (lambda: live(b), live_ms)):
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3)
+            _, syncs_served = host_syncs(lambda: serve(inputs[0]))
+            _, syncs_live = host_syncs(lambda: live(batches[0]))
+            cell.update(bitwise=bitwise, max_abs_err=err,
+                        served_ms=served_ms, live_ms=live_ms,
+                        served_median_ms=float(np.median(served_ms)),
+                        live_median_ms=float(np.median(live_ms)),
+                        syncs_served=syncs_served, syncs_live=syncs_live,
+                        launches=got)
+            print(f"serving {name}: clouds 0-{len(batches) - 1} "
+                  f"{'bitwise equal' if bitwise else 'within 1e-6'} to the "
+                  f"live predict in this and a fresh process (max abs err "
+                  f"{err:.3g}); launches {got}; served "
+                  f"{cell['served_median_ms']:.1f} ms vs live "
+                  f"{cell['live_median_ms']:.1f} ms per cloud (median of "
+                  f"{len(served_ms)}); host syncs per call served "
+                  f"{syncs_served}, live {syncs_live}", flush=True)
+            del cell["model"], model_k, live, serve, served, lives
+            torch.cuda.empty_cache()
+        report["cells"] = {name: {k: v for k, v in c.items() if k != "path"}
+                           for name, c in cells.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2582,6 +2843,13 @@ def main():
     # ---- the data-preparation and augmentation path ---------------------
     for name, count in data_path_phase(counted).items():
         kernels[name]["launches_data_path"] = count
+    torch.cuda.empty_cache()
+
+    # ---- serving: predict exported, reloaded in a fresh process, served -
+    served, serving_report = serving_phase(batches)
+    for name, count in served.items():
+        kernels[name]["launches_serving"] = count
+    print("serving: " + json.dumps(serving_report), flush=True)
     if len(kernels) != 10:
         raise AssertionError(f"{len(kernels)} kernels in the line, not 10")
 

@@ -38,10 +38,16 @@ def build_pipeline(config_path="./config.yaml", cfg=None):
     global_cfg = cfg.dump()
     cfg_dataset, cfg_pipeline, cfg_model = Config.initialize_params(cfg)
     dataset = Forest3D(**cfg_dataset)
-    model = PointPillars(cfg_model, device=convert_device_name(
-        cfg_model.get("device", "cuda")))
-    pipeline = ObjectDetection(model, dataset, global_cfg, **cfg_pipeline)
+    pipeline = ObjectDetection(build_model(cfg_model), dataset, global_cfg,
+                               **cfg_pipeline)
     return pipeline, cfg_pipeline
+
+
+def build_model(cfg_model):
+    """The detector of a config's ``model`` section, on the device it
+    names: the card unless it says ``cpu``."""
+    return PointPillars(cfg_model, device=convert_device_name(
+        cfg_model.get("device", "cuda")))
 
 
 def require_mode(cfg_pipeline, inference_mode, task):

@@ -103,16 +103,34 @@ def _tier_exact_pair(gt_boxes, gt_mask, anchors, a1, v1, a2, v2, g,
     return t1, t2
 
 
+def packed_order_key(x):
+    """An int64 key per element of a float tensor whose descending order
+    is the value's, then the lowest index along the last dim first.
+
+    The high 32 bits hold an order-preserving int32 image of the float32
+    value (bf16 is widened first; ``+ 0.0`` makes -0.0 tie with +0.0);
+    the low 32 bits hold the complement of the index.  NaN ranks above
+    +inf, every NaN alike, as ``torch.topk`` and ``torch.sort`` rank it.
+    The keys of a row are distinct, so any top-k of them is exact.
+    """
+    x = x.float() + 0.0
+    bits = x.view(torch.int32)
+    hi = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    hi = torch.where(torch.isnan(x), torch.iinfo(torch.int32).max, hi)
+    lo = 0xFFFFFFFF - torch.arange(x.shape[-1], dtype=torch.int64,
+                                   device=x.device)
+    return (hi.to(torch.int64) << 32) | lo
+
+
 def topk_rows_lowest_index(key, k):
     """(G', k) indices of each row's k largest values; among equal values
-    the lowest index is taken first.  Indices come in ascending order."""
-    kth = torch.topk(key, k, dim=1).values[:, -1:]
-    above = key > kth
-    ties = key == kth
-    room = k - above.sum(dim=1, keepdim=True)
-    take = above | (ties & (torch.cumsum(ties, dim=1, dtype=torch.int32)
-                            <= room))
-    return take.nonzero()[:, 1].reshape(key.shape[0], k)
+    the lowest index is taken first.  Indices come in ascending order.
+
+    One ``torch.topk`` over :func:`packed_order_key`: the output's shape
+    is static and nothing waits for the host.
+    """
+    idx = torch.topk(packed_order_key(key), k, dim=1).indices
+    return torch.sort(idx, dim=1).values
 
 
 class _Kernels:

@@ -47,7 +47,7 @@ from objectdetection_3d_tpu_torch.models.anchors import (
 from objectdetection_3d_tpu_torch.models.assign import (
     assign_targets,
     make_anchor_layout,
-    topk_rows_lowest_index,
+    packed_order_key,
 )
 from objectdetection_3d_tpu_torch.models.base import BaseModel
 from objectdetection_3d_tpu_torch.models.network import PointPillarsNet
@@ -75,11 +75,10 @@ def topk_lowest_index(x, k):
     """Exact top-k of a 1-D tensor, ties broken by the lowest index.
 
     Returns the k indices ordered by value descending, then index
-    ascending (``torch.topk`` leaves the order of equal values free).
+    ascending: the order of the packed keys (``models/assign.py``), whose
+    values are distinct.
     """
-    idx = topk_rows_lowest_index(x[None], k)[0]
-    order = torch.sort(x[idx], descending=True, stable=True).indices
-    return idx[order]
+    return torch.topk(packed_order_key(x), k).indices
 
 
 class ClippedAdamW(torch.optim.AdamW):
@@ -580,9 +579,18 @@ class PointPillars(BaseModel):
             dict of ``bbox`` (B, K, 9), ``label`` (B, K) int32, ``score``
             (B, K) and ``valid`` (B, K) bool, K = max detections.
         """
+        return self.predict_traceable(batch, anchors)
+
+    def predict_traceable(self, batch, anchors=None):
+        """:meth:`predict` without its inference mode, which
+        ``torch.export`` cannot trace (``serving.export_predict`` runs it
+        under ``torch.no_grad()``).  Every shape in it is static: the
+        top-k, the NMS fixpoint and the kernels' operators depend on
+        nothing but the input's shape."""
         if anchors is None:
             anchors = self.anchors
-        return self._decode(self.apply(batch), anchors)
+        self.net.eval()
+        return self._decode(self._forward(batch), anchors)
 
     def _decode(self, outs, anchors):
         """Head outputs -> stacked per-item detections."""

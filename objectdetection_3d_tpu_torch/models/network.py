@@ -106,10 +106,12 @@ class PointPillarsNet(nn.Module):
         cell = torch.where(voxel_mask, cell, d * h * w).to(torch.int32)
         grid = scatter_to_grid(feats.contiguous(), cell.contiguous(),
                                (d, h, w))
-        mask = torch.zeros((b, d * h * w), dtype=self.dtype, device=dev)
-        rows = torch.arange(b, device=dev)[:, None].expand(b, v)
-        mask[rows[voxel_mask], cell[voxel_mask].long()] = 1.0
-        mask = mask.view(b, 1, d, h, w)
+        # padding voxels write the extra cell d*h*w, which is cut off: no
+        # shape here depends on the data
+        mask = torch.zeros((b, d * h * w + 1), dtype=self.dtype, device=dev)
+        mask = mask.scatter(1, cell.long(),
+                            torch.ones_like(cell, dtype=self.dtype))
+        mask = mask[:, :-1].reshape(b, 1, d, h, w)
 
         # NDHWC memory seen as NCDHW (channels_last_3d): no copy
         pseudo = self.pseudoimage_generator(grid.permute(0, 4, 1, 2, 3),

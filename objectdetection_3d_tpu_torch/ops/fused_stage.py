@@ -17,8 +17,10 @@ selector matrices and banded weights exist for the TPU's 128 lanes and
 are not carried over.  The pooled mask itself is not an output: the
 encoder takes it from ``max_pool3d``, as the JAX package does.
 
-On a CUDA tensor :func:`fused_stage` launches the hand-written kernel in
-``csrc/fused_stage.cu``.  In bf16 a block walks the output slices of its
+:func:`fused_stage` calls the custom operator ``od3d::fused_stage``
+(``ops/custom_ops.py``; no gradient: the encoder takes it in eval mode
+only).  On a CUDA tensor it launches the hand-written kernel in
+``csrc/fused_stage.cu`` (:func:`stage_kernel`).  In bf16 a block walks the output slices of its
 pixel tile in z, computing each subm slice once, with the weights resident
 in shared memory and both convs on the tensor cores (the subm weights
 packed by ``pallas_conv.kernel_weights``, the down weights by
@@ -118,16 +120,26 @@ def fused_stage(x, mask, subm_w, down_w, a_s, b_s, a_d, b_d):
     tensors = (mask, subm_w, down_w, a_s, b_s, a_d, b_d)
     if any(t.device != dev for t in tensors):
         raise ValueError("inputs lie on different devices")
-    if dev.type == "cpu":
-        return fused_stage_plain(x, mask, subm_w, down_w, a_s, b_s, a_d,
-                                 b_d)
+    if dev.type == "cuda":
+        d_out = (d - 3) // 2 + 1
+        if x.dtype == torch.float32 and b * d_out > 65535:
+            raise ValueError(f"B * D' = {b * d_out} exceeds the float32 "
+                             f"kernel's grid")
+        if x.dtype == torch.bfloat16 and (b > 65535
+                                          or -(-h // _TILE_H) > 65535):
+            raise ValueError(f"B = {b} or H = {h} exceeds the bf16 kernel's "
+                             f"grid")
+    return torch.ops.od3d.fused_stage(x, mask, subm_w, down_w, a_s, b_s,
+                                      a_d, b_d)
+
+
+def stage_kernel(x, mask, subm_w, down_w, a_s, b_s, a_d, b_d):
+    """Launch K8 on CUDA inputs (shapes as :func:`fused_stage` checks
+    them)."""
+    b, d, h, w, c = x.shape
+    co = subm_w.shape[-1]
     d_out = (d - 3) // 2 + 1
     dt = x.dtype
-    if dt == torch.float32 and b * d_out > 65535:
-        raise ValueError(f"B * D' = {b * d_out} exceeds the float32 kernel's "
-                         f"grid")
-    if dt == torch.bfloat16 and (b > 65535 or -(-h // _TILE_H) > 65535):
-        raise ValueError(f"B = {b} or H = {h} exceeds the bf16 kernel's grid")
     x = x.contiguous()
     m = mask.to(dt).contiguous()
     ws, np_ = kernel_weights(subm_w.to(dt).reshape(27, c, co))
@@ -136,11 +148,11 @@ def fused_stage(x, mask, subm_w, down_w, a_s, b_s, a_d, b_d):
     else:
         wd = down_w.float().contiguous()
     vec = torch.stack([a_s, b_s, a_d, b_d]).float().contiguous()
-    out = torch.empty((b, d_out, h, w, co), dtype=dt, device=dev)
+    out = torch.empty((b, d_out, h, w, co), dtype=dt, device=x.device)
     cuda_lib.launch("fused_stage", "fused_stage", _ARGTYPES,
                     (x.data_ptr(), m.data_ptr(), ws.data_ptr(),
                      wd.data_ptr(), vec.data_ptr(), out.data_ptr(), b, d, h,
-                     w, c, co, np_, DTYPE_CODES[dt]), dev)
+                     w, c, co, np_, DTYPE_CODES[dt]), x.device)
     fused_stage.launches += 1
     return out
 

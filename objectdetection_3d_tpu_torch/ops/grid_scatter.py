@@ -1,16 +1,19 @@
 """Dense pseudo-image grid build.
 
 Port of the JAX package's ``ops/grid_scatter.py::scatter_to_grid``
-(kernel K2).  On a CUDA tensor the wrapper launches the hand-written
-kernels in ``csrc/grid_scatter.cu``: a streaming zero fill of the grid,
-then a copy of the voxel rows over it.  On a CPU tensor it runs the plain
-version below, a zero-fill followed by an index copy (the JAX package's
-XLA scatter, ``models/network.py``).  A CUDA tensor never takes the plain
+(kernel K2).  The wrapper calls the custom operator
+``od3d::scatter_to_grid`` (``ops/custom_ops.py``): on a CUDA tensor it
+launches the hand-written kernels in ``csrc/grid_scatter.cu``
+(:func:`scatter_kernel`): a streaming zero fill of the grid, then a copy
+of the voxel rows over it.  On a CPU tensor it runs the plain version
+below, a zero-fill followed by an index copy (the JAX package's XLA
+scatter, ``models/network.py``).  A CUDA tensor never takes the plain
 version.
 
-The gradient is that of the JAX package's custom VJP: a row gather of the
-grid's cotangent at the voxel cells, zero for padding rows.  It is an XLA
-gather there, not a kernel, and plain PyTorch indexing here.
+The gradient (the operator's registered autograd) is that of the JAX
+package's custom VJP: a row gather of the grid's cotangent at the voxel
+cells, zero for padding rows (:func:`gather_rows`).  It is an XLA gather
+there, not a kernel, and plain PyTorch indexing here.
 
 The activity mask is not an output: callers build it with a plain scatter,
 as the JAX package does.
@@ -41,10 +44,9 @@ def scatter_to_grid_plain(feats, cell_flat, grid_dhw):
     return grid.view(b, d, h, w, c)
 
 
-def _scatter_kernel(feats, cell_flat, grid_dhw):
+def scatter_kernel(feats, cell_flat, grid_dhw):
     """Launch K2 on (B, V, C) CUDA features; returns (B, D, H, W, C)."""
-    if not (feats.is_contiguous() and cell_flat.is_contiguous()):
-        raise ValueError("feats and cell_flat must be contiguous")
+    feats, cell_flat = feats.contiguous(), cell_flat.contiguous()
     d, h, w = (int(s) for s in grid_dhw)
     b, v, c = feats.shape
     grid = torch.empty((b, d, h, w, c), dtype=feats.dtype,
@@ -56,30 +58,18 @@ def _scatter_kernel(feats, cell_flat, grid_dhw):
     return grid
 
 
-class _ScatterToGrid(torch.autograd.Function):
-    """K2 (or its plain version on the CPU) with the row-gather
-    backward."""
-
-    @staticmethod
-    def forward(ctx, feats, cell_flat, grid_dhw):
-        ctx.save_for_backward(cell_flat)
-        ctx.grid_dhw = grid_dhw
-        if feats.device.type == "cpu":
-            return scatter_to_grid_plain(feats, cell_flat, grid_dhw)
-        return _scatter_kernel(feats, cell_flat, grid_dhw)
-
-    @staticmethod
-    def backward(ctx, grid_ct):
-        (cell_flat,) = ctx.saved_tensors
-        d, h, w = ctx.grid_dhw
-        n = d * h * w
-        b, v = cell_flat.shape
-        flat_ct = grid_ct.reshape(b, n, -1)
-        valid = cell_flat < n
-        idx = torch.where(valid, cell_flat, 0).long()
-        rows = torch.arange(b, device=idx.device)[:, None].expand(b, v)
-        dfeats = flat_ct[rows, idx] * valid[..., None].to(grid_ct.dtype)
-        return dfeats, None, None
+def gather_rows(grid_ct, cell_flat, grid_dhw):
+    """The gradient of :func:`scatter_to_grid` in ``feats``: the rows of
+    the (B, D, H, W, C) cotangent at the (B, V) cells, zero for padding
+    rows."""
+    d, h, w = grid_dhw
+    n = d * h * w
+    b, v = cell_flat.shape
+    flat_ct = grid_ct.reshape(b, n, -1)
+    valid = cell_flat < n
+    idx = torch.where(valid, cell_flat, 0).long()
+    rows = torch.arange(b, device=idx.device)[:, None].expand(b, v)
+    return flat_ct[rows, idx] * valid[..., None].to(grid_ct.dtype)
 
 
 def scatter_to_grid(feats, cell_flat, grid_dhw):
@@ -109,8 +99,8 @@ def scatter_to_grid(feats, cell_flat, grid_dhw):
         raise ValueError("feats and cell_flat lie on different devices")
     if feats.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {feats.device}")
-    grid = _ScatterToGrid.apply(feats, cell_flat,
-                                tuple(int(s) for s in grid_dhw))
+    grid = torch.ops.od3d.scatter_to_grid(feats, cell_flat,
+                                          [int(s) for s in grid_dhw])
     return grid[0] if single else grid
 
 

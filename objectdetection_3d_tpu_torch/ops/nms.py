@@ -4,6 +4,16 @@ Port of the JAX package's ``ops/nms.py``: the same keep set as the
 reference's while-loop NMS, computed as a fixpoint in original index
 space.
 
+The fixpoint is a ``while_loop`` operator (``torch.ops.higher_order``),
+so ``torch.export`` takes it as one node with its cond and body graphs
+and the exported predict has no data-dependent control flow in Python.
+Eager mode runs the same operator, whose loop reads its condition on the
+host once per round (on CUDA a sync per round, as the Python loop did);
+a predict free of host syncs, which a CUDA graph would need, is not
+built yet.  The operator is called directly, with the suppression matrix
+as an additional input: the public ``while_loop`` function compiles its
+arguments with ``torch.compile`` on every eager call.
+
 Tie order: within a class, candidates are ranked by a *stable* descending
 sort of their scores, so among exactly equal scores the lower candidate
 index ranks first (``jnp.argsort`` is stable too).  The candidates
@@ -24,6 +34,16 @@ from objectdetection_3d_tpu_torch.ops.iou3d import iou3d, obb_intersect
 _SAT_THRESH = 1e-4
 
 
+def _keep_cond(it, kept, prev, s_upper, valid):
+    return (it < valid.shape[0]) & (kept != prev).any()
+
+
+def _keep_body(it, kept, prev, s_upper, valid):
+    blocked = (s_upper & kept[:, None]).any(dim=0)
+    # the carried outputs may not alias the inputs
+    return it + 1, valid & ~blocked, kept.clone()
+
+
 def _greedy_keep(suppress, valid, rank):
     """Greedy suppression as a fixpoint iteration.
 
@@ -32,16 +52,13 @@ def _greedy_keep(suppress, valid, rank):
     ``kept = valid`` reaches the unique fixpoint within the longest
     suppression chain; the loop is capped at N iterations.
     """
-    n = valid.shape[0]
     s_upper = (suppress
                & (rank[:, None] < rank[None, :])
                & valid[:, None])
-    kept, prev = valid, ~valid
-    it = 0
-    while it < n and bool((kept != prev).any()):
-        blocked = (s_upper & kept[:, None]).any(dim=0)
-        kept, prev = valid & ~blocked, kept
-        it += 1
+    it = torch.zeros((), dtype=torch.int64, device=valid.device)
+    _, kept, _ = torch.ops.higher_order.while_loop(
+        _keep_cond, _keep_body, (it, valid.clone(), ~valid),
+        (s_upper, valid))
     return kept
 
 

@@ -6,11 +6,13 @@ sends its C <= 24 stages through.  Layouts are the JAX package's: the
 input is (B, D, H, W, C) channels last and the kernel (3, 3, 3, C, Co) in
 (dz, dy, dx) tap order.
 
-On a CUDA tensor :func:`subm_conv3d` launches the hand-written kernel in
-``csrc/subm_conv3d.cu`` (bf16 on the tensor cores, float32 on the CUDA
-cores); on a CPU tensor it runs the plain version below, 27 float32
-matrix products over shifted views.  A CUDA tensor never takes the plain
-version.  All sum in float32 and round the output to the input's type.
+:func:`subm_conv3d` calls the custom operator ``od3d::subm_conv3d``
+(``ops/custom_ops.py``): on a CUDA tensor it launches the hand-written
+kernel in ``csrc/subm_conv3d.cu`` (:func:`subm_kernel`; bf16 on the
+tensor cores, float32 on the CUDA cores); on a CPU tensor it runs the
+plain version below, 27 float32 matrix products over shifted views.  A
+CUDA tensor never takes the plain version.  The operator has no
+gradient: the encoder takes it in eval mode only.  All sum in float32 and round the output to the input's type.
 """
 
 import ctypes
@@ -108,19 +110,28 @@ def subm_conv3d(x, kernel):
                          f"and {co}")
     if kernel.device != dev:
         raise ValueError("x and kernel lie on different devices")
-    if dev.type == "cpu":
-        return subm_conv3d_plain(x, kernel)
-    if x.dtype == torch.float32 and b * d > 65535:
-        raise ValueError(f"B * D = {b * d} exceeds the float32 kernel's "
-                         f"grid")
-    if x.dtype == torch.bfloat16 and (b > 65535 or -(-h // _TILE_H) > 65535):
-        raise ValueError(f"B = {b} or H = {h} exceeds the bf16 kernel's grid")
+    if dev.type == "cuda":
+        if x.dtype == torch.float32 and b * d > 65535:
+            raise ValueError(f"B * D = {b * d} exceeds the float32 kernel's "
+                             f"grid")
+        if x.dtype == torch.bfloat16 and (b > 65535
+                                          or -(-h // _TILE_H) > 65535):
+            raise ValueError(f"B = {b} or H = {h} exceeds the bf16 kernel's "
+                             f"grid")
+    return torch.ops.od3d.subm_conv3d(x, kernel)
+
+
+def subm_kernel(x, kernel):
+    """Launch K10 on CUDA ``x`` and ``kernel`` (shapes as
+    :func:`subm_conv3d` checks them)."""
+    b, d, h, w, c = x.shape
+    co = kernel.shape[-1]
     x = x.contiguous()
     wk, np_ = kernel_weights(kernel.to(x.dtype).reshape(27, c, co))
-    out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=dev)
+    out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
     cuda_lib.launch("subm_conv3d", "subm_conv3d", _ARGTYPES,
                     (x.data_ptr(), wk.data_ptr(), out.data_ptr(), b, d, h,
-                     w, c, co, np_, DTYPE_CODES[x.dtype]), dev)
+                     w, c, co, np_, DTYPE_CODES[x.dtype]), x.device)
     subm_conv3d.launches += 1
     return out
 

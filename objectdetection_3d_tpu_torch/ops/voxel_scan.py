@@ -1,12 +1,13 @@
 """Post-sort voxel scan: run index and in-run rank of sorted cell ids.
 
 Port of the JAX package's ``ops/voxel_scan.py::postsort_scan`` (kernel K1).
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/voxel_scan.cu`` (a reduce and a scan launch over tiles of each row,
-counted as one call); on a CPU tensor it runs the plain version below,
-the cumsum + cummax formulation of the JAX package's XLA tail
-(``ops/voxelize.py::voxelize_points``).  A CUDA tensor never takes the
-plain version.
+The wrapper calls the custom operator ``od3d::postsort_scan``
+(``ops/custom_ops.py``): on a CUDA tensor it launches the hand-written
+kernel in ``csrc/voxel_scan.cu`` (:func:`scan_kernel`: a reduce and a
+scan launch over tiles of each row, counted as one call); on a CPU tensor
+it runs the plain version below, the cumsum + cummax formulation of the
+JAX package's XLA tail (``ops/voxelize.py::voxelize_points``).  A CUDA
+tensor never takes the plain version.
 """
 
 import ctypes
@@ -48,12 +49,15 @@ def postsort_scan(cell_s, sentinel):
     if cell_s.dim() != 2 or cell_s.dtype != torch.int32:
         raise ValueError(f"cell_s must be (B, P) int32, got "
                          f"{tuple(cell_s.shape)} {cell_s.dtype}")
-    if cell_s.device.type == "cpu":
-        return postsort_scan_plain(cell_s, sentinel)
-    if cell_s.device.type != "cuda":
+    if cell_s.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {cell_s.device}")
-    if not cell_s.is_contiguous():
+    if cell_s.device.type == "cuda" and not cell_s.is_contiguous():
         raise ValueError("cell_s must be contiguous")
+    return torch.ops.od3d.postsort_scan(cell_s, int(sentinel))
+
+
+def scan_kernel(cell_s, sentinel):
+    """Launch K1 on a contiguous (B, P) int32 CUDA tensor."""
     b, p = cell_s.shape
     tiles = -(-p // cuda_lib.load("voxel_scan").postsort_scan_tile())
     vox = torch.empty_like(cell_s)

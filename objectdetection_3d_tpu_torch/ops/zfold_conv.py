@@ -6,15 +6,17 @@ subm convs through (``models/layers.py``).  Layouts are the JAX
 package's: the input is (N, H, W, C) channels last and the weights
 (3, 3, C, Co) in (dy, dx) tap order, with C, Co <= 128.
 
-:func:`conv2d_3x3` is a ``torch.autograd.Function``, as the JAX function
-is a ``custom_vjp``: its input gradient is the same conv of the cotangent
-with the taps flipped and the channels swapped, and its weight gradient
-the 9 contractions over the N*H*W rows, left to ``torch.matmul`` as the
+:func:`conv2d_3x3` calls the custom operator ``od3d::conv2d_3x3``
+(``ops/custom_ops.py``), whose registered gradient is the JAX function's
+``custom_vjp``: its input gradient (``od3d::conv2d_3x3_dx``) is the same
+conv of the cotangent with the taps flipped and the channels swapped
+(:func:`dx_weights`), and its weight gradient the 9 contractions over
+the N*H*W rows (:func:`weight_grad`), left to ``torch.matmul`` as the
 JAX package leaves them to XLA.  On a CUDA tensor the forward conv and
 the input gradient's conv launch the hand-written kernel in
-``csrc/zfold_conv.cu`` (bf16 on the tensor cores through wgmma, with the
-weights packed by :func:`wgmma_weights`; float32 on the CUDA cores),
-counted apart in ``conv2d_3x3.launches`` and
+``csrc/zfold_conv.cu`` (:func:`conv_kernel`; bf16 on the tensor cores
+through wgmma, with the weights packed by :func:`wgmma_weights`; float32
+on the CUDA cores), counted apart in ``conv2d_3x3.launches`` and
 ``conv2d_3x3.dx_launches``; on a CPU tensor both run the plain version,
 9 float32 matrix products over shifted views.  A CUDA tensor never takes
 the plain version.
@@ -93,12 +95,10 @@ def _swizzle(ns, device):
     return torch.arange(8, device=device)[None, :] ^ (n[:, None] % 8)
 
 
-def _conv(x, w, counter):
-    """The conv of contiguous (N, H, W, C) ``x`` with (3, 3, C, Co) ``w``
-    of the same type: the kernel on a CUDA tensor, counted in
-    ``conv2d_3x3.<counter>``, else the plain version."""
-    if x.device.type == "cpu":
-        return conv2d_3x3_plain(x, w)
+def conv_kernel(x, w, counter):
+    """Launch K9: the conv of CUDA (N, H, W, C) ``x`` with (3, 3, C, Co)
+    ``w`` of the same type, counted in ``conv2d_3x3.<counter>``."""
+    x = x.contiguous()
     n, h, width, c = x.shape
     co = w.shape[-1]
     if x.dtype == torch.bfloat16:
@@ -113,32 +113,23 @@ def _conv(x, w, counter):
     return out
 
 
-class _Conv2d3x3(torch.autograd.Function):
+def dx_weights(w):
+    """The input gradient's (3, 3, Co, C) taps: tap (dy, dx) is tap
+    (2-dy, 2-dx) of ``w`` with in/out channels swapped."""
+    return w.flip(0, 1).transpose(2, 3)
 
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return _conv(x, w, "launches")
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        n, h, width, c = x.shape
-        co = w.shape[-1]
-        g = g.to(x.dtype).contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            # tap (dy, dx) of the gradient conv is tap (2-dy, 2-dx) of w
-            # with in/out channels swapped
-            dx = _conv(g, w.flip(0, 1).transpose(2, 3), "dx_launches")
-        if ctx.needs_input_grad[1]:
-            # dw[dy, dx] = sum over n, h, w of x[h+dy-1, w+dx-1] g[h, w]
-            xz = F.pad(x, (0, 0, 1, 1, 1, 1))
-            g2 = g.reshape(-1, co)
-            dw = torch.stack([
-                xz[:, dy:dy + h, dx_:dx_ + width].reshape(-1, c).t() @ g2
-                for dy in range(3) for dx_ in range(3)]).reshape(3, 3, c, co)
-        return dx, dw
+def weight_grad(x, g):
+    """The weight gradient of the conv of (N, H, W, C) ``x``, for its
+    (N, H, W, Co) cotangent ``g``: dw[dy, dx] = sum over n, h, w of
+    x[h+dy-1, w+dx-1] g[h, w]."""
+    _, h, width, c = x.shape
+    co = g.shape[-1]
+    xz = F.pad(x, (0, 0, 1, 1, 1, 1))
+    g2 = g.reshape(-1, co)
+    return torch.stack([
+        xz[:, dy:dy + h, dx:dx + width].reshape(-1, c).t() @ g2
+        for dy in range(3) for dx in range(3)]).reshape(3, 3, c, co)
 
 
 def conv2d_3x3(x, w):
@@ -172,7 +163,7 @@ def conv2d_3x3(x, w):
         if tiles >= 2 ** 31:
             raise ValueError(f"{tiles} tiles of 8x16 pixels exceed the "
                              f"bf16 kernel's 32-bit tile count")
-    return _Conv2d3x3.apply(x.contiguous(), w.to(x.dtype).contiguous())
+    return torch.ops.od3d.conv2d_3x3(x, w.to(x.dtype))
 
 
 conv2d_3x3.launches = 0

@@ -13,6 +13,7 @@ clouds of ``scene.py`` and prints:
 * per-stage device time from CUDA events recorded at the network's module
   boundaries (voxelize, PFN, grid build, vertical encoder, RPN, head,
   decode + NMS), median over the clouds;
+* the synchronizing CUDA calls of each predict (:func:`host_syncs`);
 * host wall time per predict and the share of it the device spent in
   kernels (from ``torch.profiler``), whose complement is the idle share;
 * the top CUDA kernels by total device time.
@@ -24,12 +25,26 @@ import argparse
 import os
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = ("voxelize", "pfn", "grid", "encoder", "rpn", "head", "decode_nms")
+
+
+def host_syncs(fn):
+    """(``fn()``, the number of synchronizing CUDA calls it made, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
 def _record_stages(model, batch):
@@ -104,6 +119,8 @@ def main(argv=None):
         vals = [s[k] for s in stages]
         print(f"  {k:<11} {np.median(vals):9.3f}   "
               f"[{min(vals):.3f} .. {max(vals):.3f}]")
+    syncs = [host_syncs(lambda b=b: model.predict(b))[1] for b in batches]
+    print(f"host syncs per predict, clouds 0-{len(batches) - 1}: {syncs}")
 
     from torch.profiler import ProfilerActivity, profile
 

@@ -19,7 +19,9 @@ K8's intermediate, land on the other side).  C8: predict (float32 and
 bf16) and three train steps (with and without ``device_augment``) give
 the same bits on every run with PyTorch's deterministic mode off.  C9:
 K3's wrapper refuses live GT rows with a negative or NaN dim and stays
-bit-exact with them masked.
+bit-exact with them masked.  Serving: the flagship predict exported by
+``torch.export`` under each knob set, reloaded and called, against the
+live predict, with each kernel's launches through the artifact.
 
 Marked ``cuda``: without a CUDA device (or without nvcc) every test skips
 with its reason.  On the card:
@@ -1051,3 +1053,63 @@ def test_chunk_geometry_refuses_live_rows_with_negative_dims(cuda):
     torch.cuda.synchronize()
     for name in want:
         assert torch.equal(got[name], want[name]), name
+
+
+# ---------------------------------------------------------------------------
+# serving: predict exported with torch.export, reloaded and served
+# ---------------------------------------------------------------------------
+_SERVING_KNOBS = {
+    "default": ({}, {}),
+    "fused_stages": ({"fused_stages": True}, {"fused_stage": 3}),
+    "pallas_subm_conv+zfold_pallas": (
+        {"pallas_subm_conv": True, "zfold_pallas": True},
+        {"subm_conv3d": 2, "conv2d_3x3": 1}),
+}
+
+
+@pytest.mark.parametrize("knobs", _SERVING_KNOBS)
+def test_serving_round_trip_at_flagship_width_on_card(cuda, knobs,
+                                                      tmp_path):
+    """The flagship predict (bf16, the trained npz) exported at B = 1,
+    saved, reloaded and called on two clouds: labels and ``valid`` exact,
+    boxes and scores within 1e-6 of the live predict (the same kernels in
+    the same order), and through the artifact each kernel launches as
+    often as in the live predict: K1 and K2 once a cloud, K8 3, K10 2 and
+    K9 once under their knobs."""
+    import os
+
+    from objectdetection_3d_tpu_torch import configs, serving
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.scene import make_batch, tree_scene
+
+    tpu, per_cloud = _SERVING_KNOBS[knobs]
+    model = PointPillars(configs.flagship_cfg(tpu), device=cuda)
+    load_npz(model.net, os.path.join(os.path.dirname(__file__), "..",
+                                     "artifacts", "overfit_ckpt.npz"))
+    program, manifest = serving.export_predict(model)
+    serving.save_exported(program, manifest, str(tmp_path))
+    serve, manifest = serving.load_serving(str(tmp_path))
+    assert manifest["device"] == "cuda"
+    assert manifest["device_name"] == torch.cuda.get_device_name(0)
+    counted = {"postsort_scan": postsort_scan,
+               "scatter_to_grid": scatter_to_grid,
+               "fused_stage": fused_stage, "subm_conv3d": subm_conv3d,
+               "conv2d_3x3": conv2d_3x3}
+    p = model.tpu_cfg["max_points_static"]
+    for seed in (0, 1):
+        batch = make_batch(tree_scene(seed), p)
+        want = model.predict(batch)
+        for fn in counted.values():
+            fn.launches = 0
+        got = serve(batch)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counted.items()}
+        assert launches == {k: {"postsort_scan": 1, "scatter_to_grid": 1,
+                                **per_cloud}.get(k, 0) for k in counted}
+        assert bool(want["valid"].any())
+        for k in ("label", "valid"):
+            assert torch.equal(got[k], want[k]), k
+        for k in ("bbox", "score"):
+            err = float((got[k] - want[k]).abs().max())
+            assert err <= 1e-6, (k, err)

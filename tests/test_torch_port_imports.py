@@ -57,6 +57,16 @@ def test_data_path_modules_are_walked(module):
     assert PORT / module in _sources()
 
 
+# the serving path: the export, its operators and its command
+SERVING_MODULES = ("serving.py", "ops/custom_ops.py",
+                   "tools/export_model.py")
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_modules_are_walked(module):
+    assert PORT / module in _sources()
+
+
 def test_rule_tells_the_port_from_the_jax_package():
     assert _forbidden("objectdetection_3d_tpu.ops.boxes")
     assert _forbidden("jax.numpy")
