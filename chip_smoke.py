@@ -169,14 +169,50 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the artifact (K1 and K2 one a cloud, K8 3, K10 2, K9 1); the served
     and live ms per cloud in turns after a warm-up (median of 4), and the
     host syncs of one served and one live call
-    (``torch.cuda.set_sync_debug_mode``, ``profile_predict.host_syncs``).
+    (``torch.cuda.set_sync_debug_mode``, ``profile_predict.host_syncs``);
+19. the native host passes and the sharded paths: (a) the port's C++
+    ``featurize_cloud`` on phase 17's cloud against its numpy features
+    (normals |dot| > 0.999 on >= 98% of the >= 4-point neighbourhoods,
+    FPFH from shared normals at rtol 2e-4 / atol 2e-3; on the rows that
+    read a Darboux angle within 1e-9 of a bin edge, only mass moved
+    between theta's first and last bin, their sum within the same
+    tolerance), the seconds of each and of phase 17's ``prepare_cloud``
+    with the numpy and the default (native) featurizer (both libraries
+    loaded before the timing); ``preprocess_cloud`` against the numpy
+    pass on two raw clouds with far outliers (equal within 1e-5, best of
+    5 ms each); (b) world 1 over nccl in this process, flagship bf16 from
+    the npz: the sharded train step at global batch 2 (clouds 1-2)
+    against the one-device step (``rank_cases.check_step``: losses rtol
+    2e-4; gradients within 1e-4 of each leaf's largest; parameters rtol
+    2e-4 / atol 2e-5, within 2 lr where the gradient is within its
+    tolerance of 0; the largest differences and bitwise equality
+    printed), the sharded predict on the default path, ``fused_stages``
+    and ``pallas_subm_conv`` + ``zfold_pallas`` against live (scores
+    1e-4, labels exact, boxes 1e-3; bitwise printed), every step kernel
+    and K8-K10 launched; (c) two ranks on this card over gloo
+    (``parallel.launch.spawn``, whose default backend is gloo there):
+    which collectives gloo takes for CUDA tensors (printed), the bf16
+    data-parallel step (B = 1 a rank) on three global batches (clouds
+    1-2, 3-4, 5-6) against the one-device step (``check_step`` with
+    ``bf16_start``: losses, gradients and running statistics within 4
+    bf16 ulps of the loss, of the leaf's largest gradient and of the
+    leaf's largest move, as the bf16 sums of each rank's half and of the
+    whole round apart; parameters as in (b); the ranks bitwise equal;
+    the share of each tolerance used printed), the spatial 1 x 2
+    predict in bf16 and float32 against live,
+    and the spatial 1 x 2 step in float32 (TF32 off, B = 1) at the CPU
+    tolerances, K1 and K2 launched on every rank in every run.  Times in
+    (c) come from two ranks sharing one card.
 
 The last lines are the ``serving`` JSON line (phase 18's readings), the
-``kernels`` JSON line (all ten kernels; K1 and K2 with
-``launches_tiled`` and ``launches_tiled_batch2``; K1-K4, K6 and K7 with
-``launches_data_path``; K1, K2, K8, K9 and K10 with ``launches_serving``,
-over phase 18's twelve served calls), the card line and
-``{"ok": true, "device": {...}}``.
+``parallel`` JSON line (phase 19's), the ``kernels`` JSON line (all ten
+kernels; K1 and K2 with ``launches_tiled`` and ``launches_tiled_batch2``;
+K1-K4, K6 and K7 with ``launches_data_path``; K1, K2, K8, K9 and K10
+with ``launches_serving``, over phase 18's twelve served calls; every
+kernel with ``launches_parallel``, over phase 19(b)'s sharded step and
+predicts, and K1 and K2 with ``launches_parallel_gloo_ranks``, per rank
+and run of (c)), the card line and ``{"ok": true, "device": {...}}``.
+Each phase's wall seconds are printed as ``phase time:`` lines.
 """
 
 import contextlib
@@ -240,6 +276,18 @@ SLOT_OPS = 8
 CROSSING_OPS = 15
 FAN_OPS = 16
 IOU_OPS = 11
+
+
+class PhaseClock:
+    """Prints each phase's wall seconds."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def mark(self, label):
+        now = time.perf_counter()
+        print(f"phase time: {label}: {now - self.t:.1f} s", flush=True)
+        self.t = now
 
 
 def max_abs_err(a, b):
@@ -1561,7 +1609,8 @@ DEVICE_AUGMENT = {"rotate": {"min": 0.0, "max": 6.283}, "scale": {},
 def data_path_phase(counted):
     """Phase 17: the data-preparation and augmentation path at the
     flagship width.  Returns each counted kernel's launches in its
-    ``run_training``."""
+    ``run_training``, and the prepared cloud's numpy features with the
+    featurizer's and ``prepare_cloud``'s seconds."""
     import shutil
     import tempfile
 
@@ -1633,6 +1682,23 @@ def data_path_phase(counted):
               f"{int(near.sum())} rows within 1e-5 of {thr}); density "
               f"voxelizer {vox_ms:.1f} ms -> {len(vox)} points; "
               f"prepare_cloud {chain_s:.2f} s -> {out.shape}", flush=True)
+        # the same chain with the featurizer's default backend (open3d,
+        # else the native library); phase 19 holds the native featurizer
+        # against the numpy features
+        native_cfg = dict(cfg, featurizer=dict(cfg["featurizer"]))
+        del native_cfg["featurizer"]["backend"]
+        from objectdetection_3d_tpu_torch import native
+        t = time.perf_counter()
+        native.load(), native.load_featurize()    # g++, outside the timing
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        out_native = prepare_cloud(cloud, native_cfg, log=quiet,
+                                   device="cuda")
+        prepared = {"cloud": cloud, "cfg": cfg, "feats": feats,
+                    "feat_s": feat_s, "prepare_s": chain_s,
+                    "prepare_native_s": time.perf_counter() - t,
+                    "native_build_s": build_s,
+                    "prepare_points": (len(out), len(out_native))}
         del feats, p_card, p_host
 
         # ---- GT database of leaning trunks ---------------------------
@@ -1766,7 +1832,7 @@ def data_path_phase(counted):
               f"{', '.join(f'{v:.1f}' for v in step_ms)} ms; launches "
               f"{launches}", flush=True)
         del pipe, model
-        return launches
+        return launches, prepared
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2346,6 +2412,313 @@ def serving_phase(batches):
     return launches, report
 
 
+def native_phase(prepared):
+    """Phase 19a: the host C++ passes against the numpy paths."""
+    from objectdetection_3d_tpu_torch import configs, native
+    from objectdetection_3d_tpu_torch.models import preprocess_tools as pre
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.scene import tree_scene
+
+    cloud, cfg = prepared["cloud"], prepared["cfg"]
+    fc = cfg["featurizer"]
+    build_s = prepared["native_build_s"]
+    xyz = cloud[:, :3].astype(np.float64)
+    t = time.perf_counter()
+    normals, fpfh = native.featurize_cloud(
+        xyz, fc["normal_rad"], fc["normal_max_nn"], fc["fpfh_rad"],
+        fc["fpfh_max_nn"])
+    nat_s = time.perf_counter() - t
+    ref = prepared["feats"]
+    ref_n, ref_f = ref[:, -36:-33], ref[:, -33:]
+    # the CPU tests' gates: normals up to sign on >= 4-point
+    # neighbourhoods, FPFH from shared normals
+    _, valid = pre._knn_radius(xyz, fc["normal_rad"], fc["normal_max_nn"])
+    ok = valid.sum(axis=1) >= 4
+    dots = np.abs(np.einsum("nk,nk->n", ref_n, normals))[ok]
+    share = float((dots > 0.999).mean())
+    if share < 0.98:
+        raise AssertionError(f"native normals: |dot| > 0.999 on {share:.4f} "
+                             f"of the >= 4-point neighbourhoods, not 0.98")
+    t = time.perf_counter()
+    _, fpfh_shared = native.featurize_cloud(
+        xyz, fc["normal_rad"], fc["normal_max_nn"], fc["fpfh_rad"],
+        fc["fpfh_max_nn"], normals=ref_n)
+    shared_s = time.perf_counter() - t
+    # a histogram bin is discontinuous at its edges: where a pair's angle
+    # lies within 1e-9 of one (theta at +-pi for antiparallel normals of
+    # a 3-point neighbourhood), the two summation orders may bin it
+    # apart, and every FPFH row that reads that SPFH moves by up to
+    # 100 / distance
+    edge = bin_edge_rows(xyz, ref_n, fc["fpfh_rad"], fc["fpfh_max_nn"])
+    differ = ~np.isclose(fpfh_shared, ref_f, rtol=2e-4, atol=2e-3)
+    if (differ.any(axis=1) & ~edge).any():
+        raise AssertionError(
+            f"native FPFH from shared normals: "
+            f"{int((differ.any(axis=1) & ~edge).sum())} rows off a bin "
+            f"edge differ from numpy beyond rtol 2e-4 / atol 2e-3")
+    # on the rows near an edge, only mass moved between theta's first and
+    # last bin (the two sides of its +-pi cut), their sum kept
+    cut = [2 * 11, 3 * 11 - 1]
+    if differ[edge][:, np.delete(np.arange(33), cut)].any():
+        raise AssertionError("native FPFH from shared normals: a row near "
+                             "a bin edge differs outside theta's first "
+                             "and last bin")
+    if not np.allclose(fpfh_shared[edge][:, cut].sum(axis=1),
+                       ref_f[edge][:, cut].sum(axis=1), rtol=2e-4,
+                       atol=2e-3):
+        raise AssertionError("native FPFH from shared normals: theta's "
+                             "first and last bin do not sum to numpy's")
+    differ = int(differ.any(axis=1).sum())
+    prep_s = prepared["prepare_native_s"]
+    print(f"phase 19a native: loading both libraries before phase 17's "
+          f"timed prepare_cloud (g++ of what was not built yet) "
+          f"{build_s:.2f} s; featurize_cloud "
+          f"({len(cloud)} points) native {nat_s:.3f} s against numpy "
+          f"{prepared['feat_s']:.3f} s (x{prepared['feat_s'] / nat_s:.1f}); "
+          f"normals |dot| > 0.999 on {share:.4f} of {int(ok.sum())} "
+          f">= 4-point neighbourhoods; FPFH from shared normals within "
+          f"rtol 2e-4 / atol 2e-3 ({shared_s:.3f} s) on all but the "
+          f"{int(edge.sum())} rows that read a pair within 1e-9 of a bin "
+          f"edge ({differ} rows differ, all among them, and there only "
+          f"by mass moved across theta's +-pi cut); prepare_cloud "
+          f"(phase 17, the MLP filter on the card) numpy "
+          f"{prepared['prepare_s']:.3f} s -> default (native) "
+          f"{prep_s:.3f} s; points kept {prepared['prepare_points']}",
+          flush=True)
+
+    model = PointPillars(configs.flagship_cfg(), device="cuda")
+    raw = np.concatenate([tree_scene(1)[0], tree_scene(2)[0]])
+    raw[:50, :3] += 400.0                         # far outliers
+    got = model._preprocess_points(raw)
+    want = model._preprocess_points_numpy(raw)
+    if got.shape != want.shape or not np.allclose(got, want, atol=1e-5):
+        raise AssertionError("native preprocess_cloud differs from the "
+                             "numpy pass")
+    nat_ms = min(_wall_ms(lambda: model._preprocess_points(raw))
+                 for _ in range(5))
+    np_ms = min(_wall_ms(lambda: model._preprocess_points_numpy(raw))
+                for _ in range(5))
+    print(f"phase 19a preprocess_cloud ({len(raw)} raw points -> "
+          f"{len(got)}): native {nat_ms:.2f} ms against numpy "
+          f"{np_ms:.2f} ms (best of 5), equal", flush=True)
+    return {"featurize_native_s": nat_s,
+            "featurize_numpy_s": prepared["feat_s"],
+            "prepare_numpy_s": prepared["prepare_s"],
+            "prepare_native_s": prep_s, "preprocess_native_ms": nat_ms,
+            "preprocess_numpy_ms": np_ms}
+
+
+def bin_edge_rows(xyz, normals, radius, max_nn, tol=1e-9):
+    """The rows of an FPFH whose histograms read a point pair with a
+    Darboux angle within ``tol`` of one of its 11 bins' edges: the row's
+    own SPFH or one of its neighbours'."""
+    from objectdetection_3d_tpu_torch.models import preprocess_tools as pre
+
+    idx, valid = pre._knn_radius(xyz, radius, max_nn)
+    pairs = valid.copy()
+    pairs[:, 0] = False                           # the point itself
+    alpha, phi, theta = pre._darboux(xyz[:, None], normals[:, None],
+                                     xyz[idx], normals[idx])
+    near = np.zeros_like(pairs)
+    for feat, lim in ((alpha, 1.0), (phi, 1.0), (theta, np.pi)):
+        edges = np.linspace(-lim, lim, 12)
+        near |= np.abs(feat[..., None] - edges).min(axis=-1) < tol
+    own = (near & pairs).any(axis=1)
+    return own | np.where(valid, own[idx], False).any(axis=1)
+
+
+def _wall_ms(fn):
+    t = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t) * 1e3
+
+
+def _rank_cases():
+    """``tests/rank_cases.py``: the ranks' runs and the checks that the
+    CPU tests share (its directory goes on ``sys.path``, which ``spawn``
+    hands on to the ranks)."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import rank_cases
+    return rank_cases
+
+
+def parallel_phase(prepared):
+    """Phase 19: the native host passes (a); the sharded paths at world 1
+    over nccl in this process (b) and at world 2 on this card over gloo
+    (c).  Returns each kernel's launches in (b)'s sharded runs and the
+    readings."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.parallel import make_mesh, spawn
+    rr = _rank_cases()
+    from objectdetection_3d_tpu_torch.scene import make_batch, tree_scene
+
+    report = {"native": native_phase(prepared)}
+
+    def state_of(cfg):
+        model = PointPillars(cfg, device="cuda")
+        load_npz(model.net, NPZ)
+        state = rr.model_state(model)
+        del model
+        return state
+
+    p_max = configs.flagship_cfg()["tpu"]["max_points_static"]
+    items = [make_batch(tree_scene(seed), p_max) for seed in (1, 2)]
+    batch2 = {k: np.concatenate([it[k] for it in items]) for k in items[0]}
+    # (c)'s bf16 data-parallel step on three global batches of two clouds
+    dp_clouds = ((1, 2), (3, 4), (5, 6))
+    bf16 = configs.flagship_cfg()
+    fp32 = configs.flagship_cfg({"compute_dtype": "float32"})
+    base = dict(device="cuda", opt=dict(OPT), clip=CLIP)
+    step2 = dict(base, kind="train", cfg=bf16, state=state_of(bf16),
+                 batch=batch2, mesh=(1, 1))
+    pred2 = dict(step2, kind="predict", fn="predict")
+    knob_preds = [dict(pred2, cfg=configs.flagship_cfg(knobs),
+                       batch=items[0])
+                  for knobs in ({"fused_stages": True},
+                                {"pallas_subm_conv": True,
+                                 "zfold_pallas": True})]
+
+    # ---- (b) world 1 over nccl, in this process -----------------------
+    t0 = time.perf_counter()
+    want_step = rr.train(step2)
+    want_pred = rr.predict(pred2)
+    want_knobs = [rr.predict(c) for c in knob_preds]
+    torch.cuda.empty_cache()
+    mesh = make_mesh(1, device="cuda")     # one rank a card: nccl
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"world 1 on the card joined over "
+                             f"{dist.get_backend()}, not nccl")
+    got_step = rr.train(step2, mesh)
+    got_pred = rr.predict(pred2, mesh)
+    got_knobs = [rr.predict(c, mesh) for c in knob_preds]
+    # each run's counts are set to 0 just before it and read just after
+    launches = {name: sum(r["launches"][name] for r in
+                          (got_step, got_pred, *got_knobs))
+                for name in got_step["launches"]}
+    dist.destroy_process_group()
+    worst = rr.check_step([got_step], want_step, OPT["lr"])
+    preds = [rr.check_preds(g["preds"], w["preds"]) for g, w in
+             zip([got_pred, *got_knobs], [want_pred, *want_knobs])]
+    bitwise = [all(torch.equal(g["preds"][k], w["preds"][k])
+                   for k in w["preds"]) for g, w in
+               zip([got_pred, *got_knobs], [want_pred, *want_knobs])]
+    step_kernels = ("postsort_scan", "scatter_to_grid", "chunk_geometry",
+                    "containment_rescue", "iou_gathered", "iou_gathered_pair")
+    if not all(got_step["launches"][k] for k in step_kernels):
+        raise AssertionError(f"world 1 sharded step: a kernel did not "
+                             f"launch: {got_step['launches']}")
+    if not (got_knobs[0]["launches"]["fused_stage"]
+            and got_knobs[1]["launches"]["subm_conv3d"]
+            and got_knobs[1]["launches"]["conv2d_3x3"]):
+        raise AssertionError("world 1 sharded predict under the knobs: "
+                             "K8-K10 did not launch")
+    print(f"phase 19b world 1 over nccl (flagship bf16, global batch 2 = "
+          f"clouds 1-2): sharded step {got_step['ms']:.1f} ms against one "
+          f"device's {want_step['ms']:.1f} ms (each the first step of its "
+          f"model): largest loss {worst['loss']:.3g}, gradient "
+          f"{worst['grad']:.3g}, parameter {worst['param']:.3g} "
+          f"difference, parameters bitwise equal {worst['bitwise']}; "
+          f"sharded predict (default, fused_stages, pallas_subm_conv + "
+          f"zfold_pallas) against live: {preds}, bitwise {bitwise}; "
+          f"launches {launches} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    report["world1_nccl"] = {"step_ms": got_step["ms"],
+                             "one_device_step_ms": want_step["ms"], **worst,
+                             "predict_bitwise": bitwise}
+
+    # ---- (c) world 2 on this card over gloo ----------------------------
+    t0 = time.perf_counter()
+    # float32, TF32 off: the spatial step and predict at the CPU
+    # tolerances (two bf16 ranks at B = 1 each fit; float32 at B = 1)
+    exact = dict(base, cfg=fp32, state=state_of(fp32), batch=items[0],
+                 exact_fp32=True)
+    sp_step = dict(exact, kind="train", spatial=True, mesh=(1, 2))
+    sp_pred = dict(exact, kind="predict", fn="spatial_predict", mesh=(1, 2))
+    old_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    want_sp_step = rr.train(sp_step)
+    want_sp_pred = rr.predict(sp_pred)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old_tf32
+    dp_steps = [dict(step2, mesh=(2, 1))]
+    for pair in dp_clouds[1:]:
+        more = [make_batch(tree_scene(seed), p_max) for seed in pair]
+        dp_steps.append(dict(step2, mesh=(2, 1), batch={
+            k: np.concatenate([it[k] for it in more]) for k in batch2}))
+    want_dp = [want_step] + [rr.train(case) for case in dp_steps[1:]]
+    torch.cuda.empty_cache()
+    cases = [dict(kind="gloo_probe", device="cuda"),
+             dict(pred2, fn="spatial_predict", mesh=(1, 2)),
+             sp_pred, sp_step, *dp_steps]
+    t = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(
+            prefix="spawn_", dir=os.path.join(REPO, "build")) as init_dir:
+        # two ranks, one card: spawn's default backend is gloo
+        ranks = spawn(rr.run_cases, 2, init_dir, args=(cases,))
+    spawn_s = time.perf_counter() - t
+    probe = ranks[0][0]
+    if probe["backend"] != "gloo":
+        raise AssertionError(f"two ranks on one card joined over "
+                             f"{probe['backend']}, not gloo")
+    sp_bf16 = [rr.check_preds(r[1]["preds"], want_pred["preds"])
+               for r in ranks]
+    sp_f32 = [rr.check_preds(r[2]["preds"], want_sp_pred["preds"])
+              for r in ranks]
+    sp_worst = rr.check_step([r[3] for r in ranks], want_sp_step, OPT["lr"])
+    dp = [rr.check_step([r[4 + i] for r in ranks], want, OPT["lr"],
+                        bf16_start=step2["state"])
+          for i, want in enumerate(want_dp)]
+    k12 = [[r[i]["launches"]["postsort_scan"],
+            r[i]["launches"]["scatter_to_grid"]] for r in ranks
+           for i in range(1, len(cases))]
+    if not all(a and b for a, b in k12):
+        raise AssertionError(f"gloo world 2: K1/K2 did not launch on a "
+                             f"rank: {k12}")
+    print(f"phase 19c gloo collectives on CUDA tensors: {probe}",
+          flush=True)
+    dp_text = "; ".join(
+        f"clouds {pair}: loss {w['loss']:.3g}, gradient {w['grad']:.3g}, "
+        f"parameter {w['param']:.3g}, share of the tolerance used "
+        f"{ {k: round(v, 3) for k, v in w['used'].items()} }"
+        for pair, w in zip(dp_clouds, dp))
+    print(f"phase 19c world 2 on one card over gloo (a correctness run: "
+          f"two ranks share the card; spawn {spawn_s:.1f} s): "
+          f"data-parallel step (bf16, B = 1 a rank) against one device at "
+          f"B = 2 (losses, gradients and running statistics within "
+          f"{rr.BF16_ULPS} bf16 ulps of the loss, of the leaf's largest "
+          f"gradient and of its largest move; parameters as in (b)): "
+          f"{dp_text}; spatial 1 x 2 "
+          f"predict bf16 {sp_bf16}, float32 {sp_f32}; spatial 1 x 2 step "
+          f"(float32, TF32 off, B = 1) against one device: loss "
+          f"{sp_worst['loss']:.3g}, gradient {sp_worst['grad']:.3g}, "
+          f"parameter {sp_worst['param']:.3g}; per rank, K1 / K2 launches "
+          f"of the bf16 and float32 spatial predict, spatial step, dp "
+          f"steps: {k12}; step ms per rank, data-parallel "
+          f"{[round(r[4]['ms'], 1) for r in ranks]} (one device at B = 2: "
+          f"{want_step['ms']:.1f}), spatial "
+          f"{[round(r[3]['ms'], 1) for r in ranks]} (one device float32 at "
+          f"B = 1: {want_sp_step['ms']:.1f}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    report["gloo_world2"] = {
+        "probe": probe, "dp_bf16": dict(zip(map(str, dp_clouds), dp)),
+        "spatial_step": sp_worst, "k1_k2": k12, "spawn_s": spawn_s,
+        "dp_step_ms": [r[4]["ms"] for r in ranks],
+        "spatial_step_ms": [r[3]["ms"] for r in ranks],
+        "one_device_spatial_ref_ms": want_sp_step["ms"]}
+    return launches, report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2389,6 +2762,7 @@ def main():
         traced_steps,
     )
 
+    clock = PhaseClock()
     # ---- build -------------------------------------------------------
     t0 = time.perf_counter()
     logs = cuda_lib.build()
@@ -2435,6 +2809,7 @@ def main():
         print("quick check passed", flush=True)
         return 0
 
+    clock.mark('build')
     # ---- K1: post-sort scan at B=1 and 4, P=131,072 -------------------
     kernels["postsort_scan"] = scan_entry(model, batches)
     vl = model.voxel_layer
@@ -2442,6 +2817,7 @@ def main():
     n0 = torch.as_tensor(batches[0]["num_points"], device="cuda")
     sentinel = d * h * w
 
+    clock.mark('K1: post-sort scan at B=1 and 4, P=131,072')
     # ---- K2: grid scatter at V=102,400, C=20, 100x400x400 --------------
     vox0 = vl.points_batch(pts0, n0)
     cz, cy, cx = vox0["coords"].unbind(-1)
@@ -2505,6 +2881,7 @@ def main():
     kernels["scatter_to_grid"]["dtypes"] = k2_dtypes
     torch.cuda.empty_cache()
 
+    clock.mark('K2: grid scatter at V=102,400, C=20, 100x400x400')
     # ---- voxelizer: kernel path on the card vs plain path on the CPU ---
     vox_cpu = vl.points_batch(pts0.cpu(), n0.cpu())
     for key, val in vox0.items():
@@ -2515,6 +2892,7 @@ def main():
           f"({int(vox0['num_voxels'][0])} voxels)", flush=True)
     del vox0, vox_cpu
 
+    clock.mark('voxelizer: kernel path on the card vs plain path on the CPU')
     # ---- predict: flagship, bf16, trained weights, 4 clouds ------------
     with np.load(NPZ) as z:
         n_weights = sum(k.split("/")[0] in ("params", "batch_stats")
@@ -2565,6 +2943,7 @@ def main():
           "bitwise equal", flush=True)
     del warm
 
+    clock.mark('predict: flagship, bf16, trained weights, 4 clouds')
     # ---- float32 run of cloud 0 ----------------------------------------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2587,6 +2966,7 @@ def main():
           f"{int(preds[0]['valid'][0].sum())})", flush=True)
     del model32, out32
 
+    clock.mark('float32 run of cloud 0')
     # ---- assignment kernels at flagship shapes, cloud 0 ---------------
     gt = torch.as_tensor(batches[0]["bboxes"][0], device="cuda")
     gt_mask = torch.as_tensor(batches[0]["gt_mask"][0], device="cuda")
@@ -2671,6 +3051,7 @@ def main():
     del geom, g6, g7, cand_boxes
     torch.cuda.empty_cache()
 
+    clock.mark('assignment kernels at flagship shapes, cloud 0')
     # ---- assignment of cloud 0: kernels vs plain versions, on the card -
     t = time.perf_counter()
     tk = model.assign(batches[0])
@@ -2697,6 +3078,7 @@ def main():
           f"with the kernels, {t_plain * 1e3:.1f} ms plain", flush=True)
     del tk, tp
 
+    clock.mark('assignment of cloud 0: kernels vs plain versions, on the card')
     # ---- the same assignment without the exact anchor tier -------------
     model_nt = PointPillars(configs.flagship_cfg(
         {"assign_exact_anchor_tier": False}), device="cuda")
@@ -2724,6 +3106,7 @@ def main():
           f"{num_pos}), negatives {int(tk['neg_mask'].sum())}", flush=True)
     del tk, tp, model_nt
 
+    clock.mark('the same assignment without the exact anchor tier')
     # ---- train: flagship, bf16, B=1 --------------------------------------
     counted = {"postsort_scan": postsort_scan,
                "scatter_to_grid": scatter_to_grid,
@@ -2800,6 +3183,7 @@ def main():
     del step, tx, before, after
     torch.cuda.empty_cache()
 
+    clock.mark('train: flagship, bf16, B=1')
     # ---- encoder kernels and K5 at flagship shapes ----------------------
     load_npz(model.net, NPZ)                # the npz weights, untrained
     kernels.update(encoder_kernels(model, batches[0]))
@@ -2808,6 +3192,7 @@ def main():
     del model
     torch.cuda.empty_cache()
 
+    clock.mark('encoder kernels and K5 at flagship shapes')
     # ---- predict and train under the lowering knobs ---------------------
     launches = knob_predicts(batches, preds)
     kernels["fused_stage"]["launches"] = launches["fused_stage"]
@@ -2821,6 +3206,7 @@ def main():
     kernels["conv2d_3x3"]["launches_dx"] = k9["dx"]
     torch.cuda.empty_cache()
 
+    clock.mark('predict and train under the lowering knobs')
     # ---- gradient accumulation and the pipeline at the flagship width ----
     for name, count in accumulation(scenes + [tree_scene(s) for s in
                                               range(4, 8)],
@@ -2831,6 +3217,7 @@ def main():
         kernels[name]["launches_pipeline"] = count
     torch.cuda.empty_cache()
 
+    clock.mark('gradient accumulation and the pipeline at the flagship width')
     # ---- tiled inference over the plot-scale scene; the importer -------
     tiled = tiled_phase()
     for name in ("postsort_scan", "scatter_to_grid"):
@@ -2840,16 +3227,31 @@ def main():
     importer_phase(batches[0])
     torch.cuda.empty_cache()
 
+    clock.mark('tiled inference over the plot-scale scene; the importer')
     # ---- the data-preparation and augmentation path ---------------------
-    for name, count in data_path_phase(counted).items():
+    data_launches, prepared = data_path_phase(counted)
+    for name, count in data_launches.items():
         kernels[name]["launches_data_path"] = count
     torch.cuda.empty_cache()
 
+    clock.mark('the data-preparation and augmentation path')
     # ---- serving: predict exported, reloaded in a fresh process, served -
     served, serving_report = serving_phase(batches)
     for name, count in served.items():
         kernels[name]["launches_serving"] = count
     print("serving: " + json.dumps(serving_report), flush=True)
+    torch.cuda.empty_cache()
+
+    clock.mark('serving: predict exported, reloaded in a fresh process')
+    # ---- the native host passes and the sharded paths ------------------
+    launches, parallel_report = parallel_phase(prepared)
+    for name, entry in kernels.items():
+        entry["launches_parallel"] = launches[name]
+    for i, name in enumerate(("postsort_scan", "scatter_to_grid")):
+        kernels[name]["launches_parallel_gloo_ranks"] = [
+            row[i] for row in parallel_report["gloo_world2"]["k1_k2"]]
+    print("parallel: " + json.dumps(parallel_report), flush=True)
+    clock.mark("native and parallel (phase 19)")
     if len(kernels) != 10:
         raise AssertionError(f"{len(kernels)} kernels in the line, not 10")
 

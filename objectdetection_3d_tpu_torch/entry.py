@@ -11,6 +11,15 @@ The config is the JAX package's schema: ``global_args`` / ``dataset`` /
 true to test or show).  ``global_args.device`` picks the device: ``cpu``,
 or any accelerator name for the CUDA card.  The config path defaults to
 ``./config.yaml``.
+
+With ``pipeline.data_parallel`` / ``spatial_parallel`` above 1, run one
+process per rank, each on the card of its ``LOCAL_RANK``:
+
+    torchrun --nproc_per_node=N -m objectdetection_3d_tpu_torch.entry \
+        train config.yaml
+
+The ranks join over nccl, or over gloo where they outnumber the host's
+cards (several ranks sharing one card).
 """
 
 import argparse
@@ -20,6 +29,7 @@ import sys
 from objectdetection_3d_tpu_torch.config import Config
 from objectdetection_3d_tpu_torch.dataset import Forest3D
 from objectdetection_3d_tpu_torch.models.detector import PointPillars
+from objectdetection_3d_tpu_torch.parallel.launch import bind_local_device
 from objectdetection_3d_tpu_torch.pipeline import ObjectDetection
 from objectdetection_3d_tpu_torch.utils import convert_device_name
 
@@ -75,6 +85,7 @@ def main(argv=None):
     parser.add_argument("config", nargs="?", default="./config.yaml")
     args = parser.parse_args(argv)
     init_logging()
+    bind_local_device()
     pipeline, cfg_pipeline = build_pipeline(args.config)
     if args.task == "train":
         require_mode(cfg_pipeline, False, "training")

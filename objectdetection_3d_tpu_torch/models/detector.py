@@ -6,7 +6,7 @@ Port of the JAX package's ``models/detector.py``: the constructor,
 ``apply`` (point path, eval and train), ``loss``, ``get_optimizer``,
 ``make_train_step`` (one device, with or without gradient accumulation),
 ``make_eval_fn``, ``_predict_single``, ``predict``, ``make_predict_fn``,
-``inference_end``, ``preprocess`` (its numpy path) and ``transform``.
+``inference_end``, ``preprocess`` and ``transform``.
 Weights and running statistics live in the ``net`` module; load trained
 or JAX-initialised ones with ``models/weights.py``, or draw fresh ones
 with ``network.init_parameters``.  The training state is the
@@ -21,17 +21,21 @@ such ties are common among anchors below ``score_thr``; the two orders
 then pick different below-threshold candidates, which NMS never keeps.
 """
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 
+from objectdetection_3d_tpu_torch import native
 from objectdetection_3d_tpu_torch.augment import (
     ObjdetAugmentation,
     global_outlier_check,
 )
 from objectdetection_3d_tpu_torch.augment.device_ops import (
+    apply_params,
     augment_batch,
+    draw_params,
     parse_device_augment_cfg,
 )
 from objectdetection_3d_tpu_torch.configs import DEFAULT_TPU_CFG
@@ -69,6 +73,11 @@ def resolve_device(device="cuda"):
             f"device={device!r} requested but CUDA is not available; pass "
             f"device='cpu' to run on the CPU")
     return dev
+
+
+def _sharded(shard, net):
+    """``shard.context(net)``, or nothing to enter on one device."""
+    return contextlib.nullcontext() if shard is None else shard.context(net)
 
 
 def topk_lowest_index(x, k):
@@ -296,7 +305,7 @@ class PointPillars(BaseModel):
                 plain=plain) for i in range(boxes.shape[0])]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
-    def loss(self, results, inputs, with_num_pos=False):
+    def loss(self, results, inputs, with_num_pos=False, shard=None):
         """Training losses.
 
         Args:
@@ -306,6 +315,12 @@ class PointPillars(BaseModel):
                 (B,): padded repeat items carry zero weight.
             with_num_pos: also return the positive count (the
                 ``avg_factor`` before its clamp).
+            shard: this rank's part of a sharded step
+                (``parallel/data_parallel.py``): ``num_pos`` is summed
+                over the data group first (``shard.num_pos_sum``), and
+                where the head outputs are a slab of H the targets,
+                assigned over every anchor, are cut to the slab's
+                ``shard.anchor_rows``.
         Returns:
             dict of scalar losses ``loss_cls``, ``loss_bbox`` and
             ``loss_dir_x|y|z``, each normalized by ``max(num_pos, 1)``;
@@ -315,6 +330,12 @@ class PointPillars(BaseModel):
         b = cls.shape[0]
         c = max(self.num_classes, 1)
         assign = self.assign(inputs)
+        rows = None if shard is None else shard.anchor_rows
+        if rows is not None:
+            n = self.anchors.shape[0]
+            assign = {k: v[:, rows[0]:rows[1]]
+                      if v.dim() > 1 and v.shape[1] == n else v
+                      for k, v in assign.items()}
 
         item_valid = inputs.get("item_valid")
         if item_valid is None:
@@ -329,6 +350,8 @@ class PointPillars(BaseModel):
         neg_f = (assign["neg_mask"].to(torch.float32)
                  * item_valid[:, None]).reshape(-1)
         num_pos = (assign["num_pos"].to(torch.float32) * item_valid).sum()
+        if shard is not None:
+            num_pos = shard.num_pos_sum(num_pos)
         # avg_factor = total positive count; 1 when there is none
         avg = torch.clamp(num_pos, min=1.0)
 
@@ -393,22 +416,35 @@ class PointPillars(BaseModel):
             betas=(float(betas[0]), float(betas[1])), eps=1e-8,
             weight_decay=float(cfg.get("weight_decay", 1e-2)))
 
-    def augment(self, batch):
+    def augment(self, batch, rows=None):
         """The batch with ``device_augment``'s transforms applied on the
         model's device, drawn from ``augment_generator`` (the batch as it
-        is when ``device_augment`` is empty)."""
+        is when ``device_augment`` is empty).
+
+        ``rows`` (lo, hi): the draws are those of the whole batch, and only
+        its rows lo..hi-1 are transformed and returned (a rank's part of
+        a sharded batch, drawn as one device draws it).
+        """
         if not self.device_augment:
-            return batch
+            return batch if rows is None else {
+                k: v[rows[0]:rows[1]] for k, v in batch.items()}
         batch = dict(batch)
         for key in ("points", "num_points", "bboxes", "gt_mask"):
             batch[key] = torch.as_tensor(batch[key], device=self.device)
         batch["points"] = batch["points"].to(torch.float32)
         batch["bboxes"] = batch["bboxes"].to(torch.float32)
-        return augment_batch(batch, self.device_augment,
+        if rows is None:
+            return augment_batch(batch, self.device_augment,
+                                 self.augment_generator)
+        params = draw_params(batch["points"], self.device_augment,
                              self.augment_generator)
+        lo, hi = rows
+        return apply_params({k: v[lo:hi] for k, v in batch.items()},
+                            [p[lo:hi] for p in params], self.device_augment)
 
-    def make_train_step(self, tx, microbatch=None):
-        """The training step on one device.
+    def make_train_step(self, tx, microbatch=None, shard=None):
+        """The training step on one device, or one rank's part of a
+        sharded step.
 
         Args:
             tx: the optimizer over ``self.net``'s parameters
@@ -428,29 +464,45 @@ class PointPillars(BaseModel):
             ``torch.profiler`` ranges (``forward``, ``assignment`` inside
             ``loss+backward``, ``optimizer``; per chunk under
             accumulation), which ``profile_train`` reads from a trace.
+
+        ``shard`` (``parallel/data_parallel.py``; use its
+        ``make_sharded_train_step``): the step takes the global batch (or
+        chunk), augments it as one device does and keeps this rank's rows
+        (``shard.batch_rows``), runs the forward under ``shard.context``
+        (statistics over the ranks, a slab of H), normalizes by the global
+        positive count, sums the gradients over the ranks before the
+        update (``shard.sum_grads``) and returns the global losses
+        (``shard.sum_losses``).
         """
         if microbatch is not None:
-            return self._accum_step(tx, int(microbatch))
+            return self._accum_step(tx, int(microbatch), shard)
         record = torch.profiler.record_function
+        params = [p for group in tx.param_groups for p in group["params"]]
 
         def step(batch):
-            batch = self.augment(batch)
-            with record("forward"):
+            batch = self.augment(batch, None if shard is None
+                                 else shard.batch_rows(len(batch["points"])))
+            with record("forward"), _sharded(shard, self.net):
                 outs, _ = self.apply(batch, train=True)
             with record("loss+backward"):
-                losses, num_pos = self.loss(outs, batch, with_num_pos=True)
+                losses, num_pos = self.loss(outs, batch, with_num_pos=True,
+                                            shard=shard)
                 total = sum(losses.values())
                 tx.zero_grad(set_to_none=True)
                 total.backward()
             with record("optimizer"):
+                if shard is not None:
+                    shard.sum_grads(params)
                 tx.step()
             out = {k: v.detach() for k, v in losses.items()}
+            if shard is not None:
+                out = shard.sum_losses(out)
             out["num_pos"] = num_pos
             return out
 
         return step
 
-    def _accum_step(self, tx, microbatch):
+    def _accum_step(self, tx, microbatch, shard=None):
         """Gradient accumulation with the pooled normalization of the
         whole batch (the JAX package's ``train_step_accum_fn``).
 
@@ -464,6 +516,11 @@ class PointPillars(BaseModel):
         freed by its own backward.  Train-mode batch norm takes its
         statistics per chunk and updates the running statistics chunk
         after chunk, as training at the chunk's batch size would.
+
+        Under ``shard`` each chunk of ``microbatch`` items is a global
+        chunk: its count ``n_i`` and statistics are those of every rank's
+        rows of it, and the summed gradients are summed over the ranks
+        before the update.
         """
         record = torch.profiler.record_function
         params = [p for group in tx.param_groups for p in group["params"]]
@@ -477,12 +534,15 @@ class PointPillars(BaseModel):
             loss_sums = {}
             n_total = torch.zeros((), device=self.device)
             for start in range(0, b, microbatch):
-                mb = self.augment({k: v[start:start + microbatch]
-                                   for k, v in batch.items()})
-                with record("forward"):
+                mb = self.augment(
+                    {k: v[start:start + microbatch]
+                     for k, v in batch.items()},
+                    None if shard is None else shard.batch_rows(microbatch))
+                with record("forward"), _sharded(shard, self.net):
                     outs, _ = self.apply(mb, train=True)
                 with record("loss+backward"):
-                    losses, n_i = self.loss(outs, mb, with_num_pos=True)
+                    losses, n_i = self.loss(outs, mb, with_num_pos=True,
+                                            shard=shard)
                     grads = torch.autograd.grad(sum(losses.values()),
                                                 params, allow_unused=True)
                     avg_i = torch.clamp(n_i, min=1.0)
@@ -502,8 +562,12 @@ class PointPillars(BaseModel):
                 for p, g in zip(params, sums):
                     p.grad = (None if g is None
                               else (g / total_pos).to(p.dtype))
+                if shard is not None:
+                    shard.sum_grads(params)
                 tx.step()
             out = {k: v / total_pos for k, v in loss_sums.items()}
+            if shard is not None:
+                out = shard.sum_losses(out)
             out["num_pos"] = n_total
             return out
 
@@ -658,7 +722,17 @@ class PointPillars(BaseModel):
                 "bboxes": data["bboxes"]}
 
     def _preprocess_points(self, points):
-        """Outlier rejection, range crop and column selection (numpy)."""
+        """Outlier rejection, range crop and column selection: the fused
+        C++ pass (``native.preprocess_cloud``) for a non-empty 2-D cloud,
+        numpy otherwise (the same semantics)."""
+        pts32 = np.asarray(points, np.float32)
+        if pts32.ndim == 2 and pts32.shape[0] > 0:
+            return native.preprocess_cloud(pts32, self.input_features,
+                                           self.point_cloud_range)
+        return self._preprocess_points_numpy(pts32)
+
+    def _preprocess_points_numpy(self, points):
+        """The numpy version of :meth:`_preprocess_points`."""
         filtered = global_outlier_check(np.asarray(points, np.float32))
         min_val = np.array(self.point_cloud_range[:3])
         max_val = np.array(self.point_cloud_range[3:])

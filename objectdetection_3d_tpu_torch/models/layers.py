@@ -56,6 +56,11 @@ class MaskedBatchNorm(nn.Module):
     used.  ``weight`` is the JAX package's ``scale``.
     """
 
+    # sums a float32 tensor over the ranks that share the batch, with
+    # autograd (``parallel/data_parallel.py`` sets it for a sharded step);
+    # None: the statistics are those of this device's batch
+    stats_sum = None
+
     def __init__(self, channels, eps=1e-5, momentum=0.1):
         super().__init__()
         self.eps = eps
@@ -80,10 +85,20 @@ class MaskedBatchNorm(nn.Module):
         m = mask.to(torch.float32)
         xf = x.float()
         dims = [d for d in range(x.dim()) if d != 1]
-        count = torch.clamp(m.sum(), min=1.0)
-        mean = (xf * m).sum(dim=dims) / count
-        var = (((xf - _bcast(mean, x.dim(), torch.float32)) ** 2)
-               * m).sum(dim=dims) / count
+        if self.stats_sum is None:
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (xf * m).sum(dim=dims) / count
+            var = (((xf - _bcast(mean, x.dim(), torch.float32)) ** 2)
+                   * m).sum(dim=dims) / count
+        else:
+            # the sums of every rank's sites, then the centred sum
+            tot = self.stats_sum(torch.cat([(xf * m).sum(dim=dims),
+                                            m.sum()[None]]))
+            count = torch.clamp(tot[-1], min=1.0)
+            mean = tot[:-1] / count
+            var = self.stats_sum(
+                (((xf - _bcast(mean, x.dim(), torch.float32)) ** 2)
+                 * m).sum(dim=dims)) / count
         self._update_running(mean.detach(), var.detach(), count)
         return mean, var
 
@@ -120,12 +135,21 @@ class PointMaskedBN(MaskedBatchNorm):
         m = pt_valid.to(torch.float32)[:, None]
         if self.training:
             xf = x.float()
-            count = torch.clamp(total_slots.to(torch.float32), min=1.0)
-            mean = (xf * m).sum(dim=0) / count
-            n_real = m.sum()
+            if self.stats_sum is None:
+                count = torch.clamp(total_slots.to(torch.float32), min=1.0)
+                mean = (xf * m).sum(dim=0) / count
+                n_real = m.sum()
+                centred = (((xf - mean) ** 2) * m).sum(dim=0)
+            else:
+                tot = self.stats_sum(torch.cat([
+                    (xf * m).sum(dim=0), total_slots.to(torch.float32)[None],
+                    m.sum()[None]]))
+                count = torch.clamp(tot[-2], min=1.0)
+                mean = tot[:-2] / count
+                n_real = tot[-1]
+                centred = self.stats_sum((((xf - mean) ** 2) * m).sum(dim=0))
             # the (count - n_real) padding slots are exact zeros
-            var = ((((xf - mean) ** 2) * m).sum(dim=0)
-                   + (count - n_real) * mean ** 2) / count
+            var = (centred + (count - n_real) * mean ** 2) / count
             self._update_running(mean.detach(), var.detach(), count)
         else:
             mean, var = self.running_mean, self.running_var
@@ -355,6 +379,12 @@ class SparseMiddleExtractor(nn.Module):
       convs compute ``F.conv3d``'s conv.
     """
 
+    # fills one halo row on each side of H (``x``'s dim 3) from the
+    # neighbouring ranks, zeros at the global edges, when H is split over
+    # ranks (``parallel/data_parallel.py``); every subm conv then runs as
+    # ``F.conv3d`` with no padding in H, and K8-K10 are not used
+    halo = None
+
     def __init__(self, in_channels, out_channels, dtype=torch.float32,
                  decompose_convs=False, pallas_subm=False, zfold_convs=False,
                  zfold_pallas=False, fused_stages=False):
@@ -413,6 +443,9 @@ class SparseMiddleExtractor(nn.Module):
     def _subm_conv3d(self, x, i):
         """Stage ``i``'s 3x3x3 SAME subm conv of NCDHW ``x``."""
         kernel = getattr(self, f"subm_{i}_kernel")
+        if self.halo is not None:
+            return F.conv3d(self.halo(x, 3), kernel.to(self.dtype),
+                            padding=(1, 0, 1))
         _, c, d, h, w = x.shape
         co = kernel.shape[0]
         if (self.pallas_subm and not self.training and c <= 24
@@ -440,7 +473,7 @@ class SparseMiddleExtractor(nn.Module):
         """Stage ``i`` on NCDHW ``x`` of the compute type and its
         (B, 1, D, H, W) mask -> (x, mask) of the next stage."""
         ch = self.out_channels[i]
-        if (self.fused_stages and not self.training
+        if (self.fused_stages and not self.training and self.halo is None
                 and not self._decompose_stage(i)
                 and self._fused_zb(x.shape[1], ch, x.shape[2])):
             y = fused_stage(_ndhwc(x), mask[:, 0], *self.fused_stage_args(i))
@@ -475,6 +508,9 @@ class SubmanifoldSparseRPN(nn.Module):
     """2D RPN over the pseudo-image: dense 3x3 convs under a fixed
     nonzero-pixel mask, each with masked BN (eps 1e-3) and ReLU."""
 
+    # as ``SparseMiddleExtractor.halo``, on H = ``x``'s dim 2
+    halo = None
+
     def __init__(self, in_channels, out_channels, layer_nums,
                  dtype=torch.float32):
         super().__init__()
@@ -499,7 +535,10 @@ class SubmanifoldSparseRPN(nn.Module):
         mask = mask.to(dt)
         for li in range(self.num_layers):
             w = getattr(self, f"conv_{li}").weight.to(dt)
-            x = F.conv2d(x, w, padding=1)
+            if self.halo is None:
+                x = F.conv2d(x, w, padding=1)
+            else:
+                x = F.conv2d(self.halo(x, 2), w, padding=(0, 1))
             x = x * mask
             x = F.relu(getattr(self, f"bn_{li}")(x, mask))
         return x

@@ -28,6 +28,10 @@ class PointPillarsNet(nn.Module):
     batches.  ``decompose_convs`` .. ``fused_stages`` are the vertical
     encoder's lowering knobs (``SparseMiddleExtractor``)."""
 
+    # (h0, h1): build only the grid rows h0 <= y < h1 (a slab of H, when H
+    # is split over ranks by ``parallel/data_parallel.py``); None: all
+    rows = None
+
     def __init__(self, grid, in_channels, pfn_channels, voxel_size,
                  point_cloud_range, max_slots, middle_channels,
                  middle_in_channels, rpn_channels, rpn_layer_nums,
@@ -101,9 +105,18 @@ class PointPillarsNet(nn.Module):
         feats = feats.reshape(b, nvp, -1)[:, :v].to(self.dtype)
 
         # dense (z, y, x) grid; the voxelizer emits cells sorted in this
-        # raster order, the grid-scatter kernel's contract
-        cell = (coords[..., 0] * h + coords[..., 1]) * w + coords[..., 2]
-        cell = torch.where(voxel_mask, cell, d * h * w).to(torch.int32)
+        # raster order, the grid-scatter kernel's contract.  A slab keeps
+        # the voxels of its rows; the others go where the padding goes
+        if self.rows is None:
+            h0, inside = 0, voxel_mask
+        else:
+            h0, h1 = self.rows
+            h = h1 - h0
+            inside = (voxel_mask & (coords[..., 1] >= h0)
+                      & (coords[..., 1] < h1))
+        cell = ((coords[..., 0] * h + coords[..., 1] - h0) * w
+                + coords[..., 2])
+        cell = torch.where(inside, cell, d * h * w).to(torch.int32)
         grid = scatter_to_grid(feats.contiguous(), cell.contiguous(),
                                (d, h, w))
         # padding voxels write the extra cell d*h*w, which is cut off: no

@@ -5,8 +5,9 @@ Port of the JAX package's ``models/preprocess_tools.py``: host-side
 data-prep tools that feed the ``.npy`` dataset (SURVEY §3.5), not the
 train or predict path.  The voxelizer and the numpy featurizer are copies
 of the JAX package's and give the same arrays; the featurizer takes
-open3d's kd-tree where open3d is installed.  The foreground filter's MLP
-runs on the card unless the caller passes ``device="cpu"``.
+open3d where it is installed, else the port's C++ library
+(``native/``).  The foreground filter's MLP runs on the card unless the
+caller passes ``device="cpu"``.
 """
 
 import os
@@ -15,6 +16,7 @@ import pickle
 import numpy as np
 import torch
 
+from objectdetection_3d_tpu_torch import native
 from objectdetection_3d_tpu_torch.models.detector import resolve_device
 from objectdetection_3d_tpu_torch.models.layers import MLP
 from objectdetection_3d_tpu_torch.models.torch_import import (
@@ -187,11 +189,13 @@ def compute_fpfh(points, normals, radius, max_nn, bins=11):
 class Featurizer:
     """Normals + FPFH-33 featurization (reference model/utils.py:46-90).
 
-    Backends: ``"open3d"`` (the reference's own engine), ``"numpy"`` (a
-    scipy kd-tree and numpy, the JAX package's fallback, bit for bit), or
-    ``"auto"``: open3d where it imports, else numpy.  ``"native"`` (the
-    JAX package's threaded C++ featurizer, ``native/featurize.cpp``) is
-    not ported (ROADMAP A9d) and raises ``NotImplementedError``.
+    Backends: ``"open3d"`` (the reference's own engine), ``"native"`` (the
+    port's threaded C++ featurizer, ``native/featurize.cpp``), ``"numpy"``
+    (a scipy kd-tree and numpy, the JAX package's fallback, bit for bit),
+    or ``"auto"``: open3d where it imports, else native.  The native
+    library is built at first use and its build failure raises; a cloud
+    it declines (its neighbour grid cannot be built) goes to numpy under
+    ``"auto"`` and raises under ``"native"``.
     """
 
     def __init__(self, normal_rad, normal_max_nn, fpfh_rad, fpfh_max_nn,
@@ -201,12 +205,7 @@ class Featurizer:
         if not (isinstance(normal_max_nn, int)
                 and isinstance(fpfh_max_nn, int)):
             raise TypeError("normal_max_nn and fpfh_max_nn have to be ints")
-        if backend == "native":
-            raise NotImplementedError(
-                "Featurizer backend 'native' (the JAX package's C++ "
-                "featurizer) is not ported (ROADMAP A9d); use 'numpy' or "
-                "'open3d'")
-        if backend not in ("auto", "open3d", "numpy"):
+        if backend not in ("auto", "open3d", "native", "numpy"):
             raise ValueError(f"unknown featurizer backend {backend!r}")
         self.normal_rad = normal_rad
         self.normal_max_nn = normal_max_nn
@@ -226,6 +225,15 @@ class Featurizer:
             except ImportError:
                 if self.backend == "open3d":
                     raise
+        if self.backend in ("auto", "native"):
+            out = native.featurize_cloud(
+                point_cloud.astype(np.float64), self.normal_rad,
+                self.normal_max_nn, self.fpfh_rad, self.fpfh_max_nn)
+            if out is not None:
+                return np.concatenate([point_cloud, *out], axis=1)
+            if self.backend == "native":
+                raise RuntimeError("the native featurizer declined the "
+                                   "cloud (its neighbour grid)")
         xyz = point_cloud[:, :3].astype(np.float64)
         normals = estimate_normals(xyz, self.normal_rad,
                                    self.normal_max_nn)

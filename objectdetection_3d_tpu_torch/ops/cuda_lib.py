@@ -2,25 +2,29 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/torch_kernels/`` at the repository root (listed in .gitignore) and
-loaded with ``ctypes``.  The library's file name carries a hash of its
-source, of the shared headers (``csrc/*.cuh``) and of its flags, so an
-edited kernel is rebuilt and a stale build is never loaded.  Nothing is
-compiled when a module is imported.
+``build/torch_kernels/`` (``shared_lib.py``: the file name carries a hash
+of the source, of the shared headers ``csrc/*.cuh`` and of the flags, and
+the library is moved into place atomically) and loaded with ``ctypes``.
+Nothing is compiled when a module is imported.
 """
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from objectdetection_3d_tpu_torch.shared_lib import (
+    BUILD_DIR,
+    compile_libraries,
+)
+from objectdetection_3d_tpu_torch.shared_lib import (
+    library_path as _hashed_path,
+)
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES = ("voxel_scan", "grid_scatter", "assign_geometry",
                   "iou3d_clip", "subm_conv3d", "zfold_conv", "fused_stage")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -55,11 +59,9 @@ def _flags(name):
 
 def library_path(name):
     """Path of the shared library built from ``csrc/<name>.cu``."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        src += header.read_bytes()
-    digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return _hashed_path(name, [CSRC_DIR / f"{name}.cu",
+                               *sorted(CSRC_DIR.glob("*.cuh"))],
+                        _flags(name))
 
 
 def build(names=KERNEL_SOURCES):
@@ -70,32 +72,16 @@ def build(names=KERNEL_SOURCES):
         {name: compiler log} for the sources compiled by this call
         (``-Xptxas -v`` reports registers, shared memory and spills).
     """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
-    procs = {}
+    jobs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
         nvcc = nvcc or _nvcc()
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(name), "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    logs = {}
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name} (rc={proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return logs
+        jobs[name] = ([nvcc, *_flags(name), str(CSRC_DIR / f"{name}.cu")],
+                      out)
+    return compile_libraries(jobs, "nvcc")
 
 
 def load(name):

@@ -4,7 +4,8 @@ Runs write to timestamped folders ``<log_dir>/<version>/logs/``; a resume
 takes an explicit or the newest version, and version names are checked
 strictly.  The device is the config's ``device`` through
 ``utils.convert_device_name``: ``"cpu"`` or ``"cuda"``, and the latter
-raises where CUDA is absent.
+raises where CUDA is absent.  Over several ranks, rank 0 picks the run
+directory and alone creates it.
 """
 
 from abc import ABC, abstractmethod
@@ -50,10 +51,29 @@ class BasePipeline(ABC):
         self.device = resolve_device(
             convert_device_name(self.cfg.get("device", "cuda")))
         self.summary = {}
+        # the process groups of a run over several ranks (None on one
+        # device); rank 0 alone writes the run's files
+        self.mesh = self._ensure_mesh()
+        self.is_main = self.mesh is None or self.mesh.rank == 0
 
-        self.cfg.log_dir = self._resolve_run_dir(
-            self.cfg.get("log_dir", "./output/"))
-        make_dir(self.cfg.log_dir)
+        self.cfg.log_dir = self._from_main(self._resolve_run_dir(
+            self.cfg.get("log_dir", "./output/")))
+        if self.is_main:
+            make_dir(self.cfg.log_dir)
+
+    def _ensure_mesh(self):
+        """The run's ``parallel.Mesh``; None: one device."""
+        return None
+
+    def _from_main(self, value):
+        """Rank 0's ``value`` on every rank (``value`` on one device)."""
+        if self.mesh is None:
+            return value
+        import torch.distributed as dist
+
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
 
     def _resolve_run_dir(self, root):
         """Decide which ``<root>/<version>/logs/`` this run writes to.

@@ -9,8 +9,14 @@ set: ``process_config.json``, per-run ``log_train_*.txt`` /
 model's train step (with gradient accumulation under ``tpu.microbatch``),
 eval step and predict on the pipeline's device.
 
-The state is the model's net and its optimizer.  One device only:
-``data_parallel`` or ``spatial_parallel`` above 1 raises (ROADMAP A11).
+The state is the model's net and its optimizer.  ``data_parallel`` and
+``spatial_parallel`` above 1 run one process per rank (``torchrun
+--nproc_per_node=N`` or ``parallel.launch.spawn``; nccl on the cards,
+gloo on the CPU or where a host's ranks outnumber its cards): each
+rank's loader yields the same global batch of ``per replica x
+data_parallel`` items, the sharded train and eval steps take their rows
+(``parallel/data_parallel.py``), and rank 0 alone writes checkpoints,
+``training_record.csv``, ``metrics.npy`` and the log files.
 ``show_inference`` draws with open3d where it imports, else writes a
 matplotlib PNG.  Needs neither pandas nor PyYAML: the record is written
 with ``csv``, the test protocol by hand.
@@ -131,10 +137,6 @@ class ObjectDetection(BasePipeline):
     def __init__(self, model, dataset, global_cfg, **kwargs):
         super().__init__(model=model, dataset=dataset,
                          global_cfg=global_cfg, **kwargs)
-        for key in ("data_parallel", "spatial_parallel"):
-            if int(self.cfg.get(key, 1) or 1) > 1:
-                raise NotImplementedError(
-                    f"pipeline.{key} > 1 is not ported yet (ROADMAP A11)")
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the "
                              f"pipeline on {self.device}")
@@ -151,11 +153,68 @@ class ObjectDetection(BasePipeline):
             seed=kwargs.get("seed", 0))
 
         self.optimizer = None
+        self._eval_fn = None
+
+    # ------------------------------------------------------------------
+    # ranks
+    # ------------------------------------------------------------------
+    def _ensure_mesh(self):
+        """The process groups of ``data_parallel`` x ``spatial_parallel``
+        ranks (None when both are 1), joined through the environment that
+        ``torchrun`` or ``parallel.launch.spawn`` sets; a world of another
+        size raises ``ValueError``."""
+        self.data_parallel = max(int(self.cfg.get("data_parallel", 1)
+                                     or 1), 1)
+        self.spatial_parallel = max(int(self.cfg.get("spatial_parallel", 1)
+                                        or 1), 1)
+        if self.data_parallel * self.spatial_parallel == 1:
+            return None
+        from objectdetection_3d_tpu_torch.parallel import make_mesh_2d
+
+        mesh = make_mesh_2d(
+            self.data_parallel, self.spatial_parallel,
+            device="cpu" if self.device.type == "cpu" else None)
+        log.info("Process mesh: %s", mesh.shape)
+        return mesh
+
+    def _global_batch(self, per_replica):
+        """Loader batch size: per-replica size x data-parallel ranks."""
+        return max(int(per_replica), 1) * self.data_parallel
+
+    def _ensure_eval_fn(self):
+        if self._eval_fn is None:
+            if self.mesh is not None:
+                from objectdetection_3d_tpu_torch.parallel import (
+                    make_sharded_eval_fn,
+                )
+                self._eval_fn = make_sharded_eval_fn(self.model, self.mesh)
+            else:
+                self._eval_fn = self.model.make_eval_fn()
+        return self._eval_fn
+
+    def _make_train_step(self, microbatch):
+        if self.mesh is None:
+            return self.model.make_train_step(self.optimizer,
+                                              microbatch=microbatch)
+        from objectdetection_3d_tpu_torch.parallel import (
+            make_sharded_train_step,
+        )
+        log.info("Training %d-way data-parallel%s (global batch %d)",
+                 self.data_parallel,
+                 (f" x {self.spatial_parallel}-way spatial"
+                  if self.spatial_parallel > 1 else ""),
+                 self._global_batch(self.cfg.get("training_batch_size", 1)))
+        return make_sharded_train_step(
+            self.model, self.optimizer, self.mesh,
+            space_axis="space" if self.spatial_parallel > 1 else None,
+            microbatch=microbatch)
 
     # ------------------------------------------------------------------
     # checkpointing
     # ------------------------------------------------------------------
     def save_ckpt(self, epoch, save_best=False):
+        if not self.is_main:
+            return
         ckpt_dir = join(self.cfg.log_dir, "checkpoint/")
         make_dir(ckpt_dir)
         path = join(ckpt_dir, "ckpt_best.pth" if save_best
@@ -250,6 +309,15 @@ class ObjectDetection(BasePipeline):
         if self.model.device_augment:
             self.model.augment_generator.manual_seed(
                 int(self.rng.integers(np.iinfo(np.int32).max)))
+        if self.mesh is not None:
+            # rank 0's draws on every rank (equal already under a seed)
+            import torch.distributed as dist
+
+            for t in self.model.net.state_dict().values():
+                dist.broadcast(t, 0)
+            state = [self.model.augment_generator.get_state()]
+            dist.broadcast_object_list(state, src=0)
+            self.model.augment_generator.set_state(state[0])
 
     def _augment_generator(self):
         """The generator whose state a checkpoint carries: the model's
@@ -263,7 +331,10 @@ class ObjectDetection(BasePipeline):
 
     def _attach_log_file(self, log_file_path):
         """Route module logs to a per-run file, replacing the file handler
-        of an earlier run_training/run_testing call of this pipeline."""
+        of an earlier run_training/run_testing call of this pipeline (rank
+        0 only)."""
+        if not self.is_main:
+            return
         old = getattr(self, "_log_file_handler", None)
         if old is not None:
             log.removeHandler(old)
@@ -443,10 +514,10 @@ class ObjectDetection(BasePipeline):
             transform=self.model.transform,
             seed=self.cfg.get("seed", 0))
         loader = DataLoader(split, self.batcher,
-                            batch_size=max(int(batch_size), 1),
+                            batch_size=self._global_batch(batch_size),
                             prefetch=2,
                             num_workers=self.cfg.get("num_workers", 0))
-        eval_fn = self.model.make_eval_fn()
+        eval_fn = self._ensure_eval_fn()
 
         losses_acc = {}
         prediction, target = [], []
@@ -515,7 +586,8 @@ class ObjectDetection(BasePipeline):
         """Test-split evaluation from this run's checkpoint, writing
         ``test/test_protocol.yaml``; returns the protocol dict."""
         test_folder = join(self.cfg.log_dir, "test/")
-        make_dir(test_folder)
+        if self.is_main:
+            make_dir(test_folder)
         timestamp = datetime.now().strftime("%Y-%m-%d_%H:%M:%S")
         log.info("DEVICE : {}".format(self.device))
         log_file_path = join(test_folder, "log_test_" + timestamp + ".txt")
@@ -543,8 +615,9 @@ class ObjectDetection(BasePipeline):
             "5_recall": r,
             "6_f1": f1,
         }
-        write_flat_yaml(join(test_folder, "test_protocol.yaml"),
-                        test_protocol)
+        if self.is_main:
+            write_flat_yaml(join(test_folder, "test_protocol.yaml"),
+                            test_protocol)
         return test_protocol
 
     # ------------------------------------------------------------------
@@ -554,9 +627,10 @@ class ObjectDetection(BasePipeline):
         """Train from scratch or resume; returns the training record (a
         list of {epoch, precision, recall, f1} rows, as written to
         ``training_record.csv``)."""
-        with open(join(self.cfg.log_dir, "process_config.json"),
-                  "w") as outfile:
-            json.dump(dict(self.global_cfg), outfile, default=str)
+        if self.is_main:
+            with open(join(self.cfg.log_dir, "process_config.json"),
+                      "w") as outfile:
+                json.dump(dict(self.global_cfg), outfile, default=str)
 
         log.info("DEVICE : {}".format(self.device))
         timestamp = datetime.now().strftime("%Y-%m-%d_%H:%M:%S")
@@ -572,7 +646,8 @@ class ObjectDetection(BasePipeline):
             seed=self.cfg.get("seed", 0))
         train_loader = DataLoader(
             train_split, self.batcher,
-            batch_size=max(int(self.cfg.get("training_batch_size", 1)), 1),
+            batch_size=self._global_batch(
+                self.cfg.get("training_batch_size", 1)),
             prefetch=2,
             num_workers=self.cfg.get("num_workers", 0))
 
@@ -583,8 +658,7 @@ class ObjectDetection(BasePipeline):
         # tpu.microbatch > 0 trains each batch as gradient accumulation
         # over chunks of that many items; 0 = one step over the batch
         mb = int(self.model.tpu_cfg.get("microbatch", 0) or 0)
-        train_step = self.model.make_train_step(
-            self.optimizer, microbatch=mb if mb > 0 else None)
+        train_step = self._make_train_step(mb if mb > 0 else None)
         if mb > 0:
             log.info("Gradient accumulation: microbatch=%d", mb)
         start_ep, _ = self.load_ckpt()
@@ -594,11 +668,12 @@ class ObjectDetection(BasePipeline):
                            if os.path.exists(record_path) else [])
 
         timer = StepTimer(log_every=self.cfg.get("log_step_freq", 50))
-        tb = TensorBoardLogger(self.cfg.get("tensorboard", False),
-                               self.cfg.log_dir)
+        tb = TensorBoardLogger(
+            self.is_main and self.cfg.get("tensorboard", False),
+            self.cfg.log_dir)
         # resume continues the scalar stream at the right step index
         global_step = max(start_ep - 1, 0) * len(train_loader)
-        profile_dir = self.cfg.get("profile_dir", None)
+        profile_dir = self.is_main and self.cfg.get("profile_dir", None)
         profile_steps = int(self.cfg.get("profile_steps", 0))
         profiled = 0
 
@@ -626,6 +701,10 @@ class ObjectDetection(BasePipeline):
                 old_handlers[sig] = signal.signal(sig, _request_stop)
             except ValueError:  # not the main thread
                 pass
+
+        metrics_path = join(self.cfg.log_dir, "metrics.npy")
+        best_f1 = (float(np.load(metrics_path)[2])
+                   if os.path.exists(metrics_path) else 0.0)
 
         log.info("Started training")
         for epoch in range(start_ep, self.cfg.get("max_epoch", 1) + 1):
@@ -669,12 +748,6 @@ class ObjectDetection(BasePipeline):
                               global_step)
                 global_step += 1
 
-            metrics_path = join(self.cfg.log_dir, "metrics.npy")
-            if os.path.exists(metrics_path):
-                best_f1 = float(np.load(metrics_path)[2])
-            else:
-                best_f1 = 0.0
-
             if (epoch % self.cfg.get("validation_freq", 1)) == 0:
                 metrics = self.run_valid()
                 row = {"epoch": epoch, "precision": metrics["precision"],
@@ -685,15 +758,19 @@ class ObjectDetection(BasePipeline):
                                      ("precision", "recall", "f1")},
                            epoch)
                 if metrics["f1"] > best_f1:
+                    best_f1 = metrics["f1"]
                     self.save_ckpt(epoch, save_best=True)
-                    np.save(metrics_path,
-                            np.array([metrics["precision"],
-                                      metrics["recall"], metrics["f1"]]))
+                    if self.is_main:
+                        np.save(metrics_path,
+                                np.array([metrics["precision"],
+                                          metrics["recall"],
+                                          metrics["f1"]]))
 
             if epoch % self.cfg.get("save_ckpt_freq", 5) == 0:
                 self.save_ckpt(epoch, save_best=False)
 
-            write_record(record_path, training_record)
+            if self.is_main:
+                write_record(record_path, training_record)
             if self._preempted:
                 self.save_ckpt(epoch, save_best=False)
                 log.warning("Preemption checkpoint written for epoch %d; "

@@ -73,8 +73,11 @@ class TiledInference:
             max_merge_boxes: budget of the global NMS merge; above it the
                 top-scoring candidates are kept.
             predict_fn: external ``predict(batch)``, e.g. a
-                ``model.make_predict_fn()`` of another model; default the
-                model's own ``predict``.
+                ``model.make_predict_fn()`` of another model, or
+                ``parallel.make_sharded_predict_fn(model, mesh)``, which
+                splits each chunk's tiles over the data group and
+                gathers their detections; default the model's own
+                ``predict``.
             device_crop: crop tiles on the model's device; False = numpy
                 host crop.
             crop_cols: x-columns per tile width for the sort grid.  The

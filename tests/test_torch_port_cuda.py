@@ -21,7 +21,11 @@ the same bits on every run with PyTorch's deterministic mode off.  C9:
 K3's wrapper refuses live GT rows with a negative or NaN dim and stays
 bit-exact with them masked.  Serving: the flagship predict exported by
 ``torch.export`` under each knob set, reloaded and called, against the
-live predict, with each kernel's launches through the artifact.
+live predict, with each kernel's launches through the artifact.  The
+sharded paths (``parallel/``, tiny width, float32, TF32 off): world 1
+over nccl and two ranks sharing the card over gloo against one device
+at the CPU tests' tolerances (``rank_cases.check_step``, ``check_preds``),
+K1 and K2 launched on every rank.
 
 Marked ``cuda``: without a CUDA device (or without nvcc) every test skips
 with its reason.  On the card:
@@ -1113,3 +1117,79 @@ def test_serving_round_trip_at_flagship_width_on_card(cuda, knobs,
         for k in ("bbox", "score"):
             err = float((got[k] - want[k]).abs().max())
             assert err <= 1e-6, (k, err)
+
+
+# ---------------------------------------------------------------------------
+# the sharded paths on the card (parallel/): world 1 over nccl, and two
+# ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+_PAR_OPT = dict(lr=3e-3, betas=[0.95, 0.99], weight_decay=0.01)
+_RANK_KERNELS = ("postsort_scan", "scatter_to_grid", "chunk_geometry",
+                 "containment_rescue", "iou_gathered", "iou_gathered_pair")
+
+
+def _par_case(cuda, kind, mesh, batch, **kw):
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.network import init_parameters
+    import rank_cases as rr
+
+    model = PointPillars(configs.tiny_model_cfg(), device=cuda)
+    init_parameters(model.net, torch.Generator().manual_seed(3))
+    return dict(kind=kind, mesh=mesh, device=str(cuda), exact_fp32=True,
+                cfg=configs.tiny_model_cfg(), state=rr.model_state(model),
+                opt=_PAR_OPT, clip=2.0, batch=batch, **kw)
+
+
+def test_world_one_over_nccl_matches_one_device(cuda, exact_fp32,
+                                                tmp_path):
+    """The sharded step and predict at world 1 over nccl against the
+    one-device step and predict; every step kernel launched."""
+    import rank_cases as rr
+    from objectdetection_3d_tpu_torch.parallel import spawn
+    from tiny import tiny_batch
+
+    step = _par_case(cuda, "train", (1, 1), tiny_batch(batch_size=2,
+                                                       seed=3))
+    pred = _par_case(cuda, "predict", (1, 1), tiny_batch(batch_size=2,
+                                                         seed=4),
+                     fn="predict")
+    (got_step, got_pred), = spawn(rr.run_cases, 1, tmp_path,
+                                  args=([step, pred],), backend="nccl")
+    rr.check_step([got_step], rr.train(step), _PAR_OPT["lr"])
+    assert all(got_step["launches"][k] for k in _RANK_KERNELS)
+    want = rr.predict(pred)
+    rr.check_preds(got_pred["preds"], want["preds"])
+    assert got_pred["launches"] == want["launches"]
+
+
+def test_two_ranks_share_the_card_over_gloo(cuda, exact_fp32, tmp_path):
+    """World 2 on one card over gloo: the data-parallel step, the spatial
+    1 x 2 predict and the spatial 1 x 2 step against one device, with
+    K1 and K2 launched on every rank."""
+    import rank_cases as rr
+    from objectdetection_3d_tpu_torch.parallel import spawn
+    from tiny import tiny_batch
+
+    cases = [
+        _par_case(cuda, "train", (2, 1), tiny_batch(batch_size=4, seed=3)),
+        _par_case(cuda, "predict", (1, 2), tiny_batch(batch_size=2,
+                                                      seed=9),
+                  fn="spatial_predict"),
+        _par_case(cuda, "train", (1, 2), tiny_batch(batch_size=2, seed=5),
+                  spatial=True),
+    ]
+    ranks = spawn(rr.run_cases, 2, tmp_path, args=(cases,),
+                  backend="gloo")
+    rr.check_step([r[0] for r in ranks], rr.train(cases[0]),
+                  _PAR_OPT["lr"])
+    want = rr.predict(cases[1])["preds"]
+    for r in ranks:
+        rr.check_preds(r[1]["preds"], want)
+    single = dict(cases[2])
+    del single["spatial"]
+    rr.check_step([r[2] for r in ranks], rr.train(single), _PAR_OPT["lr"])
+    for r in ranks:
+        for res in r:
+            assert res["launches"]["postsort_scan"] > 0
+            assert res["launches"]["scatter_to_grid"] > 0

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of it, and not ``chip_smoke.py``,
-imports JAX, flax, optax or the JAX package; its configs are faithful
-copies of the JAX package's."""
+"""The port stands alone: no module of it, not ``chip_smoke.py`` and not
+``tests/rank_cases.py`` (what the port's ranks run in the tests and in
+``chip_smoke.py``) imports JAX, flax, optax or the JAX package; its
+configs are faithful copies of the JAX package's."""
 
 import ast
 import pathlib
@@ -33,7 +34,8 @@ def _forbidden(module):
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "rank_cases.py"]
     return [f for f in files if "__pycache__" not in f.parts]
 
 
@@ -65,6 +67,19 @@ SERVING_MODULES = ("serving.py", "ops/custom_ops.py",
 @pytest.mark.parametrize("module", SERVING_MODULES)
 def test_serving_modules_are_walked(module):
     assert PORT / module in _sources()
+
+
+# the host C++ passes' loader, the parallel paths and their ranks' cases
+PARALLEL_MODULES = tuple(
+    f"objectdetection_3d_tpu_torch/{m}" for m in (
+        "native/__init__.py", "shared_lib.py", "parallel/__init__.py",
+        "parallel/collectives.py", "parallel/data_parallel.py",
+        "parallel/launch.py")) + ("tests/rank_cases.py",)
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_native_and_parallel_modules_are_walked(module):
+    assert ROOT / module in _sources()
 
 
 def test_rule_tells_the_port_from_the_jax_package():

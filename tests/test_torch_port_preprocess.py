@@ -2,7 +2,8 @@
 CPU.
 
 * ``CustomVoxelizer``, ``estimate_normals`` and ``Featurizer(backend=
-  "numpy")``: bit-equal; ``backend="native"`` raises, naming A9d.
+  "numpy")``: bit-equal; ``backend="native"`` gives the (N, C + 36)
+  array (held to the numpy path in ``test_torch_port_native.py``).
 * ``NumpyBooster`` on the hand-built JSON models of
   ``tests/test_xgb_infer.py``: bit-equal, missing values included.
 * The ``MLP`` within 1e-5 of the flax MLP from the same variables; the
@@ -101,8 +102,10 @@ def test_numpy_featurizer_is_bit_equal():
                               **FEATURIZER).generate_features(pts)
     assert got.shape == (400, 4 + 3 + 33)
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="A9d"):
-        pre.Featurizer(backend="native", **FEATURIZER)
+    native = pre.Featurizer(backend="native",
+                            **FEATURIZER).generate_features(pts)
+    assert native.shape == (400, 4 + 36)
+    np.testing.assert_array_equal(native[:, :4], pts)
     with pytest.raises(TypeError):
         pre.Featurizer(normal_rad=1, normal_max_nn=10, fpfh_rad=0.5,
                        fpfh_max_nn=10)
