@@ -202,16 +202,45 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     predict in bf16 and float32 against live,
     and the spatial 1 x 2 step in float32 (TF32 off, B = 1) at the CPU
     tolerances, K1 and K2 launched on every rank in every run.  Times in
-    (c) come from two ranks sharing one card.
+    (c) come from two ranks sharing one card;
+20. the paths the flagship does not take, at its width: (a) the
+    layout-free assignment (the flagship's 1.92 M anchors taken as a grid
+    with no layout) of cloud 0's 128 padded GT boxes, through K6 and
+    through its plain route: masks, labels, direction targets and
+    ``num_pos`` equal, ``best_gt`` equal under ``pos_mask``,
+    ``max_overlap`` and the target deltas within 1e-5, K6 one launch and
+    no other assignment kernel; K6 on that path's candidates against its
+    plain version (1e-5); two bf16 train steps of that model after a
+    warm-up (finite losses, ``num_pos`` > 0, K6 one launch a step and no
+    K3, K4 or K7), their ms beside phase 9's layout step; (b)
+    ``tpu.sparse_middle`` with ``sparse_budget`` 131,072 (the active
+    sites of each stage on clouds 0-3, printed, must fit it; the voxel
+    budget V would cut stages 1-3): in float32 (TF32 off) from the npz,
+    the gather encoder's pseudo-image of cloud 0 within 1e-3 of the
+    largest element of the dense encoder's and its detections equal to
+    the dense encoder's (valid and labels exact, boxes within 1e-4 of
+    each coordinate's size, at least 1 m, scores within 1e-4); in bf16,
+    predict on clouds 0-3 (ms, peak memory, C8: cloud 0 twice bitwise
+    equal) and two train steps after a warm-up (ms, peak memory); K1 one
+    launch a cloud, K2 none; (c)
+    ``use_dense_backbone`` with ``config.yaml``'s backbone and neck
+    widths and seeded weights: featmap 200 x 200; K1 and K2 on the inputs
+    this path gives them (cloud 0) bit-exact against their plain
+    versions; predict on clouds 0-3 and two train steps, as in (b), K1
+    and K2 one launch a cloud, all six step kernels launched.
 
 The last lines are the ``serving`` JSON line (phase 18's readings), the
-``parallel`` JSON line (phase 19's), the ``kernels`` JSON line (all ten
+``parallel`` JSON line (phase 19's), the ``parked`` JSON line (phase
+20's), the ``kernels`` JSON line (all ten
 kernels; K1 and K2 with ``launches_tiled`` and ``launches_tiled_batch2``;
 K1-K4, K6 and K7 with ``launches_data_path``; K1, K2, K8, K9 and K10
 with ``launches_serving``, over phase 18's twelve served calls; every
 kernel with ``launches_parallel``, over phase 19(b)'s sharded step and
 predicts, and K1 and K2 with ``launches_parallel_gloo_ranks``, per rank
-and run of (c)), the card line and ``{"ok": true, "device": {...}}``.
+and run of (c); K1-K4, K6 and K7 with ``launches_layout_free``,
+``launches_sparse_middle`` and ``launches_dense_backbone``, over phase
+20's predicts and steps of each path), the card line and
+``{"ok": true, "device": {...}}``.
 Each phase's wall seconds are printed as ``phase time:`` lines.
 """
 
@@ -2719,6 +2748,363 @@ def parallel_phase(prepared):
     return launches, report
 
 
+def _first_call_args(module, name, store):
+    """Replace ``module.name`` by a wrapper that keeps its first call's
+    arguments in ``store[name]``; returns the original, to put back."""
+    orig = getattr(module, name)
+
+    def wrapped(*args):
+        store.setdefault(name, args)
+        return orig(*args)
+
+    setattr(module, name, wrapped)
+    return orig
+
+
+def _timed_steps(model, batches, counted):
+    """A warm-up train step on ``batches[0]``, then one timed step on each
+    later batch (opt as phase 9): (losses, wall ms, peak GiB, launches)
+    of the timed steps; losses finite and ``num_pos`` > 0."""
+    tx = model.get_optimizer(dict(lr=1e-3, betas=(0.95, 0.99),
+                                  weight_decay=0.01), grad_clip_value=2.0)
+    step = model.make_train_step(tx)
+    torch.cuda.reset_peak_memory_stats()
+    step(batches[0])
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    losses, times = [], []
+    for batch in batches[1:]:
+        t = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        vals = {k: float(v) for k, v in out.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"non-finite step losses {vals}")
+        if vals["num_pos"] <= 0:
+            raise AssertionError("a train step with no positive anchor")
+        losses.append(vals)
+    return (losses, times, torch.cuda.max_memory_allocated() / 2 ** 30,
+            {name: fn.launches for name, fn in counted.items()})
+
+
+def _timed_predicts(model, batches):
+    """One warm-up predict of cloud 0, then one of each cloud: (outputs,
+    wall ms, peak GiB); outputs finite, and cloud 0's two predicts
+    bitwise equal with PyTorch's deterministic mode off (C8)."""
+    torch.cuda.reset_peak_memory_stats()
+    warm = model.predict(batches[0])
+    torch.cuda.synchronize()
+    outs, times = [], []
+    for batch in batches:
+        t = time.perf_counter()
+        outs.append(model.predict(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    for i, out in enumerate(outs):
+        for key in ("bbox", "score"):
+            if not bool(torch.isfinite(out[key]).all()):
+                raise AssertionError(f"cloud {i}: non-finite {key}")
+    if torch.are_deterministic_algorithms_enabled() or not all(
+            torch.equal(warm[k], outs[0][k]) for k in warm):
+        raise AssertionError("C8: two predicts of cloud 0 differ")
+    return outs, times, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def parked_phase(batches, counted, layout_step_ms, predict_ms):
+    """Phase 20: the paths the flagship does not take, at its width.
+    Returns ({kernel: {launches key: count}}, the ``parked`` report)."""
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models import network as network_mod
+    from objectdetection_3d_tpu_torch.models.assign import (
+        aabb_and_volume,
+        aabb_tier,
+        assign_targets,
+    )
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.network import init_parameters
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.ops import voxelize as voxelize_mod
+    from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
+        iou_gathered,
+        iou_gathered_plain,
+    )
+    from objectdetection_3d_tpu_torch.ops.grid_scatter import (
+        scatter_to_grid,
+        scatter_to_grid_plain,
+    )
+    from objectdetection_3d_tpu_torch.ops.sparse_conv import (
+        downsample_z_active_set,
+    )
+    from objectdetection_3d_tpu_torch.ops.voxel_scan import (
+        postsort_scan,
+        postsort_scan_plain,
+    )
+    from objectdetection_3d_tpu_torch.scene import MAX_GT
+
+    launches, report = {}, {}
+
+    # ---- (a) the layout-free assignment ---------------------------------
+    model = PointPillars(configs.flagship_cfg(), device="cuda")
+    load_npz(model.net, NPZ)
+    # the flagship's own anchors, taken as a grid with no layout
+    model.anchor_layout = model.combo_tab = None
+    model.anchor_aabb = aabb_and_volume(model.anchors)
+    b0 = batches[0]
+    gt = torch.as_tensor(b0["bboxes"][0], device="cuda")
+    labels = torch.as_tensor(b0["labels"][0], device="cuda")
+    gt_mask = torch.as_tensor(b0["gt_mask"][0], device="cuda")
+    k = int(model.tpu_cfg["assign_candidates_per_gt"])
+    args = (model.anchors, gt, labels, gt_mask, model._pos_thr,
+            model._neg_thr, None)
+    kw = dict(candidates_per_gt=k, num_classes=1,
+              anchor_aabb=model.anchor_aabb)
+    assign_targets(*args, **kw)             # warm-up
+    assign_targets(*args, **kw, plain=True)
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    tk = assign_targets(*args, **kw)
+    torch.cuda.synchronize()
+    t_kernel = (time.perf_counter() - t) * 1e3
+    counts = {name: fn.launches for name, fn in counted.items()}
+    if counts != {**{n: 0 for n in counted}, "iou_gathered": 1}:
+        raise AssertionError(f"layout-free assignment launched {counts}")
+    t = time.perf_counter()
+    tp = assign_targets(*args, **kw, plain=True)
+    torch.cuda.synchronize()
+    t_plain = (time.perf_counter() - t) * 1e3
+    pos = tp["pos_mask"]
+    for key in ("pos_mask", "neg_mask", "target_labels", "dir_targets",
+                "num_pos"):
+        if not torch.equal(tk[key], tp[key]):
+            raise AssertionError(f"layout-free assignment {key!r} differs "
+                                 f"between K6 and its plain version")
+    if not torch.equal(tk["best_gt"][pos], tp["best_gt"][pos]):
+        raise AssertionError("layout-free assignment best_gt differs under "
+                             "pos_mask")
+    errs = {key: max_abs_err(tk[key], tp[key])
+            for key in ("max_overlap", "target_deltas")}
+    if not max(errs.values()) <= 1e-5:
+        raise AssertionError(f"layout-free assignment: {errs} beyond 1e-5")
+    num_pos = int(tk["num_pos"])
+    if num_pos <= 0:
+        raise AssertionError("layout-free assignment of cloud 0 has no "
+                             "positive anchor")
+    # K6 on this path's own candidates against its plain version
+    cand, _ = aabb_tier(model.anchors, gt, MAX_GT, k, 16, model.anchor_aabb)
+    rows = torch.arange(MAX_GT, dtype=torch.int32,
+                        device="cuda").repeat_interleave(k)
+    g6 = (gt, gt_mask, rows, model.anchors[cand.reshape(-1)].contiguous())
+    k6_err = max_abs_err(iou_gathered(*g6), iou_gathered_plain(*g6))
+    if not k6_err <= 1e-5:
+        raise AssertionError(f"K6 on the layout-free candidates differs "
+                             f"from its plain version by {k6_err}")
+    k6_ms = cuda_ms(lambda: iou_gathered(*g6), 5)
+    k6_plain_ms = cuda_ms(lambda: iou_gathered_plain(*g6), 1)
+    print(f"20a layout-free assignment cloud 0 (G={MAX_GT}, "
+          f"{int(gt_mask.sum())} trees, N={model.anchors.shape[0]}, K={k}): "
+          f"K6 route == plain route (masks, labels, dir targets, best_gt "
+          f"under pos_mask; max_overlap and deltas within 1e-5: {errs}); "
+          f"num_pos {num_pos}, negatives {int(tk['neg_mask'].sum())}; "
+          f"{t_kernel:.1f} ms with K6, {t_plain:.1f} ms plain; K6 on its "
+          f"candidates: max abs err {k6_err:.3g}, {k6_ms:.4f} ms vs plain "
+          f"{k6_plain_ms:.4f} ms", flush=True)
+    del tk, tp, g6
+    losses, times, peak, counts = _timed_steps(model, batches[:3], counted)
+    if counts["iou_gathered"] != 2 or counts["chunk_geometry"] or \
+            counts["containment_rescue"] or counts["iou_gathered_pair"]:
+        raise AssertionError(f"layout-free steps launched {counts}")
+    print(f"20a layout-free train steps (bf16, B=1, clouds 1-2 after a "
+          f"warm-up): {[round(t_, 1) for t_ in times]} ms (the layout "
+          f"step: {layout_step_ms:.1f} ms, phase 9); losses {losses}; peak "
+          f"{peak:.2f} GiB; launches {counts}", flush=True)
+    launches["layout_free"] = counts
+    report["layout_free"] = {
+        "assign_ms": t_kernel, "assign_plain_ms": t_plain,
+        "num_pos": num_pos, "max_errs": errs, "k6_max_abs_err": k6_err,
+        "k6_ms": k6_ms, "k6_plain_ms": k6_plain_ms, "step_ms": times,
+        "layout_step_ms": layout_step_ms, "peak_gib": peak}
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- (b) the gather encoder -----------------------------------------
+    # the voxel budget V cuts the active sets of stages 1-3 on these
+    # clouds (up to 113k sites): the phase gives each stage 131,072
+    budget = 131_072
+    sizes = []
+    probe = PointPillars(configs.flagship_cfg({"sparse_middle": True}),
+                         device="cuda")
+    for batch in batches:
+        vox = probe.voxel_layer(
+            torch.as_tensor(batch["points"], device="cuda"),
+            torch.as_tensor(batch["num_points"], device="cuda"))
+        coords, mask = vox["coords"][0], vox["voxel_mask"][0]
+        grid, row = probe.grid_dhw, [int(mask.sum())]
+        for _ in probe.net.pseudoimage_generator.out_channels:
+            new = downsample_z_active_set(coords, mask, grid, 2 * budget)
+            coords, mask, grid = (new["coords"], new["active_mask"],
+                                  new["grid"])
+            row.append(int(mask.sum()))
+        sizes.append(row)
+    del probe, vox, coords, mask, new
+    if max(max(r) for r in sizes) > budget:
+        raise AssertionError(f"active sets {sizes} exceed the budget "
+                             f"{budget}")
+    print(f"20b active sites per stage (voxels, then each downsample) on "
+          f"clouds 0-3: {sizes}; budget {budget}", flush=True)
+
+    def encoder_pair(dtype):
+        tpu = {"compute_dtype": dtype}
+        dense = PointPillars(configs.flagship_cfg(tpu), device="cuda")
+        sparse = PointPillars(configs.flagship_cfg(dict(
+            tpu, sparse_middle=True, sparse_budget=budget)), device="cuda")
+        for m in (dense, sparse):
+            load_npz(m.net, NPZ)
+        return dense, sparse
+
+    def pseudo_and_preds(model):
+        seen = {}
+        hook = model.net.pseudoimage_generator.register_forward_hook(
+            lambda mod, args, out: seen.setdefault("out", out))
+        preds = model.predict(batches[0])
+        hook.remove()
+        return seen["out"], preds
+
+    dense, sparse = encoder_pair("float32")
+    want, want_p = pseudo_and_preds(dense)
+    got, got_p = pseudo_and_preds(sparse)
+    scale = float(want.abs().max())
+    err = max_abs_err(got, want)
+    if not err <= 1e-3 * scale:
+        raise AssertionError(f"float32 gather pseudo-image differs from the "
+                             f"dense encoder's by {err} (scale {scale})")
+    same = (torch.equal(got_p["valid"], want_p["valid"])
+            and torch.equal(got_p["label"], want_p["label"])
+            and bool(want_p["valid"].any()))
+    gb = got_p["bbox"][want_p["valid"]].double()
+    wb = want_p["bbox"][want_p["valid"]].double()
+    # a box's coordinates reach hundreds of metres (decoded sizes are
+    # exponentials of the deltas): each is held to 1e-4 of its own size,
+    # at least 1 m (the CPU tests hold boxes to 1e-4)
+    box_rel = float(((gb - wb).abs() / wb.abs().clamp(min=1.0)).max()) \
+        if same else None
+    score_err = max_abs_err(got_p["score"], want_p["score"])
+    print(f"20b float32 cloud 0: gather pseudo-image max abs err {err:.3g} "
+          f"of scale {scale:.3g}; detections: valid and labels equal "
+          f"{same}, boxes {box_rel} of their size, scores {score_err:.3g}",
+          flush=True)
+    if not (same and box_rel <= 1e-4 and score_err <= 1e-4):
+        raise AssertionError(f"float32 gather detections differ from the "
+                             f"dense encoder's (boxes {box_rel} of their "
+                             f"size, scores {score_err})")
+    box_err = max_abs_err(gb, wb)
+    print(f"20b float32 (TF32 off) cloud 0: gather pseudo-image max abs err "
+          f"{err:.3g} of scale {scale:.3g} against the dense encoder (gate "
+          f"1e-3 of the scale); {int(got_p['valid'].sum())} detections, "
+          f"valid and labels equal, boxes within {box_err:.3g} m, "
+          f"{box_rel:.3g} of their size (gate 1e-4; the largest "
+          f"coordinate {float(wb.abs().max()):.1f}), scores within "
+          f"{score_err:.3g} (gate 1e-4)", flush=True)
+    report["sparse_middle"] = {"float32_pseudo_err": err,
+                               "float32_pseudo_scale": scale,
+                               "float32_box_err": box_err,
+                               "float32_box_rel_err": box_rel,
+                               "float32_score_err": score_err,
+                               "active_sites": sizes, "budget": budget}
+    del dense, sparse, want, got, want_p, got_p
+    torch.cuda.empty_cache()
+
+    _, sparse = encoder_pair("bfloat16")
+    for fn in counted.values():
+        fn.launches = 0
+    outs, p_times, p_peak = _timed_predicts(sparse, batches)
+    p_counts = {name: fn.launches for name, fn in counted.items()}
+    if p_counts["postsort_scan"] != 5 or p_counts["scatter_to_grid"]:
+        raise AssertionError(f"gather predicts launched {p_counts}")
+    losses, s_times, s_peak, s_counts = _timed_steps(sparse, batches[:3],
+                                                     counted)
+    print(f"20b gather encoder (bf16, the npz): predict median "
+          f"{np.median(p_times):.1f} ms per cloud over 4 clouds (the dense "
+          f"encoder {predict_ms:.1f} ms, phase 5), peak {p_peak:.2f} GiB, "
+          f"valid {[int(o['valid'].sum()) for o in outs]}, C8 bitwise; "
+          f"train steps {[round(t_, 1) for t_ in s_times]} ms, peak "
+          f"{s_peak:.2f} GiB, losses {losses}; launches predict "
+          f"{p_counts}, steps {s_counts}", flush=True)
+    launches["sparse_middle"] = {
+        name: p_counts[name] + s_counts[name] for name in counted}
+    report["sparse_middle"].update(
+        predict_ms=p_times, predict_peak_gib=p_peak, step_ms=s_times,
+        step_peak_gib=s_peak)
+    del sparse, outs
+    torch.cuda.empty_cache()
+
+    # ---- (c) the dense backbone and neck --------------------------------
+    cfg = configs.flagship_cfg()
+    cfg["use_dense_backbone"] = True
+    # config.yaml's backbone (the flagship's) and neck
+    cfg["neck"] = dict(in_channels=[512, 256, 128],
+                       out_channels=[256, 256, 256],
+                       upsample_strides=[1, 2, 4])
+    model = PointPillars(cfg, device="cuda")
+    init_parameters(model.net, torch.Generator().manual_seed(0))
+    if model.featmap != (200, 200) or \
+            model.anchors.shape[0] != 200 * 200 * model.num_anchors:
+        raise AssertionError(f"dense backbone featmap {model.featmap}")
+    seen = {}
+    orig = (_first_call_args(voxelize_mod, "postsort_scan", seen),
+            _first_call_args(network_mod, "scatter_to_grid", seen))
+    try:
+        model.predict(batches[0])
+    finally:
+        voxelize_mod.postsort_scan, network_mod.scatter_to_grid = orig
+    k_got = postsort_scan(*seen["postsort_scan"])
+    k_want = postsort_scan_plain(*seen["postsort_scan"])
+    g_got = scatter_to_grid(*seen["scatter_to_grid"])
+    g_want = scatter_to_grid_plain(*seen["scatter_to_grid"])
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(k_got, k_want))
+            and torch.equal(g_got, g_want)):
+        raise AssertionError("K1 or K2 on the dense-backbone path differs "
+                             "from its plain version")
+    k1_ms = cuda_ms(lambda: postsort_scan(*seen["postsort_scan"]), 20)
+    k2_ms = cuda_ms(lambda: scatter_to_grid(*seen["scatter_to_grid"]), 20)
+    del k_got, k_want, g_got, g_want, seen
+    for fn in counted.values():
+        fn.launches = 0
+    outs, p_times, p_peak = _timed_predicts(model, batches)
+    p_counts = {name: fn.launches for name, fn in counted.items()}
+    if p_counts["postsort_scan"] != 5 or p_counts["scatter_to_grid"] != 5:
+        raise AssertionError(f"dense-backbone predicts launched {p_counts}")
+    if tuple(outs[0]["bbox"].shape) != (1, model.tpu_cfg["max_detections"],
+                                        9):
+        raise AssertionError(f"bbox shape {tuple(outs[0]['bbox'].shape)}")
+    losses, s_times, s_peak, s_counts = _timed_steps(model, batches[:3],
+                                                     counted)
+    if min(s_counts.values()) <= 0:
+        raise AssertionError(f"dense-backbone steps launched {s_counts}")
+    print(f"20c dense backbone + neck (bf16, seeded weights, featmap "
+          f"{model.featmap}, head {model.net.bbox_head.conv_cls.in_channels} "
+          f"channels): K1 and K2 on cloud 0's inputs bit-exact against "
+          f"their plain versions ({k1_ms:.4f} / {k2_ms:.4f} ms); predict "
+          f"median {np.median(p_times):.1f} ms per cloud, peak "
+          f"{p_peak:.2f} GiB, C8 bitwise; train steps "
+          f"{[round(t_, 1) for t_ in s_times]} ms, peak {s_peak:.2f} GiB, "
+          f"losses {losses}; launches predict {p_counts}, steps "
+          f"{s_counts}", flush=True)
+    launches["dense_backbone"] = {
+        name: p_counts[name] + s_counts[name] for name in counted}
+    report["dense_backbone"] = {
+        "featmap": list(model.featmap), "k1_ms": k1_ms, "k2_ms": k2_ms,
+        "predict_ms": p_times, "predict_peak_gib": p_peak,
+        "step_ms": s_times, "step_peak_gib": s_peak}
+    del model, outs
+    torch.cuda.empty_cache()
+    return launches, report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2932,6 +3318,7 @@ def main():
         print(f"cloud {i}: {int(out['valid'].sum())} valid detections, "
               f"{times[i] * 1e3:.1f} ms", flush=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    predict_ms = float(np.median(times) * 1e3)
     print(f"predict: median {np.median(times) * 1e3:.1f} ms per cloud over "
           f"{len(times)} clouds (B=1, bf16, after one warm-up); launches "
           f"{launches}; peak memory {peak:.2f} GiB", flush=True)
@@ -3162,6 +3549,7 @@ def main():
             changed["stats"] != n_stats:
         raise AssertionError(f"train steps changed {changed} of "
                              f"{len(before)} arrays")
+    step_ms = float(np.median(times) * 1e3)
     print(f"train: median {np.median(times) * 1e3:.1f} ms per step over "
           f"{len(times)} steps (B=1, bf16, after one warm-up); launches in "
           f"3 steps {launches}; peak memory {peak:.2f} GiB; changed "
@@ -3252,6 +3640,14 @@ def main():
             row[i] for row in parallel_report["gloo_world2"]["k1_k2"]]
     print("parallel: " + json.dumps(parallel_report), flush=True)
     clock.mark("native and parallel (phase 19)")
+    # ---- the paths the flagship does not take ---------------------------
+    launches, parked_report = parked_phase(batches, counted, step_ms,
+                                           predict_ms)
+    for path, counts in launches.items():
+        for name, count in counts.items():
+            kernels[name][f"launches_{path}"] = count
+    print("parked: " + json.dumps(parked_report), flush=True)
+    clock.mark("the paths the flagship does not take (phase 20)")
     if len(kernels) != 10:
         raise AssertionError(f"{len(kernels)} kernels in the line, not 10")
 

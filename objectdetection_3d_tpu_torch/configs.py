@@ -30,7 +30,8 @@ DEFAULT_TPU_CFG = {
     "max_detections": 256,
     # conv/matmul compute dtype ("float32" or "bfloat16")
     "compute_dtype": "float32",
-    # gather-based sparse vertical encoder (not ported yet)
+    # gather-based vertical encoder (models/sparse_middle.py) and its
+    # active sites per stage (0 = max_voxels_static)
     "sparse_middle": False,
     "sparse_budget": 0,
     "remat": True,

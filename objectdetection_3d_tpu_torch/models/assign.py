@@ -1,8 +1,8 @@
 """Anchor-target assignment for one point cloud.
 
-Port of the JAX package's ``models/assign.py::assign_targets`` on the path
-the flagship runs: the anchor grid factored into cells x combos
-(``layout``) with the exact anchor tier.  The tiers:
+Port of the JAX package's ``models/assign.py::assign_targets``.  On the
+path the flagship runs, the anchor grid is factored into cells x combos
+(``layout``) and the tiers are:
 
 1. **Containment, prefilter key and top-3 slots** — K3
    (``ops/assign_geometry.chunk_geometry``) over chunks of 16 GTs gives
@@ -23,12 +23,19 @@ the flagship runs: the anchor grid factored into cells x combos
    exact paths) is positive when that maximum reaches the GT's negative
    threshold; K4 (``containment_rescue``) finds the containment achievers.
 
-The prefilter is an exact top-K that takes the lowest anchor index first
-among equal keys.  The JAX package runs ``lax.approx_max_k`` at recall
-0.99 there; on the CPU that is the same exact top-K, on a TPU it may miss
-candidates (ROADMAP C3).
+Without a layout (an anchor grid that does not factor into cells x
+combos) the JAX package's layout-free branch runs: each GT's top-K
+anchors by an axis-aligned box IoU upper bound (:func:`upper_bound_rows`,
+one chunk of GTs at a time), K6 on those candidates, and negatives
+proven by the k-th bound of each GT; there is no containment tier, no
+exact anchor tier and no rescue by K4.
 
-The layout-free branch (AABB bound, no containment tier) is not ported.
+The prefilter is an exact top-K that takes the lowest anchor index first
+among equal keys, for every ``tpu.assign_prefilter``: ``full`` and
+``block`` are exact top-Ks in the JAX package too (``block`` up to ties at
+the k-th value).  The JAX package runs ``lax.approx_max_k`` at recall 0.99
+for ``approx``; on the CPU that is the same exact top-K, on a TPU it may
+miss candidates (ROADMAP C3).
 """
 
 import torch
@@ -37,6 +44,7 @@ from objectdetection_3d_tpu_torch.models.anchors import BBoxCoder
 from objectdetection_3d_tpu_torch.ops import assign_geometry as geo
 from objectdetection_3d_tpu_torch.ops import gathered_iou3d
 from objectdetection_3d_tpu_torch.ops.boxes import (
+    box_corners_3d,
     limit_period,
     rotation_matrices,
 )
@@ -45,6 +53,31 @@ from objectdetection_3d_tpu_torch.ops.boxes import (
 #: bound is _TIEBREAK_EPS * scene diagonal
 _TIEBREAK_EPS = 1e-6
 _TIEBREAK_SLACK = _TIEBREAK_EPS * 100.0
+
+
+def aabb_and_volume(boxes):
+    """(lo (..., 3), hi (..., 3), volume (...)) of each box's axis-aligned
+    bounding box of its rotated corners, and the box's own volume."""
+    corners = box_corners_3d(boxes)
+    dims = boxes[..., 3:6]
+    return (corners.amin(dim=-2), corners.amax(dim=-2),
+            dims[..., 0] * dims[..., 1] * dims[..., 2])
+
+
+def upper_bound_rows(gt_lo, gt_hi, gt_vol, an_lo, an_hi, an_vol):
+    """(G', N) IoU upper bounds of G' GTs against N anchors: the overlap
+    of the axis-aligned bounding boxes over the union of the boxes' own
+    volumes.  Built one axis at a time, so no (G', N, 3) tensor is
+    made."""
+    inter = None
+    for ax in range(3):
+        w = torch.clamp(torch.minimum(gt_hi[:, None, ax], an_hi[None, :, ax])
+                        - torch.maximum(gt_lo[:, None, ax],
+                                        an_lo[None, :, ax]), min=0.0)
+        inter = w if inter is None else inter * w
+    denom = gt_vol[:, None] + an_vol[None, :] - inter
+    return torch.where(denom > 1e-6, inter / torch.clamp(denom, min=1e-6),
+                       torch.zeros_like(denom))
 
 
 def make_anchor_layout(anchors, num_combos):
@@ -203,10 +236,46 @@ def geometry_tier(gt_boxes, gt_mask, layout, combo_tab, g, k, gt_chunk,
             "chunks": chunks, "tables": tables}
 
 
+def aabb_tier(anchors, gt_boxes, g, k, gt_chunk, anchor_aabb=None):
+    """Stage 1 without a layout: each GT's top-K anchors by
+    :func:`upper_bound_rows`, over chunks of ``gt_chunk`` GTs, and each
+    anchor's bound on the pairs no GT evaluates,
+    ``max_g min(ub, kth(g))``: a pair outside its GT's top-K has a bound
+    no greater than that GT's k-th.
+
+    Padding rows of the last chunk wrap onto real GTs, as in the JAX
+    package: their candidates are cut by ``[:g]`` and, as duplicates,
+    they cannot raise the maximum.
+
+    Returns ``(cand_idx (G, K), unev_bound (N,))``.
+    """
+    n = anchors.shape[0]
+    dev = anchors.device
+    an_lo, an_hi, an_vol = (aabb_and_volume(anchors) if anchor_aabb is None
+                            else anchor_aabb)
+    gt_lo, gt_hi, gt_vol = aabb_and_volume(gt_boxes)
+    chunk = min(gt_chunk, g)
+    pad_g = (-g) % chunk
+    chunks = (torch.arange(g + pad_g, device=dev) % max(g, 1)).reshape(
+        -1, chunk)
+    unev = torch.full((n,), float("-inf"), dtype=torch.float32, device=dev)
+    cand = []
+    for idx_c in chunks:
+        ub = upper_bound_rows(gt_lo[idx_c], gt_hi[idx_c], gt_vol[idx_c],
+                              an_lo, an_hi, an_vol)
+        idx = topk_rows_lowest_index(ub, k)
+        kth = torch.gather(ub, 1, idx).amin(dim=1)
+        unev = torch.maximum(unev,
+                             torch.minimum(ub, kth[:, None]).amax(dim=0))
+        cand.append(idx)
+        del ub
+    return torch.cat(cand)[:g], unev
+
+
 def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
                    layout, candidates_per_gt=512, gt_chunk=16,
                    num_classes=1, combo_tab=None, exact_anchor_tier=True,
-                   plain=False):
+                   anchor_aabb=None, plain=False):
     """Assign GT boxes to anchors for one point cloud.
 
     Positive if the max IoU over GTs reaches ``pos_thr``; negative if below
@@ -221,13 +290,18 @@ def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
         gt_boxes: (G, 9) padded GT boxes; gt_labels: (G,) int;
             gt_mask: (G,) bool validity.
         pos_thr, neg_thr: scalars or (num_classes,) tensors.
-        layout: the anchor grid's :func:`make_anchor_layout`; required.
+        layout: the anchor grid's :func:`make_anchor_layout`, or None
+            for the layout-free branch (:func:`aabb_tier`).
         candidates_per_gt: K, anchors examined exactly per GT.
-        gt_chunk: GTs per K3 launch.
+        gt_chunk: GTs per chunk (one K3 launch on the layout path, one
+            (gt_chunk, N) bound without it).
         combo_tab: the layout's :func:`combo_table` (computed if None).
         exact_anchor_tier: run tier 3 (K7).  False leaves it out, as the
             JAX package does: no tier values, and the unevaluated pairs
             are bounded by the first key ``v1`` instead of the third.
+            Read on the layout path only.
+        anchor_aabb: the anchors' :func:`aabb_and_volume` (computed if
+            None); read without a layout only.
         plain: run the plain PyTorch versions of K3, K4, K6 and K7 on
             whatever device the inputs lie on (the reference route that
             the kernels are held against on the card).
@@ -238,10 +312,6 @@ def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
         ``target_labels`` (N,) int32 (num_classes for background),
         ``dir_targets`` (N, 3) int32 and ``num_pos`` (int32 scalar).
     """
-    if layout is None:
-        raise NotImplementedError(
-            "the layout-free assignment (AABB prefilter without the "
-            "containment tier) is not ported yet")
     ops = _Kernels(plain)
     dev = anchors.device
     n = anchors.shape[0]
@@ -249,21 +319,33 @@ def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
     k = min(candidates_per_gt, n)
     gt_boxes = gt_boxes.to(torch.float32)
     gt_mask = gt_mask.to(torch.bool)
-    cells = layout[0]
-    mcombo = layout[1].shape[0]
-    if n != cells.shape[0] * mcombo:
-        raise ValueError("layout does not match the anchor count")
-    if combo_tab is None:
-        combo_tab = geo.combo_table(layout)
-
-    geom = geometry_tier(gt_boxes, gt_mask, layout, combo_tab, g, k,
-                         gt_chunk, ops.geometry)
+    tier = exact_anchor_tier and layout is not None
+    if layout is None:
+        cand_idx, unev_bound = aabb_tier(anchors, gt_boxes, g, k, gt_chunk,
+                                         anchor_aabb)
+        geom = {"cont_max": torch.zeros((n,), dtype=torch.float32,
+                                        device=dev),
+                "cont_best": torch.full((n,), g, dtype=torch.int32,
+                                        device=dev),
+                "overlap_possible": torch.ones((n,), dtype=torch.bool,
+                                               device=dev),
+                "cont_row_max": torch.zeros((g,), dtype=torch.float32,
+                                            device=dev),
+                "cand_idx": cand_idx}
+    else:
+        cells = layout[0]
+        if n != cells.shape[0] * layout[1].shape[0]:
+            raise ValueError("layout does not match the anchor count")
+        if combo_tab is None:
+            combo_tab = geo.combo_table(layout)
+        geom = geometry_tier(gt_boxes, gt_mask, layout, combo_tab, g, k,
+                             gt_chunk, ops.geometry)
+        v1, a1, v2, a2, v3 = (geom[x]
+                              for x in ("v1", "a1", "v2", "a2", "v3"))
     cont_max, cont_best = geom["cont_max"], geom["cont_best"]
-    v1, a1, v2, a2, v3 = (geom[x] for x in ("v1", "a1", "v2", "a2", "v3"))
-    chunks, tables = geom["chunks"], geom["tables"]
 
     # --- tier 3: every anchor against its top-2 GTs ------------------------
-    if exact_anchor_tier:
+    if tier:
         t1, t2 = _tier_exact_pair(gt_boxes, gt_mask, anchors, a1, v1, a2, v2,
                                   g, ops.pair)
         t2 = torch.where(a2 == a1, torch.zeros_like(t2), t2)  # duplicate
@@ -277,10 +359,11 @@ def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
         # SLACK
         unev_bound = torch.clamp(v3 + _TIEBREAK_SLACK, min=0.0)
     else:
-        # no pair is evaluated by the tier: v1 bounds every GT's key
         tier_max = torch.zeros((n,), dtype=torch.float32, device=dev)
         tier_best = torch.full((n,), g, dtype=torch.int32, device=dev)
-        unev_bound = torch.clamp(v1 + _TIEBREAK_SLACK, min=0.0)
+        if layout is not None:
+            # no pair is evaluated by the tier: v1 bounds every GT's key
+            unev_bound = torch.clamp(v1 + _TIEBREAK_SLACK, min=0.0)
 
     # --- tier 2: exact IoU of the (G, K) candidates ------------------------
     cand_idx = geom["cand_idx"]                             # (G, K)
@@ -311,7 +394,7 @@ def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
                                        tier_best)
     best_gt_clipped = torch.clamp(best_gt, 0, max(g - 1, 0)).long()
     row_max = torch.maximum(cand_row_max, geom["cont_row_max"])
-    if exact_anchor_tier:
+    if tier:
         safe1 = torch.clamp(a1, 0, max(g - 1, 0)).long()
         safe2 = torch.clamp(a2, 0, max(g - 1, 0)).long()
         zeros_g = torch.zeros((g,), dtype=torch.float32, device=dev)
@@ -335,14 +418,15 @@ def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_thr, neg_thr,
     rescue = (exact >= row_max[:, None]) & rescue_ok[:, None] & (exact > 0)
     pos_extra = torch.zeros((n,), dtype=torch.bool, device=dev)
     pos_extra[flat_idx[rescue.reshape(-1)]] = True
-    if exact_anchor_tier:
+    if tier:
         pos_extra |= (t1 >= row_max[safe1]) & rescue_ok[safe1] & (t1 > 0)
         pos_extra |= (t2 >= row_max[safe2]) & rescue_ok[safe2] & (t2 > 0)
-    for idx_c, (ftab, tabs) in zip(chunks, tables):
-        rthr = torch.stack([row_max[idx_c],
-                            rescue_ok[idx_c].to(torch.float32)], dim=1)
-        pos_extra |= ops.rescue(ftab, rthr.contiguous(), tabs, combo_tab,
-                                cells) > 0
+    if layout is not None:
+        for idx_c, (ftab, tabs) in zip(geom["chunks"], geom["tables"]):
+            rthr = torch.stack([row_max[idx_c],
+                                rescue_ok[idx_c].to(torch.float32)], dim=1)
+            pos_extra |= ops.rescue(ftab, rthr.contiguous(), tabs,
+                                    combo_tab, cells) > 0
     pos = pos | pos_extra
     neg = neg & ~pos
 

@@ -3,10 +3,11 @@ assignment, the training and eval steps, decode, NMS and the host-side
 preprocessing.
 
 Port of the JAX package's ``models/detector.py``: the constructor,
-``apply`` (point path, eval and train), ``loss``, ``get_optimizer``,
-``make_train_step`` (one device, with or without gradient accumulation),
-``make_eval_fn``, ``_predict_single``, ``predict``, ``make_predict_fn``,
-``inference_end``, ``preprocess`` and ``transform``.
+``apply`` (point or buffer PFN path, eval and train), ``loss``,
+``get_optimizer``, ``make_train_step`` (one device, with or without
+gradient accumulation), ``make_eval_fn``, ``_predict_single``,
+``predict``, ``make_predict_fn``, ``inference_end``, ``preprocess`` and
+``transform``.
 Weights and running statistics live in the ``net`` module; load trained
 or JAX-initialised ones with ``models/weights.py``, or draw fresh ones
 with ``network.init_parameters``.  The training state is the
@@ -49,6 +50,7 @@ from objectdetection_3d_tpu_torch.models.anchors import (
     BBoxCoder,
 )
 from objectdetection_3d_tpu_torch.models.assign import (
+    aabb_and_volume,
     assign_targets,
     make_anchor_layout,
     packed_order_key,
@@ -168,9 +170,6 @@ class PointPillars(BaseModel):
             reflectance_sampling=True,
         )
 
-        if cfg.get("use_dense_backbone", False):
-            raise NotImplementedError(
-                "use_dense_backbone is not ported yet")
         self.device_augment = parse_device_augment_cfg(
             cfg.get("device_augment"))
         self.augment_generator = torch.Generator(
@@ -182,20 +181,35 @@ class PointPillars(BaseModel):
             ranges=head["ranges"], sizes=head["sizes"],
             rotations=head["rotations"], box_params_num=self.box_params_num)
         self.num_anchors = self.anchor_generator.num_base_anchors
+        backbone = dict(cfg["backbone"])
+        neck = dict(cfg.get("neck") or {})
+        self.use_dense_backbone = bool(cfg.get("use_dense_backbone", False))
         _, h, w = self.grid_dhw
-        self.featmap = (h, w)
+        if self.use_dense_backbone:
+            # the backbone downsamples by its stage strides and the neck
+            # upsamples every scale to one resolution
+            strides = [int(v) for v in backbone.get("layer_strides",
+                                                    [2, 2, 2])]
+            ups = [int(v) for v in neck.get("upsample_strides", [1, 2, 4])]
+            factor = int(np.prod(strides)) // ups[-1]
+            self.featmap = (h // factor, w // factor)
+        else:
+            self.featmap = (h, w)
         self.anchors = self.anchor_generator.flat_anchors(self.featmap,
                                                           self.device)
         self.bbox_coder = BBoxCoder()
-        # (cells x combos) factorization of the anchor grid, which target
-        # assignment needs; a multi-range grid that does not factor can
-        # still predict
+        # (cells x combos) factorization of the anchor grid, which the
+        # assignment's containment and exact anchor tiers need; a grid
+        # that does not factor takes the layout-free assignment, over the
+        # anchors' axis-aligned boxes
+        self.anchor_aabb = None
         try:
             self.anchor_layout = make_anchor_layout(self.anchors,
                                                     self.num_anchors)
             self.combo_tab = combo_table(self.anchor_layout)
         except ValueError:
             self.anchor_layout = self.combo_tab = None
+            self.anchor_aabb = aabb_and_volume(self.anchors)
 
         loss = dict(cfg.get("loss") or {})
         self.loss_cls = FocalLoss(**dict(loss.get("focal", {})))
@@ -214,7 +228,12 @@ class PointPillars(BaseModel):
 
         ve_cfg = dict(cfg["voxel_encoder"])
         vertical = dict(cfg["vertical_encoder"])
-        backbone = dict(cfg["backbone"])
+        sparse_middle = bool(self.tpu_cfg.get("sparse_middle", False))
+        # point-granularity PFN: no (V, M, C) buffers (single-layer PFN
+        # stacks under the dense encoder, the flagship's shape)
+        self.use_point_pfn = (bool(self.tpu_cfg.get("point_pfn", True))
+                              and len(ve_cfg["feat_channels"]) == 1
+                              and not sparse_middle)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(cfg.get("seed", 0)))
             net = PointPillarsNet(
@@ -232,7 +251,17 @@ class PointPillars(BaseModel):
                 num_anchors=self.num_anchors,
                 box_params_num=self.box_params_num,
                 dtype=self.compute_dtype,
-                sparse_middle=bool(self.tpu_cfg.get("sparse_middle", False)),
+                point_pfn=self.use_point_pfn,
+                use_dense_backbone=self.use_dense_backbone,
+                backbone_strides=tuple(
+                    int(v) for v in backbone.get("layer_strides",
+                                                 [2, 2, 2])),
+                neck_channels=tuple(
+                    int(v) for v in neck.get("out_channels", [])),
+                neck_upsample_strides=tuple(
+                    int(v) for v in neck.get("upsample_strides", [])),
+                sparse_middle=sparse_middle,
+                sparse_budget=int(self.tpu_cfg.get("sparse_budget", 0)),
                 # the vertical encoder's lowering knobs; bool = all
                 # stages, int n = the first n stages only
                 decompose_convs=self.tpu_cfg.get("decompose_convs", False),
@@ -274,10 +303,14 @@ class PointPillars(BaseModel):
 
     def _forward(self, batch):
         points, num_points = self._batch_tensors(batch)
-        vox = self.voxel_layer.points_batch(points, num_points)
+        if self.use_point_pfn:
+            vox = self.voxel_layer.points_batch(points, num_points)
+            return self.net(vox["num_points_per_voxel"], vox["coords"],
+                            vox["voxel_mask"], vox["points"],
+                            vox["pt_voxel"], vox["pt_valid"])
+        vox = self.voxel_layer(points, num_points)
         return self.net(vox["num_points_per_voxel"], vox["coords"],
-                        vox["voxel_mask"], vox["points"], vox["pt_voxel"],
-                        vox["pt_valid"])
+                        vox["voxel_mask"], voxels=vox["voxels"])
 
     # ------------------------------------------------------------------
     # loss
@@ -302,7 +335,8 @@ class PointPillars(BaseModel):
                 num_classes=self.num_classes, combo_tab=self.combo_tab,
                 exact_anchor_tier=bool(self.tpu_cfg.get(
                     "assign_exact_anchor_tier", True)),
-                plain=plain) for i in range(boxes.shape[0])]
+                anchor_aabb=self.anchor_aabb, plain=plain)
+                for i in range(boxes.shape[0])]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     def loss(self, results, inputs, with_num_pos=False, shard=None):

@@ -1,8 +1,10 @@
 """Network building blocks of the port.
 
-Port of the point-PFN, dense-masked vertical encoder, submanifold RPN and
-head of the JAX package's ``models/layers.py``, and of its foreground
-filter ``MLP``.  The sparse convolutions
+Port of the JAX package's ``models/layers.py``: the PFN on its point path
+and on its (V, M, C) buffer path, the dense-masked vertical encoder, the
+submanifold RPN, the dense SECOND backbone and FPN neck
+(``use_dense_backbone``), the head, and the foreground filter ``MLP``.
+The sparse convolutions
 of the reference are dense convolutions times an activity mask, exactly
 as in the JAX package:
 
@@ -120,6 +122,25 @@ class MaskedBatchNorm(nn.Module):
         return y * mask.to(dt)
 
 
+class BatchNorm(MaskedBatchNorm):
+    """Batch norm over every site of a (B, C, ...) tensor: flax's
+    ``nn.BatchNorm`` (the backbone's and the neck's).  In training mode
+    the biased batch variance both normalizes and is what the running
+    variance moves towards (``MaskedBatchNorm`` keeps the unbiased one, as
+    the reference's sparse batch norms do).  Flax's momentum 0.99 is
+    ``momentum=0.01`` here."""
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, count):
+        self.running_mean.copy_((1 - self.momentum) * self.running_mean
+                                + self.momentum * mean)
+        self.running_var.copy_((1 - self.momentum) * self.running_var
+                               + self.momentum * var)
+
+    def forward(self, x):
+        return super().forward(x, torch.ones_like(x[:, :1]))
+
+
 class PointMaskedBN(MaskedBatchNorm):
     """MaskedBatchNorm for point-granularity PFN rows (N, C).
 
@@ -206,6 +227,32 @@ class PFNLayerPoints(nn.Module):
                            torch.maximum(pooled, floor[None, :]), pooled)
 
 
+class PFNLayer(nn.Module):
+    """PFN layer on the (V, M, C) buffers: Linear (no bias) -> masked BN
+    (eps 1e-3) over every slot of the valid voxels, padding slots as the
+    zeros they are -> ReLU -> max over the slots.  A layer that is not the
+    last appends the pooled row to every slot (2 x ``units`` out)."""
+
+    def __init__(self, in_channels, units, last_layer, dtype=torch.float32):
+        super().__init__()
+        self.last_layer = bool(last_layer)
+        self.dtype = dtype
+        self.linear = nn.Linear(in_channels, units, bias=False)
+        self.norm = MaskedBatchNorm(units, eps=1e-3, momentum=0.01)
+
+    def forward(self, x, voxel_mask):
+        """x: (V, M, C) decorated features; voxel_mask: (V,) bool.
+        Returns (V, units) if last, else (V, M, 2 * units)."""
+        v, m, _ = x.shape
+        y = F.linear(x.to(self.dtype), self.linear.weight.to(self.dtype))
+        slots = voxel_mask[:, None, None].expand(v, m, 1).reshape(v * m, 1)
+        y = F.relu(self.norm(y.reshape(v * m, -1), slots)).reshape(v, m, -1)
+        pooled = y.amax(dim=1)
+        if self.last_layer:
+            return pooled
+        return torch.cat([y, pooled[:, None, :].expand_as(y)], dim=-1)
+
+
 def fixed_point_segment_sum(values, seg, num_segments, frac_bits):
     """Per-segment sums of the rows of ``values`` (N, C), bit-reproducible.
 
@@ -237,10 +284,9 @@ class PillarFeatureNet(nn.Module):
         super().__init__()
         chans = list(feat_channels)
         if len(chans) != 1:
-            raise NotImplementedError(
-                "the port's PFN supports single-layer stacks (the "
-                "point-granularity path); deeper feat_channels are not "
-                "ported yet")
+            raise ValueError(
+                "the point-granularity PFN runs single-layer stacks; deeper "
+                "feat_channels take PillarFeatureNetBuffers")
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
         self.dtype = dtype
@@ -296,6 +342,63 @@ class PillarFeatureNet(nn.Module):
         pooled = self.pfn_0(feats, seg, pt_valid, counts, total_slots)
 
         out = torch.cat([pooled, counts.to(pooled.dtype)[:, None]], dim=-1)
+        return out * voxel_mask[:, None].to(out.dtype)
+
+
+class PillarFeatureNetBuffers(nn.Module):
+    """Voxel feature encoder on the (V, M, C) buffers of
+    ``ops/voxelize.voxelize_batch``: the JAX package's
+    ``PillarFeatureNet`` without point arguments, for PFN stacks of any
+    depth.  It computes :class:`PillarFeatureNet`'s function (same
+    parameter tree ``pfn_{i}.linear`` / ``pfn_{i}.norm``); each non-last
+    layer takes ``feat_channels[i] // 2`` units and doubles them by the
+    pooled append."""
+
+    def __init__(self, in_channels, feat_channels, voxel_size,
+                 point_cloud_range, dtype=torch.float32):
+        super().__init__()
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
+        self.dtype = dtype
+        chans = [int(c) for c in feat_channels]
+        c = int(in_channels) + 5
+        for i, ch in enumerate(chans):
+            last = i == len(chans) - 1
+            units = ch - 1 if last else ch // 2
+            self.add_module(f"pfn_{i}", PFNLayer(c, units, last, dtype))
+            c = 2 * units
+        self.num_layers = len(chans)
+
+    def forward(self, voxels, num_points, coords, voxel_mask):
+        """
+        Args:
+            voxels: (V, M, C) per-voxel point buffers (xyz + features).
+            num_points: (V,) valid point counts.
+            coords: (V, 3) int voxel coords as (z, y, x).
+            voxel_mask: (V,) bool voxel validity.
+        Returns:
+            (V, feat_channels[-1]) features (last channel = num_points).
+        """
+        m = voxels.shape[1]
+        dt = voxels.dtype
+        npts = num_points.clamp(min=1).to(dt)
+        mean = voxels[:, :, :3].sum(dim=1, keepdim=True) / npts[:, None,
+                                                                 None]
+        centroid_off = voxels[:, :, :3] - mean
+        vx, vy = self.voxel_size[0], self.voxel_size[1]
+        x_off = vx / 2 + self.point_cloud_range[0]
+        y_off = vy / 2 + self.point_cloud_range[1]
+        px = voxels[:, :, 0] - (coords[:, 2].to(dt)[:, None] * vx + x_off)
+        py = voxels[:, :, 1] - (coords[:, 1].to(dt)[:, None] * vy + y_off)
+        feats = torch.cat([voxels, centroid_off, px[..., None],
+                           py[..., None]], dim=-1).to(self.dtype)
+        point_mask = (torch.arange(m, device=voxels.device)[None, :]
+                      < num_points[:, None])
+        feats = feats * point_mask[..., None].to(feats.dtype)
+        for i in range(self.num_layers):
+            feats = getattr(self, f"pfn_{i}")(feats, voxel_mask)
+        out = torch.cat([feats, num_points.to(feats.dtype)[:, None]],
+                        dim=-1)
         return out * voxel_mask[:, None].to(out.dtype)
 
 
@@ -542,6 +645,80 @@ class SubmanifoldSparseRPN(nn.Module):
             x = x * mask
             x = F.relu(getattr(self, f"bn_{li}")(x, mask))
         return x
+
+
+class BackboneDWS(nn.Module):
+    """SECOND-style strided 2D backbone (``use_dense_backbone``): per
+    stage a 3x3 conv at the stage's stride then ``layer_nums`` 3x3 convs,
+    each with :class:`BatchNorm` (eps 1e-3) and ReLU.  Each conv takes its
+    input width from the layer before it.  Returns every stage's
+    output."""
+
+    def __init__(self, in_channels, out_channels, layer_nums, layer_strides,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.stage_sizes = []
+        c = int(in_channels)
+        li = 0
+        for ch, num, stride in zip(out_channels, layer_nums, layer_strides):
+            for j in range(1 + int(num)):
+                self.add_module(f"conv_{li}", nn.Conv2d(
+                    c, int(ch), 3, stride=int(stride) if j == 0 else 1,
+                    padding=1, bias=False))
+                self.add_module(f"bn_{li}", BatchNorm(int(ch), eps=1e-3,
+                                                      momentum=0.01))
+                c = int(ch)
+                li += 1
+            self.stage_sizes.append(1 + int(num))
+
+    def forward(self, x):
+        """(B, C, H, W) -> list of each stage's (B, C_i, H_i, W_i)."""
+        x = x.to(self.dtype)
+        outs = []
+        li = 0
+        for size in self.stage_sizes:
+            for _ in range(size):
+                conv = getattr(self, f"conv_{li}")
+                x = F.conv2d(x, conv.weight.to(self.dtype),
+                             stride=conv.stride, padding=1)
+                x = F.relu(getattr(self, f"bn_{li}")(x))
+                li += 1
+            outs.append(x)
+        return outs
+
+
+class BackboneUPS(nn.Module):
+    """SECONDFPN-style neck: per scale a transposed conv with kernel =
+    stride (``deconv_{i}``, its weight (in, out, kh, kw)), :class:`BatchNorm`
+    and ReLU, the scales concatenated on channels.  Each transposed conv
+    takes its input width from the backbone stage it reads."""
+
+    def __init__(self, in_channels, out_channels, upsample_strides,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.num_scales = len(out_channels)
+        for i, (c, ch, s) in enumerate(zip(in_channels, out_channels,
+                                           upsample_strides)):
+            if int(s) < 1:
+                raise ValueError(f"neck upsample_strides must be >= 1, got "
+                                 f"{s}")
+            self.add_module(f"deconv_{i}", nn.ConvTranspose2d(
+                int(c), int(ch), int(s), stride=int(s), bias=False))
+            self.add_module(f"bn_{i}", BatchNorm(int(ch), eps=1e-3,
+                                                 momentum=0.01))
+
+    def forward(self, xs):
+        """list of (B, C_i, H_i, W_i) -> (B, sum(out_channels), H, W)."""
+        ups = []
+        for i, x in enumerate(xs[:self.num_scales]):
+            deconv = getattr(self, f"deconv_{i}")
+            x = F.conv_transpose2d(x.to(self.dtype),
+                                   deconv.weight.to(self.dtype),
+                                   stride=deconv.stride)
+            ups.append(F.relu(getattr(self, f"bn_{i}")(x)))
+        return torch.cat(ups, dim=1)
 
 
 class Anchor3DHead(nn.Module):

@@ -1,11 +1,15 @@
-"""Top-level network: voxelized points -> pseudo-image -> head.
+"""Top-level network: voxels -> pseudo-image -> head.
 
-Port of the JAX package's ``models/network.py::PointPillarsNet`` on its
-point-PFN path: PillarFeatureNet -> dense grid build -> vertical encoder
-(SparseMiddleExtractor) -> SubmanifoldSparseRPN -> Anchor3DHead.  Module
-names follow the JAX package's flax tree (``voxel_encoder``,
-``pseudoimage_generator``, ``sparse_rpn``, ``bbox_head``), so weights map
-leaf to leaf (``models/weights.py``).
+Port of the JAX package's ``models/network.py::PointPillarsNet``: the PFN
+(``PillarFeatureNet`` on the point path, ``PillarFeatureNetBuffers`` on
+the (V, M, C) buffers) -> the vertical encoder (the dense grid build and
+``SparseMiddleExtractor``, or ``SparseMiddleExtractorGather`` under
+``sparse_middle``) -> ``SubmanifoldSparseRPN``, or the dense
+``BackboneDWS`` + ``BackboneUPS`` under ``use_dense_backbone`` ->
+``Anchor3DHead``.  Module names follow the JAX package's flax tree
+(``voxel_encoder``, ``pseudoimage_generator``, ``sparse_rpn``,
+``backbone``, ``neck``, ``bbox_head``), so weights map leaf to leaf
+(``models/weights.py``).
 """
 
 import math
@@ -15,18 +19,35 @@ from torch import nn
 
 from objectdetection_3d_tpu_torch.models.layers import (
     Anchor3DHead,
+    BackboneDWS,
+    BackboneUPS,
     MaskedBatchNorm,
     PillarFeatureNet,
+    PillarFeatureNetBuffers,
     SparseMiddleExtractor,
     SubmanifoldSparseRPN,
 )
+from objectdetection_3d_tpu_torch.models.sparse_middle import (
+    SparseMiddleExtractorGather,
+)
 from objectdetection_3d_tpu_torch.ops.grid_scatter import scatter_to_grid
+from objectdetection_3d_tpu_torch.ops.sparse_conv import flatten_cells
 
 
 class PointPillarsNet(nn.Module):
-    """End-to-end PointPillars network over point-granularity voxel
-    batches.  ``decompose_convs`` .. ``fused_stages`` are the vertical
-    encoder's lowering knobs (``SparseMiddleExtractor``)."""
+    """End-to-end PointPillars network over voxel batches.
+
+    ``point_pfn``: the PFN runs at point granularity (single-layer stacks)
+    and :meth:`forward` takes the points; else it runs on the (V, M, C)
+    buffers and :meth:`forward` takes ``voxels``.  ``decompose_convs`` ..
+    ``fused_stages`` are the dense vertical encoder's lowering knobs
+    (``SparseMiddleExtractor``); ``sparse_middle`` with ``sparse_budget``
+    (active sites per stage, 0 = V) runs the gather encoder instead.
+    ``use_dense_backbone`` replaces the RPN by the strided backbone
+    (``rpn_channels``, ``rpn_layer_nums``, ``backbone_strides``) and the
+    neck (``neck_channels``, ``neck_upsample_strides``); each layer takes
+    its input width from the layer before it.
+    """
 
     # (h0, h1): build only the grid rows h0 <= y < h1 (a slab of H, when H
     # is split over ranks by ``parallel/data_parallel.py``); None: all
@@ -36,55 +57,111 @@ class PointPillarsNet(nn.Module):
                  point_cloud_range, max_slots, middle_channels,
                  middle_in_channels, rpn_channels, rpn_layer_nums,
                  num_classes, num_anchors, box_params_num=9,
-                 dtype=torch.float32, use_dense_backbone=False,
-                 sparse_middle=False, decompose_convs=False,
+                 dtype=torch.float32, point_pfn=True,
+                 use_dense_backbone=False, backbone_strides=(2, 2, 2),
+                 neck_channels=(), neck_upsample_strides=(),
+                 sparse_middle=False, sparse_budget=0, decompose_convs=False,
                  pallas_subm=False, zfold_convs=False, zfold_pallas=False,
                  fused_stages=False):
         super().__init__()
-        if use_dense_backbone:
-            raise NotImplementedError(
-                "use_dense_backbone (the SECOND backbone + FPN neck) is not "
-                "ported yet")
-        if sparse_middle:
-            raise NotImplementedError(
-                "tpu.sparse_middle (the gather-based vertical encoder) is "
-                "not ported yet")
         self.grid = tuple(int(g) for g in grid)  # (D, H, W)
         self.dtype = dtype
-        self.voxel_encoder = PillarFeatureNet(
-            in_channels, pfn_channels, voxel_size, point_cloud_range,
-            max_slots, dtype=dtype)
+        self.point_pfn = bool(point_pfn)
+        self.sparse_middle = bool(sparse_middle)
+        self.use_dense_backbone = bool(use_dense_backbone)
+        if self.point_pfn:
+            self.voxel_encoder = PillarFeatureNet(
+                in_channels, pfn_channels, voxel_size, point_cloud_range,
+                max_slots, dtype=dtype)
+        else:
+            self.voxel_encoder = PillarFeatureNetBuffers(
+                in_channels, pfn_channels, voxel_size, point_cloud_range,
+                dtype=dtype)
         if int(pfn_channels[-1]) != int(middle_in_channels):
             raise ValueError("vertical_encoder.in_channels must equal the "
                              "PFN's output width")
-        self.pseudoimage_generator = SparseMiddleExtractor(
-            middle_in_channels, middle_channels, dtype=dtype,
-            decompose_convs=decompose_convs, pallas_subm=pallas_subm,
-            zfold_convs=zfold_convs, zfold_pallas=zfold_pallas,
-            fused_stages=fused_stages)
+        if self.sparse_middle:
+            self.pseudoimage_generator = SparseMiddleExtractorGather(
+                middle_in_channels, middle_channels, self.grid,
+                budget=sparse_budget, dtype=dtype)
+        else:
+            self.pseudoimage_generator = SparseMiddleExtractor(
+                middle_in_channels, middle_channels, dtype=dtype,
+                decompose_convs=decompose_convs, pallas_subm=pallas_subm,
+                zfold_convs=zfold_convs, zfold_pallas=zfold_pallas,
+                fused_stages=fused_stages)
         d_out = SparseMiddleExtractor.out_depth(self.grid[0],
                                                 len(middle_channels))
-        self.sparse_rpn = SubmanifoldSparseRPN(
-            int(middle_channels[-1]) * d_out, rpn_channels, rpn_layer_nums,
-            dtype=dtype)
+        pseudo_channels = int(middle_channels[-1]) * d_out
+        if self.use_dense_backbone:
+            if not neck_channels:
+                raise ValueError("use_dense_backbone needs the neck's "
+                                 "out_channels and upsample_strides")
+            self.backbone = BackboneDWS(pseudo_channels, rpn_channels,
+                                        rpn_layer_nums, backbone_strides,
+                                        dtype=dtype)
+            self.neck = BackboneUPS(rpn_channels, neck_channels,
+                                    neck_upsample_strides, dtype=dtype)
+            head_channels = sum(int(c) for c in neck_channels[
+                :min(len(rpn_channels), len(neck_upsample_strides))])
+        else:
+            self.sparse_rpn = SubmanifoldSparseRPN(
+                pseudo_channels, rpn_channels, rpn_layer_nums, dtype=dtype)
+            head_channels = int(rpn_channels[-1])
         self.bbox_head = Anchor3DHead(
-            int(rpn_channels[-1]), num_classes, num_anchors, box_params_num,
+            head_channels, num_classes, num_anchors, box_params_num,
             dtype=dtype)
 
-    def forward(self, num_points, coords, voxel_mask, points, pt_voxel,
-                pt_valid):
+    def forward(self, num_points, coords, voxel_mask, points=None,
+                pt_voxel=None, pt_valid=None, voxels=None):
         """
         Args:
             num_points: (B, V) int points per voxel.
             coords: (B, V, 3) int voxel coords (z, y, x), -1 padding.
             voxel_mask: (B, V) bool voxel validity.
-            points: (B, P, C) cell-sorted points.
+            points: (B, P, C) cell-sorted points (point path).
             pt_voxel: (B, P) per-point voxel index in [0, V] (V = dump).
             pt_valid: (B, P) bool.
+            voxels: (B, V, M, C) per-voxel point buffers (buffer path).
         Returns:
-            (cls, reg, dirs): (B, H, W, A*num_classes / A*9 / A*6) float32.
+            (cls, reg, dirs): (B, H', W', A*num_classes / A*9 / A*6)
+            float32; (H', W') is the grid's (H, W), or the neck's.
         """
-        d, h, w = self.grid
+        b, v = num_points.shape
+        if self.point_pfn:
+            feats = self._point_feats(num_points, coords, voxel_mask,
+                                      points, pt_voxel, pt_valid)
+        else:
+            m, c = voxels.shape[2:]
+            feats = self.voxel_encoder(
+                voxels.reshape(b * v, m, c), num_points.reshape(b * v),
+                coords.reshape(b * v, 3), voxel_mask.reshape(b * v))
+        feats = feats.reshape(b, v, -1).to(self.dtype)
+
+        if self.sparse_middle:
+            # the voxelizer emits cells sorted by flat id, the order the
+            # gather encoder's active sets keep
+            cell_flat = torch.stack([flatten_cells(coords[i], self.grid)
+                                     for i in range(b)])
+            pseudo = self.pseudoimage_generator(feats, coords, cell_flat,
+                                                voxel_mask)
+        else:
+            grid, mask = self._dense_grid(feats, coords, voxel_mask)
+            # NDHWC memory seen as NCDHW (channels_last_3d): no copy
+            pseudo = self.pseudoimage_generator(grid.permute(0, 4, 1, 2, 3),
+                                                mask)
+        if self.use_dense_backbone:
+            x = self.neck(self.backbone(pseudo))
+        else:
+            # the reference re-derives the 2D active set from nonzero
+            # pixels
+            rpn_mask = (pseudo != 0).any(dim=1, keepdim=True)
+            x = self.sparse_rpn(pseudo, rpn_mask)
+        return self.bbox_head(x)
+
+    def _point_feats(self, num_points, coords, voxel_mask, points, pt_voxel,
+                     pt_valid):
+        """(B, V, C) voxel features from the point-granularity PFN."""
         b, v = num_points.shape
         dev = num_points.device
         # one extra segment per item holds the dump slot (out-of-range or
@@ -102,8 +179,13 @@ class PointPillarsNet(nn.Module):
         feats = self.voxel_encoder(points.reshape(b * points.shape[1], -1),
                                    seg, pt_valid.reshape(-1), counts_p,
                                    coords_p, mask_p)
-        feats = feats.reshape(b, nvp, -1)[:, :v].to(self.dtype)
+        return feats.reshape(b, nvp, -1)[:, :v]
 
+    def _dense_grid(self, feats, coords, voxel_mask):
+        """The (B, D, H, W, C) grid of the voxel features (K2) and its
+        (B, 1, D, H, W) activity mask."""
+        d, h, w = self.grid
+        b = feats.shape[0]
         # dense (z, y, x) grid; the voxelizer emits cells sorted in this
         # raster order, the grid-scatter kernel's contract.  A slab keeps
         # the voxels of its rows; the others go where the padding goes
@@ -121,18 +203,11 @@ class PointPillarsNet(nn.Module):
                                (d, h, w))
         # padding voxels write the extra cell d*h*w, which is cut off: no
         # shape here depends on the data
-        mask = torch.zeros((b, d * h * w + 1), dtype=self.dtype, device=dev)
+        mask = torch.zeros((b, d * h * w + 1), dtype=self.dtype,
+                           device=feats.device)
         mask = mask.scatter(1, cell.long(),
                             torch.ones_like(cell, dtype=self.dtype))
-        mask = mask[:, :-1].reshape(b, 1, d, h, w)
-
-        # NDHWC memory seen as NCDHW (channels_last_3d): no copy
-        pseudo = self.pseudoimage_generator(grid.permute(0, 4, 1, 2, 3),
-                                            mask)
-        # the reference re-derives the 2D active set from nonzero pixels
-        rpn_mask = (pseudo != 0).any(dim=1, keepdim=True)
-        x = self.sparse_rpn(pseudo, rpn_mask)
-        return self.bbox_head(x)
+        return grid, mask[:, :-1].reshape(b, 1, d, h, w)
 
 
 @torch.no_grad()
@@ -143,8 +218,9 @@ def init_parameters(net, generator):
     touched.
 
     * batch norms: weight 1, bias 0, running mean 0, running var 1;
-    * Linear / Conv2d: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and
-      bias (PyTorch's default);
+    * Linear / Conv2d / ConvTranspose2d: U(-1/sqrt(fan_in),
+      1/sqrt(fan_in)) for weight and bias, fan_in the size of
+      ``weight[0]`` (PyTorch's default);
     * the vertical encoder's kernels: N(0, 1/fan_in) (LeCun normal);
     * the head's cls and reg convs: weight N(0, 0.01^2), bias -log(99)
       and 0.
@@ -164,7 +240,7 @@ def init_parameters(net, generator):
             mod.bias.zero_()
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
-        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+        elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             bound = 1.0 / math.sqrt(mod.weight[0].numel())
             uniform(mod.weight, bound)
             if mod.bias is not None:

@@ -9,12 +9,19 @@ flax leaf                      port name                   layout change
 =============================  ==========================  ================
 ``.../kernel`` (in, out)       ``.../weight``              (out, in)
 ``.../kernel`` HWIO            ``.../weight``              OIHW
+``deconv_{i}/kernel`` HWIO     ``deconv_{i}.weight``       IOHW, kh, kw
+                                                           reversed
 ``subm_{i}_kernel`` DHWIO      ``subm_{i}_kernel``         OIDHW
 ``down_{i}_kernel`` (3, c, o)  ``down_{i}_kernel``         (o, c, 3, 1, 1)
 ``.../scale``                  ``.../weight``              none
 ``.../bias``                   ``.../bias``                none
 ``batch_stats/.../mean|var``   ``.../running_mean|var``    none
 =============================  ==========================  ================
+
+Flax's ``ConvTranspose`` (the neck's ``deconv_{i}``, kernel = stride,
+``padding="SAME"``) correlates the stride-dilated input with its kernel
+unflipped; ``torch.nn.ConvTranspose2d`` (``padding=0``) is the transpose of
+a conv, so the same map takes the kernel reversed in both spatial axes.
 
 The same map carries the foreground filter's ``MLP`` (``dense_i``,
 ``bn_i``, ``out``); its ``BatchNorm1d`` counters
@@ -52,6 +59,8 @@ def _leaf_to_port(collection, path, arr):
         name = "weight"
         if arr.ndim == 2:           # Dense (in, out)
             arr = arr.T
+        elif arr.ndim == 4 and mods and mods[-1].startswith("deconv_"):
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # -> IOHW, flipped
         elif arr.ndim == 4:         # Conv HWIO
             arr = arr.transpose(3, 2, 0, 1)
         else:
@@ -84,6 +93,9 @@ def _port_to_leaf(name, arr):
             return "params", (*mods, "scale"), arr
         if arr.ndim == 2:
             return "params", (*mods, "kernel"), arr.T
+        if arr.ndim == 4 and mods and mods[-1].startswith("deconv_"):
+            return "params", (*mods, "kernel"), arr.transpose(
+                2, 3, 0, 1)[::-1, ::-1]
         if arr.ndim == 4:
             return "params", (*mods, "kernel"), arr.transpose(2, 3, 1, 0)
     raise ValueError(f"unknown port parameter {name}")

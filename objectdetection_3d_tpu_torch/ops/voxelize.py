@@ -1,18 +1,25 @@
-"""Static-shape voxelization at point granularity.
+"""Static-shape voxelization, at point granularity or into (V, M, C)
+buffers.
 
 Port of the JAX package's ``ops/voxelize.py`` (``_cells_sorted``,
-``voxelize_points``, ``_finalize_points_scan``, ``Voxelizer.points_batch``):
+``voxelize_points``, ``_finalize_points_scan``, ``voxelize``,
+``Voxelizer``):
 
 1. each point gets a flat cell id in (z, y, x) raster order, or the
    sentinel ``D*H*W`` when it is padding or out of range;
-2. points are ordered by (cell, -reflectance, index).  ``torch.sort`` takes
-   one key, so two stable sorts compose the order: the secondary key
-   first, then the cell id.  The result is the JAX package's stable
-   two-key ``lax.sort`` order, bit for bit, ties included (every padding
-   point carries the sentinel);
+2. points are ordered by (cell, priority, index), the priority being
+   -reflectance, a uniform draw (the JAX package's ``shuffle_key`` path,
+   here from a ``torch.Generator``) or nothing.  ``torch.sort`` takes one
+   key, so two stable sorts compose the order: the priority first, then
+   the cell id.  The result is the JAX package's stable two-key
+   ``lax.sort`` order, bit for bit, ties included (every padding point
+   carries the sentinel);
 3. the post-sort scan (``ops/voxel_scan.py``, a CUDA kernel on the card)
    gives each point its run index and in-run rank, and two sorted scatters
-   give per-voxel counts and head cells.
+   give per-voxel counts and head cells;
+4. for the buffers (:func:`voxelize_batch`), each kept point is written to
+   slot ``rank`` of its voxel: the JAX package's ``voxelize`` copies the
+   first ``M`` points of each run into its slots in the same order.
 
 The whole batch is processed at once: rows are independent clouds.
 """
@@ -30,9 +37,12 @@ def _grid_of(voxel_size, point_cloud_range):
 
 
 def cells_sorted(points, num_points, *, voxel_size, point_cloud_range,
-                 reflectance_sampling=True):
+                 reflectance_sampling=True, generator=None):
     """Sort phase: (B, P) sorted flat cell ids and the (B, P, C) points in
-    (cell, priority, index) order."""
+    (cell, priority, index) order.  The priority is -reflectance; without
+    ``reflectance_sampling`` a uniform draw from ``generator`` (a
+    ``torch.Generator`` on the points' device), else none (input
+    order)."""
     b, p, c = points.shape
     dev = points.device
     pcr = torch.tensor(point_cloud_range[:3], dtype=points.dtype, device=dev)
@@ -54,8 +64,13 @@ def cells_sorted(points, num_points, *, voxel_size, point_cloud_range,
     cell = (cell3[..., 2] * gy + cell3[..., 1]) * gx + cell3[..., 0]
     cell = torch.where(ok, cell, sentinel).to(torch.int32)
 
+    secondary = None
     if reflectance_sampling:
         secondary = -points[..., 3]
+    elif generator is not None:
+        secondary = torch.rand((b, p), generator=generator, device=dev,
+                               dtype=points.dtype)
+    if secondary is not None:
         order = torch.argsort(secondary, dim=1, stable=True)
         cell, by_cell = torch.sort(torch.gather(cell, 1, order), dim=1,
                                    stable=True)
@@ -104,7 +119,8 @@ def finalize_points_scan(cell_s, pts_s, vox, rank, *, grid,
 
 def voxelize_points_batch(points, num_points, *, voxel_size,
                           point_cloud_range, max_points_per_voxel,
-                          max_voxels, reflectance_sampling=True):
+                          max_voxels, reflectance_sampling=True,
+                          generator=None):
     """Voxelize a padded batch WITHOUT per-voxel buffers.
 
     Args:
@@ -121,16 +137,30 @@ def voxelize_points_batch(points, num_points, *, voxel_size,
             num_points_per_voxel: (V,) int32 capped counts,
             num_voxels: int32,
             voxel_mask: (V,) bool.
+        ``generator``: see :func:`cells_sorted`.
     """
+    return _voxelize_points_ranked(
+        points, num_points, voxel_size=voxel_size,
+        point_cloud_range=point_cloud_range,
+        max_points_per_voxel=max_points_per_voxel, max_voxels=max_voxels,
+        reflectance_sampling=reflectance_sampling, generator=generator)[0]
+
+
+def _voxelize_points_ranked(points, num_points, *, voxel_size,
+                            point_cloud_range, max_points_per_voxel,
+                            max_voxels, reflectance_sampling, generator):
+    """:func:`voxelize_points_batch`'s dict and the (B, P) slot of each
+    sorted point in its voxel (read where ``pt_valid``)."""
     grid = _grid_of(voxel_size, point_cloud_range)
     cell_s, pts_s = cells_sorted(
         points, num_points, voxel_size=voxel_size,
         point_cloud_range=point_cloud_range,
-        reflectance_sampling=reflectance_sampling)
+        reflectance_sampling=reflectance_sampling, generator=generator)
     vox, rank = postsort_scan(cell_s, grid[0] * grid[1] * grid[2])
     return finalize_points_scan(
         cell_s, pts_s, vox, rank, grid=grid,
-        max_points_per_voxel=max_points_per_voxel, max_voxels=max_voxels)
+        max_points_per_voxel=max_points_per_voxel,
+        max_voxels=max_voxels), rank
 
 
 def voxelize_points(points, num_points, *, voxel_size, point_cloud_range,
@@ -147,8 +177,48 @@ def voxelize_points(points, num_points, *, voxel_size, point_cloud_range,
     return {k: val[0] for k, val in out.items()}
 
 
+def voxelize_batch(points, num_points, *, voxel_size, point_cloud_range,
+                   max_points_per_voxel, max_voxels,
+                   reflectance_sampling=True, generator=None):
+    """Voxelize a padded batch into per-voxel point buffers (the JAX
+    package's ``voxelize``, one cloud per row).
+
+    Args: as :func:`voxelize_points_batch`.
+    Returns:
+        dict with (per item, batched on dim 0)
+            voxels: (V, M, C) the kept points of each voxel in slots
+                0..count-1, zeros elsewhere,
+            coords: (V, 3) int32 (z, y, x), -1 for padding voxels,
+            num_points_per_voxel: (V,) int32,
+            num_voxels: int32,
+            voxel_mask: (V,) bool.
+    """
+    pp, rank = _voxelize_points_ranked(
+        points, num_points, voxel_size=voxel_size,
+        point_cloud_range=point_cloud_range,
+        max_points_per_voxel=max_points_per_voxel, max_voxels=max_voxels,
+        reflectance_sampling=reflectance_sampling, generator=generator)
+    b, p, c = points.shape
+    m, v = max_points_per_voxel, max_voxels
+    # every kept point owns one (voxel, slot); the others go to slot 0 of
+    # a dump voxel, which is cut off
+    slot = torch.where(pp["pt_valid"],
+                       pp["pt_voxel"].long() * m + rank.long(), v * m)
+    buf = torch.zeros((b, (v + 1) * m, c), dtype=points.dtype,
+                      device=points.device)
+    buf.scatter_(1, slot[..., None].expand(b, p, c), pp["points"])
+    return {
+        "voxels": buf[:, :v * m].reshape(b, v, m, c),
+        "coords": pp["coords"],
+        "num_points_per_voxel": pp["num_points_per_voxel"],
+        "num_voxels": pp["num_voxels"],
+        "voxel_mask": pp["voxel_mask"],
+    }
+
+
 class Voxelizer:
-    """Configured point-granularity voxelization op."""
+    """Configured voxelization op: point granularity
+    (:meth:`points_batch`) or per-voxel buffers (``__call__``)."""
 
     def __init__(self, voxel_size, point_cloud_range, max_voxel_points,
                  max_voxels, reflectance_sampling=True):
@@ -168,3 +238,15 @@ class Voxelizer:
             max_points_per_voxel=self.max_voxel_points,
             max_voxels=self.max_voxels,
             reflectance_sampling=self.reflectance_sampling)
+
+    def __call__(self, points, num_points, generator=None):
+        """Batched buffer voxelization: (B, P, C) points and (B,) counts
+        -> the batched dict of :func:`voxelize_batch`; ``generator`` draws
+        the insertion order when reflectance sampling is off."""
+        return voxelize_batch(
+            points, num_points, voxel_size=self.voxel_size,
+            point_cloud_range=self.point_cloud_range,
+            max_points_per_voxel=self.max_voxel_points,
+            max_voxels=self.max_voxels,
+            reflectance_sampling=self.reflectance_sampling,
+            generator=generator)

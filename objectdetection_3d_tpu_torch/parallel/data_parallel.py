@@ -33,10 +33,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from objectdetection_3d_tpu_torch.models.layers import (
-    MaskedBatchNorm,
-    PointMaskedBN,
-)
+from objectdetection_3d_tpu_torch.models.layers import MaskedBatchNorm
 from objectdetection_3d_tpu_torch.parallel import collectives
 from objectdetection_3d_tpu_torch.parallel.launch import default_backend
 
@@ -174,6 +171,11 @@ class Shard:
         self.group = mesh.world_group if spatial else mesh.data_group
         self.rows = self.anchor_rows = None
         if spatial:
+            if model.net.sparse_middle or model.net.use_dense_backbone:
+                raise ValueError(
+                    "the spatial path splits the dense grid and the RPN; "
+                    "tpu.sparse_middle and use_dense_backbone run on the "
+                    "data path only")
             _, h, w = model.grid_dhw
             self.rows = mesh.rows(h, "space")
             per_row = w * model.num_anchors
@@ -194,9 +196,10 @@ class Shard:
         halo row with the neighbours."""
         mesh = self.mesh
         bns = [m for m in net.modules() if isinstance(m, MaskedBatchNorm)]
+        pfn = set(net.voxel_encoder.modules())
         for m in bns:
-            m.stats_sum = _summer(mesh.data_group if isinstance(
-                m, PointMaskedBN) else self.group)
+            m.stats_sum = _summer(mesh.data_group if m in pfn
+                                  else self.group)
         if self.spatial:
             def halo(x, dim):
                 return collectives.halo_rows(x, dim, mesh.space_group,

@@ -350,14 +350,6 @@ def test_assign_targets_all_padding(models):
     assert np.isfinite(got["target_deltas"]).all()
 
 
-def test_assign_needs_a_layout(models):
-    _, tm = models
-    with pytest.raises(NotImplementedError):
-        assign_targets(tm.anchors, torch.zeros((2, 9)),
-                       torch.zeros(2, dtype=torch.int32),
-                       torch.zeros(2, dtype=torch.bool), 0.2, 0.08, None)
-
-
 def _ring_scene(seed):
     """The scene of the JAX package's
     ``test_exact_anchor_tier_recovers_ring_positives``: anchor-sized GTs

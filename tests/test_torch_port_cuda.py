@@ -1193,3 +1193,100 @@ def test_two_ranks_share_the_card_over_gloo(cuda, exact_fp32, tmp_path):
         for res in r:
             assert res["launches"]["postsort_scan"] > 0
             assert res["launches"]["scatter_to_grid"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the paths the flagship does not take
+# ---------------------------------------------------------------------------
+def _parked_cfg(kind):
+    """The tiny config on the layout-free assignment (``scrambled``), the
+    gather encoder (``sparse_middle``) or the dense backbone and neck
+    (``dense_backbone``)."""
+    from objectdetection_3d_tpu_torch import configs
+
+    cfg = configs.tiny_model_cfg()
+    if kind == "sparse_middle":
+        cfg["tpu"] = dict(cfg["tpu"], sparse_middle=True)
+    elif kind == "dense_backbone":
+        cfg["use_dense_backbone"] = True
+        cfg["backbone"] = dict(in_channels=16, out_channels=[16, 24, 32],
+                               layer_nums=[1, 1, 1], layer_strides=[2, 2, 2])
+        cfg["neck"] = dict(out_channels=[16, 16, 16],
+                           upsample_strides=[1, 2, 4])
+    return cfg
+
+
+def _scrambled_model(device):
+    """The tiny model on anchors that do not factor (one anchor's size
+    leaves its combo set): no layout, the layout-free assignment."""
+    from objectdetection_3d_tpu_torch.models import anchors
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+
+    orig = anchors.Anchor3DRangeGenerator.flat_anchors
+
+    def scrambled(self, featmap_size, device="cpu"):
+        a = orig(self, featmap_size, device).clone()
+        a[0, 3] += 0.123
+        return a
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(anchors.Anchor3DRangeGenerator, "flat_anchors",
+                   scrambled)
+        model = PointPillars(_parked_cfg("scrambled"), device=device)
+    assert model.anchor_layout is None
+    return model
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_layout_free_assignment_kernel_route_matches_plain(cuda, seed):
+    """The layout-free assignment through K6 against its plain route on
+    the card: masks, labels and ``best_gt`` exact, ``max_overlap`` and the
+    deltas within 1e-5 (K6 within 1e-5 of its plain version); K6 one
+    launch per item, no other assignment kernel."""
+    from tiny import tiny_batch
+
+    model = _scrambled_model(cuda)
+    batch = tiny_batch(batch_size=2, num_gt=4, seed=seed)
+    plain = model.assign(batch, plain=True)
+    got = {}
+    counts = _launch_counts(lambda: got.update(model.assign(batch)))
+    assert counts == {"postsort_scan": 0, "scatter_to_grid": 0,
+                      "chunk_geometry": 0, "containment_rescue": 0,
+                      "iou_gathered": 2, "iou_gathered_pair": 0}
+    for key in ("pos_mask", "neg_mask", "target_labels", "num_pos",
+                "dir_targets", "best_gt"):
+        assert torch.equal(got[key], plain[key]), key
+    for key in ("max_overlap", "target_deltas"):
+        torch.testing.assert_close(got[key], plain[key], rtol=0, atol=1e-5)
+    assert int(got["num_pos"].sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["sparse_middle", "dense_backbone"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_parked_predict_is_bitwise_reproducible_on_card(cuda, exact_fp32,
+                                                        kind, dtype):
+    """C8 on the gather encoder and on the dense backbone and neck: two
+    predicts of one batch with PyTorch's deterministic mode off give the
+    same bits; K1 runs (and K2 on the dense encoder's grid only)."""
+    from tiny import tiny_batch
+
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.network import init_parameters
+
+    cfg = _parked_cfg(kind)
+    cfg["tpu"] = dict(cfg["tpu"], compute_dtype=dtype)
+    cfg["head"] = dict(cfg["head"], score_thr=0.0)
+    model = PointPillars(cfg, device=cuda)
+    init_parameters(model.net, torch.Generator().manual_seed(3))
+    assert not torch.are_deterministic_algorithms_enabled()
+    batch = tiny_batch(batch_size=2, seed=4)
+    first = {}
+    counts = _launch_counts(lambda: first.update(model.predict(batch)))
+    assert counts["postsort_scan"] == 1
+    assert counts["scatter_to_grid"] == (0 if kind == "sparse_middle"
+                                         else 1)
+    for _ in range(3):
+        again = model.predict(batch)
+        for key in first:
+            assert torch.equal(first[key], again[key]), key
+    assert bool(first["valid"].any())

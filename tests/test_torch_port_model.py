@@ -182,18 +182,6 @@ def test_device_defaults_to_cuda_and_never_falls_back():
         PointPillars(cfg)
 
 
-@pytest.mark.parametrize("key,value", [("use_dense_backbone", True),
-                                       ("tpu", {"sparse_middle": True})])
-def test_unported_paths_raise(key, value):
-    cfg = configs.tiny_model_cfg()
-    if key == "tpu":
-        cfg["tpu"] = dict(cfg["tpu"], **value)
-    else:
-        cfg[key] = value
-    with pytest.raises(NotImplementedError):
-        PointPillars(cfg, device="cpu")
-
-
 def test_centroid_sum_is_exact_and_order_free():
     """C8: the PFN's centroid sum is integer arithmetic, so no order of
     its atomics on the card changes a bit: here, a permutation of the

@@ -34,6 +34,7 @@ import shutil
 import signal
 import threading
 import time
+import zlib
 
 import jax
 import numpy as np
@@ -78,15 +79,29 @@ torch.set_num_threads(1)
 VERSION = "2026-01-02-03-04-05"
 
 
-@pytest.fixture(scope="module")
-def workspace(tmp_path_factory):
-    root = tmp_path_factory.mktemp("ws")
+def scene_seed(split):
+    """The first scene seed of a split; the same in every process
+    (``hash`` of a ``str`` is salted per process)."""
+    return zlib.crc32(split.encode()) % 997
+
+
+def make_workspace(root, testing_seed=None):
+    """Two scenes per split under ``root/data``: seeds ``s`` and ``s + 1``,
+    ``s`` = :func:`scene_seed`, or ``testing_seed`` for the testing
+    split."""
     for split in ("training", "validation", "testing"):
         d = root / "data" / split
         d.mkdir(parents=True)
+        first = (testing_seed if split == "testing"
+                 and testing_seed is not None else scene_seed(split))
         for i in range(2):
-            write_scene(d, f"{split}_{i}", seed=abs(hash(split)) % 997 + i)
+            write_scene(d, f"{split}_{i}", seed=first + i)
     return root
+
+
+@pytest.fixture(scope="module")
+def workspace(tmp_path_factory):
+    return make_workspace(tmp_path_factory.mktemp("ws"))
 
 
 def port_cfg(root, out="output", **pipeline):
@@ -318,7 +333,15 @@ def _jax_pipeline(workspace, inference_mode=True):
                        **pl)
 
 
-def test_run_testing_matches_the_jax_pipeline(workspace):
+# None: the workspace's own testing scenes (scene_seed), whose detections
+# must find a tree; 255 and 731: testing scenes on which these random
+# weights find none, so recall 0 is allowed there
+@pytest.mark.parametrize("testing_seed", [None, 255, 731])
+def test_run_testing_matches_the_jax_pipeline(workspace, tmp_path,
+                                              testing_seed):
+    if testing_seed is not None:
+        workspace = make_workspace(tmp_path, testing_seed)
+    found = testing_seed is None
     jp = _jax_pipeline(workspace)
     variables = _random_variables(
         jp.model.init_variables(jax.random.PRNGKey(1)), seed=3)
@@ -339,7 +362,8 @@ def test_run_testing_matches_the_jax_pipeline(workspace):
     got = tp.run_testing()
     for k in ("4_precision", "5_recall", "6_f1"):
         assert got[k] == pytest.approx(want[k], rel=1e-9, nan_ok=True), k
-    assert got["5_recall"] > 0
+    if found:
+        assert got["5_recall"] > 0
 
     _, want_p, want_t = jp._eval_split("testing", 2, compute_losses=False)
     _, got_p, got_t = tp._eval_split("testing", 2, compute_losses=False)
@@ -347,7 +371,8 @@ def test_run_testing_matches_the_jax_pipeline(workspace):
     for g, w in zip(got_t, want_t):
         np.testing.assert_array_equal(g["bbox"], w["bbox"])
     for g, w in zip(got_p, want_p):
-        assert len(g["bbox"]) == len(w["bbox"]) > 0
+        assert len(g["bbox"]) == len(w["bbox"])
+        assert len(g["bbox"]) > 0 or not found
         np.testing.assert_array_equal(g["label"], w["label"])
         np.testing.assert_allclose(g["bbox"], w["bbox"], atol=1e-4)
         np.testing.assert_allclose(g["score"], w["score"], atol=1e-5)
@@ -359,7 +384,8 @@ def test_run_testing_matches_the_jax_pipeline(workspace):
                             validate=True)
     batch = tp.batcher.collate([{"data": data, "attr": {}}])
     want_d = tp.model.inference_end(tp.model.predict(batch.arrays))
-    assert len(dets) == 1 and len(dets[0]) == len(want_d[0]) > 0
+    assert len(dets) == 1 and len(dets[0]) == len(want_d[0])
+    assert len(dets[0]) > 0 or not found
     for g, w in zip(dets[0], want_d[0]):
         np.testing.assert_array_equal(g["bbox"], w["bbox"])
         assert g["label"] == w["label"] and g["score"] == w["score"]
