@@ -89,7 +89,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     detections' agreement with the default path (information);
 12. train with ``zfold_pallas``: one warm-up step, then 2 timed steps;
     losses finite, ``num_pos`` > 0, every parameter and running statistic
-    changed, K9 exactly 3 forward and 3 dx launches per step;
+    changed, K9 exactly 6 forward (3, and 3 again as the flagship's
+    ``tpu.remat: true`` recomputes the encoder in the backward) and 3 dx
+    launches per step;
 13. gradient accumulation at the flagship width (bf16, the npz weights,
     phase 9's AdamW): at B = 1 on cloud 1, ``microbatch=1`` against the
     monolithic step from the same state (losses within 1e-5 relative;
@@ -114,7 +116,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     block printed; its PNG written where matplotlib imports, else its
     drawing replaced on that instance and the fact printed); the wall
     seconds of training, validation, testing and the show, and ms per
-    train step;
+    train step; then under ``ckpt_backend: orbax``: ``run_training``
+    writes ``ckpt_0000{0,1}.dcp`` directories (no ``.pth``), a resume
+    starts at epoch 2 from ``ckpt_00001.dcp`` and leaves Adam's step at
+    3 in ``ckpt_00002.dcp``, and ``run_testing`` from a ``ckpt_best.dcp``
+    of the npz gives the ``.pth`` run's precision, recall and F1;
 15. tiled inference at the flagship width (bf16, the npz weights and its
     ``score_thr``) over ``scene.large_tree_scene()`` (160 x 160 m,
     1,953,668 points): 25 tiles, each tile's in-window count equal on the
@@ -201,7 +207,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the share of each tolerance used printed), the spatial 1 x 2
     predict in bf16 and float32 against live,
     and the spatial 1 x 2 step in float32 (TF32 off, B = 1) at the CPU
-    tolerances, K1 and K2 launched on every rank in every run.  Times in
+    tolerances, K1 and K2 launched on every rank in every run; the same
+    spatial predict and step of the gather encoder (``sparse_budget``
+    131,072, the npz) and of the dense backbone (phase 20c's config and
+    seeded weights), float32, against one device at those tolerances (K1
+    launched on every rank, K2 on the dense backbone's only).  Times in
     (c) come from two ranks sharing one card;
 20. the paths the flagship does not take, at its width: (a) the
     layout-free assignment (the flagship's 1.92 M anchors taken as a grid
@@ -227,11 +237,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     widths and seeded weights: featmap 200 x 200; K1 and K2 on the inputs
     this path gives them (cloud 0) bit-exact against their plain
     versions; predict on clouds 0-3 and two train steps, as in (b), K1
-    and K2 one launch a cloud, all six step kernels launched.
+    and K2 one launch a cloud, all six step kernels launched;
+21. ``tpu.remat`` at the flagship width (bf16, the npz, phase 9's AdamW):
+    at B = 1 under ``false``, ``"rpn"``, ``"middle"`` and ``true`` the
+    first step from the npz (its gradients and running statistics bitwise
+    equal to ``false``'s), then two timed steps (ms, peak memory); B = 8
+    under ``true`` in chunks of 1, 2, 4 and 8 (one warm-up and one timed
+    step each: ms and peak memory, or "does not fit" where the card runs
+    out of memory, which is a reading, not a failure); K9 exactly 6
+    forward and 3 dx launches in one ``zfold_pallas`` step under
+    ``"middle"``.
 
 The last lines are the ``serving`` JSON line (phase 18's readings), the
 ``parallel`` JSON line (phase 19's), the ``parked`` JSON line (phase
-20's), the ``kernels`` JSON line (all ten
+20's), the ``remat`` JSON line (phase 21's), the ``kernels`` JSON line
+(all ten
 kernels; K1 and K2 with ``launches_tiled`` and ``launches_tiled_batch2``;
 K1-K4, K6 and K7 with ``launches_data_path``; K1, K2, K8, K9 and K10
 with ``launches_serving``, over phase 18's twelve served calls; every
@@ -239,13 +259,15 @@ kernel with ``launches_parallel``, over phase 19(b)'s sharded step and
 predicts, and K1 and K2 with ``launches_parallel_gloo_ranks``, per rank
 and run of (c); K1-K4, K6 and K7 with ``launches_layout_free``,
 ``launches_sparse_middle`` and ``launches_dense_backbone``, over phase
-20's predicts and steps of each path), the card line and
+20's predicts and steps of each path; K9 with ``launches_remat_middle``,
+phase 21's one step), the card line and
 ``{"ok": true, "device": {...}}``.
 Each phase's wall seconds are printed as ``phase time:`` lines.
 """
 
 import contextlib
 import copy
+import importlib
 import io
 import json
 import os
@@ -1255,9 +1277,13 @@ def zfold_train(batches, counted):
             + f", num_pos {int(vals['num_pos'])}; {times[-1] * 1e3:.1f} ms",
             flush=True)
     k9 = {"forward": conv2d_3x3.launches, "dx": conv2d_3x3.dx_launches}
-    if k9 != {"forward": 6, "dx": 6}:
+    # the flagship's remat: true recomputes the encoder in the backward,
+    # which launches its 3 K9 forwards again
+    forward = 3 * (2 if "middle" in model.net.remat_regions else 1)
+    if k9 != {"forward": 2 * forward, "dx": 6}:
         raise AssertionError(f"K9 launches in 2 zfold steps: {k9}, expected "
-                             f"3 forward and 3 dx per step")
+                             f"{forward} forward (with the recompute) and "
+                             f"3 dx per step")
     others = {name: fn.launches for name, fn in counted.items()}
     if not all(others.values()):
         raise AssertionError(f"a kernel did not launch in the zfold steps: "
@@ -1422,10 +1448,11 @@ def write_forest_split(directory, seeds, scene_fn=None):
         np.save(os.path.join(directory, f"scene_{seed}_bbx.npy"), disk)
 
 
-def pipeline_cfg(root, inference_mode, resume_from=None):
+def pipeline_cfg(root, inference_mode, resume_from=None, **pipeline):
     """The pipeline's config as a dict: the flagship model, the port's
     default static budgets with the flagship's, one train epoch of
-    B = 2 in chunks of 1."""
+    B = 2 in chunks of 1; ``pipeline`` overrides keys of its
+    ``pipeline`` section."""
     from objectdetection_3d_tpu_torch import configs
 
     model = configs.flagship_cfg()
@@ -1444,8 +1471,82 @@ def pipeline_cfg(root, inference_mode, resume_from=None):
             "training_batch_size": 2, "validation_batch_size": 1,
             "testing_batch_size": 1, "max_epoch": 1, "save_ckpt_freq": 1,
             "validation_freq": 1, "grad_clip_norm": CLIP,
-            "num_workers": 0, "optimizer": dict(OPT), "overlaps": [0.1]},
+            "num_workers": 0, "optimizer": dict(OPT), "overlaps": [0.1],
+            **pipeline},
     }
+
+
+def dcp_checkpoints(root, prf_pth):
+    """Phase 14 under ``ckpt_backend: orbax``: ``run_training`` writes
+    ``.dcp`` directories, a resume starts at the next epoch, and
+    ``run_testing`` from a ``ckpt_best.dcp`` of the npz gives the P/R/F1
+    ``prf_pth`` of the ``.pth`` run."""
+    from objectdetection_3d_tpu_torch.config import Config
+    from objectdetection_3d_tpu_torch.entry import build_pipeline
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.pipeline import checkpoint as ckpt_io
+
+    def build(inference_mode, version=None, **pipeline):
+        return build_pipeline(cfg=Config(pipeline_cfg(
+            root, inference_mode, version, ckpt_backend="orbax",
+            **pipeline)))[0]
+
+    def version_of(pipe):
+        return os.path.basename(os.path.dirname(
+            os.path.dirname(pipe.cfg.log_dir.rstrip("/") + "/")))
+
+    t = time.perf_counter()
+    pipe = build(False)
+    pipe.run_training()
+    ckpt_dir = os.path.join(pipe.cfg.log_dir, "checkpoint")
+    written = sorted(os.listdir(ckpt_dir))
+    if not {"ckpt_00000.dcp", "ckpt_00001.dcp"} <= set(written) or \
+            any(n.endswith(".pth") for n in written):
+        raise AssertionError(f"orbax run_training wrote {written}")
+    train_s = time.perf_counter() - t
+    version = version_of(pipe)
+    del pipe
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    resumed = build(False, version, is_resume=True, max_epoch=2)
+    first, path = resumed.load_ckpt()
+    record = resumed.run_training()
+    last = ckpt_io.load_ckpt(os.path.join(ckpt_dir, "ckpt_00002.dcp"))
+    steps = {int(v["step"])
+             for v in last["optimizer_state_dict"]["state"].values()}
+    # one step an epoch (two training clouds, B = 2): two before the
+    # resume, one after
+    if first != 2 or not path.endswith("ckpt_00001.dcp") or \
+            [r["epoch"] for r in record] != [0, 1, 2] or \
+            last["epoch"] != 2 or steps != {3}:
+        raise AssertionError(f"orbax resume: first epoch {first} from "
+                             f"{path}; record {record}; epoch "
+                             f"{last['epoch']}, Adam steps {steps}")
+    resume_s = time.perf_counter() - t
+    del resumed, last
+    torch.cuda.empty_cache()
+
+    tester = build(True, "2026-01-01-00-00-01")
+    best = os.path.join(tester.cfg.log_dir, "checkpoint", "ckpt_best.dcp")
+    os.makedirs(os.path.dirname(best))
+    load_npz(tester.model.net, NPZ)
+    ckpt_io.save_ckpt(best, 0, tester.model.net, backend="dcp")
+    if tester.load_ckpt()[1] != best:
+        raise AssertionError("orbax run_testing did not take "
+                             "ckpt_best.dcp")
+    protocol = tester.run_testing()
+    prf = [protocol[k] for k in ("4_precision", "5_recall", "6_f1")]
+    if repr(prf) != repr(prf_pth):
+        raise AssertionError(f"run_testing from ckpt_best.dcp: {prf}, "
+                             f"from ckpt_best.pth {prf_pth}")
+    print(f"pipeline under ckpt_backend: orbax: run_training {train_s:.2f} "
+          f"s wrote {written}; resumed at epoch {first}, record epochs "
+          f"{[r['epoch'] for r in record]}, Adam steps {steps} "
+          f"({resume_s:.2f} s); run_testing from ckpt_best.dcp P/R/F1 "
+          f"{prf} == the .pth run's", flush=True)
+    del tester
+    torch.cuda.empty_cache()
 
 
 def pipeline_phase(counted):
@@ -1601,6 +1702,9 @@ def pipeline_phase(counted):
         print(f"pipeline show_inference: {show_s:.2f} s wall; "
               f"{len(pred['bbox'])} detections; PNG "
               f"{pngs if drawn else 'not drawn'}", flush=True)
+        del tester
+        torch.cuda.empty_cache()
+        dcp_checkpoints(root, prf)
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2573,6 +2677,28 @@ def _rank_cases():
     return rank_cases
 
 
+def leaf_grad_share(ranks, want):
+    """The largest |gradient difference| of any rank and leaf, as a share
+    of 1e-4 of that leaf's largest one-device gradient element."""
+    share = 0.0
+    for got in ranks:
+        for k, g in want["grads"].items():
+            tol = 1e-4 * float(g.abs().max())
+            d = float((got["grads"][k] - g).abs().max())
+            share = max(share, d / tol if tol > 0 else (d > 0) * np.inf)
+    return share
+
+
+def dense_backbone_cfg(cfg):
+    """``cfg`` with the dense backbone and neck: config.yaml's backbone
+    (the flagship's) and neck widths."""
+    cfg = dict(cfg, use_dense_backbone=True)
+    cfg["neck"] = dict(in_channels=[512, 256, 128],
+                       out_channels=[256, 256, 256],
+                       upsample_strides=[1, 2, 4])
+    return cfg
+
+
 def parallel_phase(prepared):
     """Phase 19: the native host passes (a); the sharded paths at world 1
     over nccl in this process (b) and at world 2 on this card over gloo
@@ -2584,6 +2710,7 @@ def parallel_phase(prepared):
 
     from objectdetection_3d_tpu_torch import configs
     from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.network import init_parameters
     from objectdetection_3d_tpu_torch.models.weights import load_npz
     from objectdetection_3d_tpu_torch.parallel import make_mesh, spawn
     rr = _rank_cases()
@@ -2677,6 +2804,48 @@ def parallel_phase(prepared):
     torch.backends.cudnn.allow_tf32 = False
     want_sp_step = rr.train(sp_step)
     want_sp_pred = rr.predict(sp_pred)
+    # the gather encoder (sparse_budget 131,072, as phase 20b; the npz)
+    # and the dense backbone (config.yaml's neck; the npz's PFN and
+    # encoder, the backbone, neck and head seeded as in phase 20c): the
+    # spatial 1 x 2 predict and step, float32, TF32 off
+    net_cases, want_nets = {}, {}
+    for name, cfg in (("sparse_middle", configs.flagship_cfg({
+            "compute_dtype": "float32", "sparse_middle": True,
+            "sparse_budget": 131_072})),
+            ("dense_backbone", dense_backbone_cfg(fp32))):
+        if name == "dense_backbone":
+            model = PointPillars(cfg, device="cuda")
+            init_parameters(model.net, torch.Generator().manual_seed(0))
+            encoder = exact["state"]["net"]
+            with torch.no_grad():
+                for k, v in model.net.state_dict().items():
+                    if k.startswith(("voxel_encoder.",
+                                     "pseudoimage_generator.")):
+                        v.copy_(encoder[k])
+            state = rr.model_state(model)
+            del model
+        else:
+            state = state_of(cfg)
+        ex = dict(base, cfg=cfg, state=state, batch=items[0],
+                  exact_fp32=True)
+        net_cases[name] = [
+            dict(ex, kind="predict", fn="spatial_predict", mesh=(1, 2)),
+            dict(ex, kind="train", spatial=True, mesh=(1, 2))]
+        want_nets[name] = [rr.predict(net_cases[name][0]),
+                           rr.train(net_cases[name][1])]
+        torch.cuda.empty_cache()
+    # the conditioning of the dense backbone's float32 gradients: the
+    # one-device step again with every parameter moved by one ulp
+    gen = torch.Generator().manual_seed(1)
+    case = net_cases["dense_backbone"][1]
+    wiggled = {k: v * (1 + 2.0 ** -23 * torch.sign(
+                   torch.rand(v.shape, generator=gen) - 0.5))
+               if v.is_floating_point() else v
+               for k, v in case["state"]["net"].items()}
+    ulp_share = 1e-4 * leaf_grad_share(
+        [rr.train(dict(case, state=dict(case["state"], net=wiggled)))],
+        want_nets["dense_backbone"][1])
+    torch.cuda.empty_cache()
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = old_tf32
     dp_steps = [dict(step2, mesh=(2, 1))]
@@ -2689,6 +2858,9 @@ def parallel_phase(prepared):
     cases = [dict(kind="gloo_probe", device="cuda"),
              dict(pred2, fn="spatial_predict", mesh=(1, 2)),
              sp_pred, sp_step, *dp_steps]
+    n_net = len(cases)
+    for pair in net_cases.values():
+        cases += pair
     t = time.perf_counter()
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(
@@ -2710,10 +2882,51 @@ def parallel_phase(prepared):
           for i, want in enumerate(want_dp)]
     k12 = [[r[i]["launches"]["postsort_scan"],
             r[i]["launches"]["scatter_to_grid"]] for r in ranks
-           for i in range(1, len(cases))]
+           for i in range(1, n_net)]
     if not all(a and b for a, b in k12):
         raise AssertionError(f"gloo world 2: K1/K2 did not launch on a "
                              f"rank: {k12}")
+    nets = {}
+    for j, (name, (want_p, want_s)) in enumerate(want_nets.items()):
+        i = n_net + 2 * j
+        got_p, got_s = [r[i] for r in ranks], [r[i + 1] for r in ranks]
+        k1k2 = [[g["launches"]["postsort_scan"],
+                 g["launches"]["scatter_to_grid"]] for g in got_p + got_s]
+        # the gather encoder builds no dense grid: no K2
+        if not all(a and (b > 0) == (name == "dense_backbone")
+                   for a, b in k1k2):
+            raise AssertionError(f"gloo world 2, spatial {name}: K1/K2 "
+                                 f"launches {k1k2}")
+        # the dense backbone's float32 gradients are ill-conditioned at
+        # this size: its batch norms' bias gradients are sums over every
+        # site that nearly cancel, and one float32 ulp of every parameter
+        # moves them by about 1e-4 of a leaf's largest element (printed),
+        # so they are held to 1e-4 of the step's largest gradient; their
+        # share of the per-leaf tolerance is printed
+        scale = "step" if name == "dense_backbone" else "leaf"
+        nets[name] = {
+            "predict": [rr.check_preds(g["preds"], want_p["preds"])
+                        for g in got_p],
+            "step": rr.check_step(got_s, want_s, OPT["lr"],
+                                  grad_scale=scale),
+            "grad_tolerance": scale,
+            "per_leaf_grad_share": leaf_grad_share(got_s, want_s),
+            "one_ulp_grad_move": (ulp_share if name == "dense_backbone"
+                                  else None),
+            "step_ms": [g["ms"] for g in got_s],
+            "one_device_step_ms": want_s["ms"], "k1_k2": k1k2}
+        print(f"phase 19c spatial 1 x 2 {name} (float32, TF32 off, cloud "
+              f"1) against one device: predict {nets[name]['predict']}; "
+              f"step loss {nets[name]['step']['loss']:.3g}, gradient "
+              f"{nets[name]['step']['grad']:.3g} (held to 1e-4 of the "
+              f"{scale}'s largest; the largest share of 1e-4 of a leaf's "
+              f"own largest {nets[name]['per_leaf_grad_share']:.3g}; one "
+              f"ulp of every parameter moves the one-device gradients by "
+              f"{nets[name]['one_ulp_grad_move']} of a leaf's largest), "
+              f"parameter {nets[name]['step']['param']:.3g}; step ms per "
+              f"rank {[round(m, 1) for m in nets[name]['step_ms']]} (one "
+              f"device {want_s['ms']:.1f}); K1 / K2 per rank and run "
+              f"{k1k2}", flush=True)
     print(f"phase 19c gloo collectives on CUDA tensors: {probe}",
           flush=True)
     dp_text = "; ".join(
@@ -2744,7 +2957,8 @@ def parallel_phase(prepared):
         "spatial_step": sp_worst, "k1_k2": k12, "spawn_s": spawn_s,
         "dp_step_ms": [r[4]["ms"] for r in ranks],
         "spatial_step_ms": [r[3]["ms"] for r in ranks],
-        "one_device_spatial_ref_ms": want_sp_step["ms"]}
+        "one_device_spatial_ref_ms": want_sp_step["ms"],
+        "spatial_networks": nets}
     return launches, report
 
 
@@ -2825,7 +3039,9 @@ def parked_phase(batches, counted, layout_step_ms, predict_ms):
     from objectdetection_3d_tpu_torch.models.detector import PointPillars
     from objectdetection_3d_tpu_torch.models.network import init_parameters
     from objectdetection_3d_tpu_torch.models.weights import load_npz
-    from objectdetection_3d_tpu_torch.ops import voxelize as voxelize_mod
+    # the module (the package's ``voxelize`` is the function)
+    voxelize_mod = importlib.import_module(
+        "objectdetection_3d_tpu_torch.ops.voxelize")
     from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
         iou_gathered,
         iou_gathered_plain,
@@ -3042,12 +3258,7 @@ def parked_phase(batches, counted, layout_step_ms, predict_ms):
     torch.cuda.empty_cache()
 
     # ---- (c) the dense backbone and neck --------------------------------
-    cfg = configs.flagship_cfg()
-    cfg["use_dense_backbone"] = True
-    # config.yaml's backbone (the flagship's) and neck
-    cfg["neck"] = dict(in_channels=[512, 256, 128],
-                       out_channels=[256, 256, 256],
-                       upsample_strides=[1, 2, 4])
+    cfg = dense_backbone_cfg(configs.flagship_cfg())
     model = PointPillars(cfg, device="cuda")
     init_parameters(model.net, torch.Generator().manual_seed(0))
     if model.featmap != (200, 200) or \
@@ -3103,6 +3314,141 @@ def parked_phase(batches, counted, layout_step_ms, predict_ms):
     del model, outs
     torch.cuda.empty_cache()
     return launches, report
+
+
+def remat_phase(batches, scenes):
+    """Phase 21: ``tpu.remat`` at the flagship width (bf16, the npz,
+    phase 9's AdamW).  Returns (K9's launches in one ``zfold_pallas``
+    step under ``"middle"``, the ``remat`` report)."""
+    import gc
+
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
+    from objectdetection_3d_tpu_torch.scene import make_batch
+
+    def model_of(tpu):
+        model = PointPillars(configs.flagship_cfg(tpu), device="cuda")
+        load_npz(model.net, NPZ)
+        return model
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    report = {"b1": {}, "b8": {}}
+    # B = 1: the first step from the npz under each value, its gradients
+    # and running statistics against remat: false's; then two timed steps
+    base = start = None
+    for value in (False, "rpn", "middle", True):
+        model = model_of({"remat": value})
+        if start is None:
+            start = {k: v.detach().clone()
+                     for k, v in model.net.state_dict().items()}
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        losses, grads, state = _step_run(model, start, batches[1], None)
+        step = model.make_train_step(
+            model.get_optimizer(OPT, grad_clip_value=CLIP))
+        times = []
+        for i in (2, 3):
+            t = time.perf_counter()
+            out = step(batches[i])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if not all(np.isfinite(float(v)) for v in out.values()):
+                raise AssertionError(f"remat {value!r} step on cloud {i}: "
+                                     f"non-finite {out}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        row = {"regions": list(model.net.remat_regions),
+               "ms": [t * 1e3 for t in times], "peak_gib": peak}
+        if base is None:
+            base = (losses, grads, state)
+        else:
+            stats = [k for k in state
+                     if k.endswith(("running_mean", "running_var"))]
+            row["losses_equal"] = losses == base[0]
+            row["grads_bitwise"] = all(torch.equal(v, base[1][k])
+                                       for k, v in grads.items())
+            row["stats_bitwise"] = all(torch.equal(state[k], base[2][k])
+                                       for k in stats)
+            row["params_bitwise"] = all(torch.equal(v, base[2][k])
+                                        for k, v in state.items())
+            if not (row["grads_bitwise"] and row["stats_bitwise"]):
+                raise AssertionError(f"remat {value!r}: the first step's "
+                                     f"gradients or running statistics "
+                                     f"differ from remat: false's: {row}")
+        report["b1"][str(value)] = row
+        print(f"phase 21 remat {value!r} (recomputes {row['regions']}), "
+              f"B = 1: steps {[round(t, 1) for t in row['ms']]} ms, peak "
+              f"{peak:.2f} GiB; against remat: false "
+              f"{ {k: v for k, v in row.items() if k.endswith(('_equal', '_bitwise'))} }",
+              flush=True)
+        del model, step, losses, grads, state
+    del base, start
+    free()
+
+    # B = 8 under remat: true (the flagship's) in chunks of 1, 2, 4, 8
+    p_max = configs.flagship_cfg()["tpu"]["max_points_static"]
+    items = [make_batch(sc, p_max) for sc in scenes[:8]]
+    batch8 = {k: np.concatenate([it[k] for it in items]) for k in items[0]}
+    model = model_of({"remat": True})
+    start = {k: v.detach().clone() for k, v in model.net.state_dict().items()}
+    for mb in (1, 2, 4, 8):
+        model.net.load_state_dict(start)
+        tx = model.get_optimizer(OPT, grad_clip_value=CLIP)
+        step = model.make_train_step(tx, microbatch=mb)
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step(batch8)                    # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(batch8)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        except torch.cuda.OutOfMemoryError:
+            # data, not a failure: this chunk size does not fit the card
+            report["b8"][str(mb)] = "does not fit"
+            print(f"phase 21 B = 8 in chunks of {mb} (remat: true): does "
+                  f"not fit", flush=True)
+            tx.zero_grad(set_to_none=True)
+            del step, tx
+            free()
+            continue
+        if not all(np.isfinite(float(v)) for v in out.values()):
+            raise AssertionError(f"B = 8 in chunks of {mb}: non-finite "
+                                 f"{out}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        report["b8"][str(mb)] = {"ms": ms, "peak_gib": peak}
+        print(f"phase 21 B = 8 in chunks of {mb} (remat: true): {ms:.1f} ms "
+              f"a step, peak {peak:.2f} GiB", flush=True)
+        del step, tx, out
+    del model, start, batch8
+    free()
+
+    # K9 under zfold_pallas with remat: "middle": the encoder's forward
+    # runs again in the backward, so 3 + 3 forward and 3 dx a step
+    model = model_of({"zfold_pallas": True, "remat": "middle"})
+    step = model.make_train_step(model.get_optimizer(OPT,
+                                                     grad_clip_value=CLIP))
+    step(batches[0])                        # warm-up
+    torch.cuda.synchronize()
+    conv2d_3x3.launches = conv2d_3x3.dx_launches = 0
+    step(batches[1])
+    torch.cuda.synchronize()
+    k9 = {"forward": conv2d_3x3.launches, "dx": conv2d_3x3.dx_launches}
+    if k9 != {"forward": 6, "dx": 3}:
+        raise AssertionError(f"K9 launches in one zfold_pallas step under "
+                             f"remat 'middle': {k9}, expected 6 forward (3 "
+                             f"and their recompute) and 3 dx")
+    report["k9_zfold_middle"] = k9
+    print(f"phase 21 K9 in one zfold_pallas step under remat 'middle': "
+          f"{k9}", flush=True)
+    del model, step
+    free()
+    return k9, report
 
 
 def main():
@@ -3648,6 +3994,13 @@ def main():
             kernels[name][f"launches_{path}"] = count
     print("parked: " + json.dumps(parked_report), flush=True)
     clock.mark("the paths the flagship does not take (phase 20)")
+    # ---- tpu.remat: its values at B = 1, B = 8's chunk sizes ------------
+    k9, remat_report = remat_phase(
+        batches, scenes + [tree_scene(s) for s in range(4, 8)])
+    kernels["conv2d_3x3"]["launches_remat_middle"] = (k9["forward"]
+                                                      + k9["dx"])
+    print("remat: " + json.dumps(remat_report), flush=True)
+    clock.mark("tpu.remat (phase 21)")
     if len(kernels) != 10:
         raise AssertionError(f"{len(kernels)} kernels in the line, not 10")
 

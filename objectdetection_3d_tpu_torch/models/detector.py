@@ -23,6 +23,7 @@ then pick different below-threshold candidates, which NMS never keeps.
 """
 
 import contextlib
+import logging
 import math
 
 import numpy as np
@@ -56,11 +57,44 @@ from objectdetection_3d_tpu_torch.models.assign import (
     packed_order_key,
 )
 from objectdetection_3d_tpu_torch.models.base import BaseModel
-from objectdetection_3d_tpu_torch.models.network import PointPillarsNet
+from objectdetection_3d_tpu_torch.models.network import (
+    PointPillarsNet,
+    parse_remat,
+)
 from objectdetection_3d_tpu_torch.ops.assign_geometry import combo_table
 from objectdetection_3d_tpu_torch.ops.boxes import limit_period
 from objectdetection_3d_tpu_torch.ops.nms import multiclass_nms
 from objectdetection_3d_tpu_torch.ops.voxelize import Voxelizer
+
+
+log = logging.getLogger(__name__)
+
+# the switches from the JAX package's kernels to its XLA forms (K1, K2,
+# K3/K4) and its block prefilter's block (C3): the port always runs its
+# kernels, which are bit-exact with those forms, and its one exact top-K;
+# the switches warned about so far
+_switches_warned = set()
+
+
+def warn_kernel_switches(tpu_cfg):
+    """Warn once for each of the JAX package's kernel switches that
+    ``tpu_cfg`` turns off (or sets, for ``assign_prefilter_block``):
+    they change nothing in the port (ROADMAP C15)."""
+    used = [k for k in ("pallas_voxel_scan", "pallas_grid_scatter")
+            if k in tpu_cfg and not bool(tpu_cfg[k])]
+    if str(tpu_cfg.get("assign_geometry", "auto")) not in (
+            "auto", "pallas", "pallas_interpret"):
+        used.append("assign_geometry")
+    if "assign_prefilter_block" in tpu_cfg:
+        used.append("assign_prefilter_block")
+    new = [k for k in used if k not in _switches_warned]
+    if new:
+        _switches_warned.update(new)
+        log.warning("tpu: %s select the JAX package's XLA forms of its "
+                    "kernels (or its block prefilter); the port always "
+                    "runs its CUDA kernels, bit-exact with those forms, "
+                    "and its exact top-K, so they change nothing here "
+                    "(ROADMAP C15)", ", ".join(new))
 
 
 def resolve_device(device="cuda"):
@@ -143,6 +177,7 @@ class PointPillars(BaseModel):
 
         self.tpu_cfg = dict(DEFAULT_TPU_CFG)
         self.tpu_cfg.update(dict(cfg.get("tpu") or {}))
+        warn_kernel_switches(self.tpu_cfg)
         self.compute_dtype = (
             torch.bfloat16
             if str(self.tpu_cfg["compute_dtype"]) in ("bfloat16", "bf16")
@@ -269,6 +304,9 @@ class PointPillars(BaseModel):
                 zfold_convs=bool(self.tpu_cfg.get("zfold_convs", False)),
                 zfold_pallas=bool(self.tpu_cfg.get("zfold_pallas", False)),
                 fused_stages=bool(self.tpu_cfg.get("fused_stages", False)),
+                # False | True/"all" | "middle" | "rpn": the regions
+                # recomputed in the backward
+                remat=parse_remat(self.tpu_cfg.get("remat", False)),
             )
         self.net = net.to(self.device).eval()
 

@@ -31,8 +31,10 @@ here: ``decompose_convs`` (z-shifted 2D convs), the z-fold without
 lowerings share one parameter tree.
 """
 
+import contextlib
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,6 +42,41 @@ from torch import nn
 from objectdetection_3d_tpu_torch.ops.fused_stage import fused_stage
 from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
 from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
+
+
+# > 0 while a checkpointed region of the network (``tpu.remat``) runs its
+# forward again for the backward; see :func:`recomputing`
+_recompute_depth = 0
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Inside: the forward runs again to rebuild a checkpointed region's
+    activations for its backward.  The batch norms compute the same batch
+    statistics and do not move their running statistics a second time,
+    as flax's ``nn.remat`` drops the recompute's ``batch_stats``."""
+    global _recompute_depth
+    _recompute_depth += 1
+    try:
+        yield
+    finally:
+        _recompute_depth -= 1
+
+
+def get_paddings_indicator(actual_num, max_num, axis=0):
+    """Mask of the valid slots of a padded dimension: entry (i, j) is
+    ``j < actual_num[i]`` (for ``axis=0``); (N, max_num) bool."""
+    actual = actual_num.unsqueeze(axis + 1)
+    shape = [1] * actual.dim()
+    shape[axis + 1] = -1
+    rng = torch.arange(max_num, dtype=torch.int32,
+                       device=actual.device).reshape(shape)
+    return actual.to(torch.int32) > rng
+
+
+def get_paddings_indicator_np(actual_num, max_num):
+    """:func:`get_paddings_indicator` in numpy, over a flat count."""
+    return np.reshape(actual_num, (-1, 1)) > np.arange(max_num)[None]
 
 
 def _bcast(vec, ndim, dtype):
@@ -72,6 +109,11 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    def _moves_running(self):
+        """Whether a training-mode forward moves the running statistics:
+        not while a checkpointed region is recomputed."""
+        return self.training and not _recompute_depth
+
     @torch.no_grad()
     def _update_running(self, mean, var, count):
         unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
@@ -101,7 +143,8 @@ class MaskedBatchNorm(nn.Module):
             var = self.stats_sum(
                 (((xf - _bcast(mean, x.dim(), torch.float32)) ** 2)
                  * m).sum(dim=dims)) / count
-        self._update_running(mean.detach(), var.detach(), count)
+        if self._moves_running():
+            self._update_running(mean.detach(), var.detach(), count)
         return mean, var
 
     def eval_affine(self):
@@ -171,7 +214,8 @@ class PointMaskedBN(MaskedBatchNorm):
                 centred = self.stats_sum((((xf - mean) ** 2) * m).sum(dim=0))
             # the (count - n_real) padding slots are exact zeros
             var = (centred + (count - n_real) * mean ** 2) / count
-            self._update_running(mean.detach(), var.detach(), count)
+            if self._moves_running():
+                self._update_running(mean.detach(), var.detach(), count)
         else:
             mean, var = self.running_mean, self.running_var
         dt = x.dtype
@@ -654,10 +698,17 @@ class BackboneDWS(nn.Module):
     input width from the layer before it.  Returns every stage's
     output."""
 
+    # as ``SubmanifoldSparseRPN.halo``: with H split over ranks, each 3x3
+    # conv, strided ones included, convolves this rank's rows and one halo
+    # row on each side with no padding in H.  A slab that starts on a row
+    # the stride keeps gets the same rows as the unsplit conv
+    halo = None
+
     def __init__(self, in_channels, out_channels, layer_nums, layer_strides,
                  dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.total_stride = math.prod(int(s) for s in layer_strides)
         self.stage_sizes = []
         c = int(in_channels)
         li = 0
@@ -680,8 +731,12 @@ class BackboneDWS(nn.Module):
         for size in self.stage_sizes:
             for _ in range(size):
                 conv = getattr(self, f"conv_{li}")
-                x = F.conv2d(x, conv.weight.to(self.dtype),
-                             stride=conv.stride, padding=1)
+                w = conv.weight.to(self.dtype)
+                if self.halo is None:
+                    x = F.conv2d(x, w, stride=conv.stride, padding=1)
+                else:
+                    x = F.conv2d(self.halo(x, 2), w, stride=conv.stride,
+                                 padding=(0, 1))
                 x = F.relu(getattr(self, f"bn_{li}")(x))
                 li += 1
             outs.append(x)

@@ -10,12 +10,22 @@ the (V, M, C) buffers) -> the vertical encoder (the dense grid build and
 (``voxel_encoder``, ``pseudoimage_generator``, ``sparse_rpn``,
 ``backbone``, ``neck``, ``bbox_head``), so weights map leaf to leaf
 (``models/weights.py``).
+
+``remat`` (the config's ``tpu.remat``) recomputes the JAX package's
+``nn.remat`` regions in the backward: the dense vertical encoder
+(``True``, ``"all"``, ``"middle"``) and the RPN (``True``, ``"all"``,
+``"rpn"``), through ``torch.utils.checkpoint`` called inside
+:meth:`PointPillarsNet.forward`, so no parameter or buffer name changes.
+The grid build, the gather encoder, the dense backbone and neck and the
+head are never recomputed.
 """
 
+import contextlib
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from objectdetection_3d_tpu_torch.models.layers import (
     Anchor3DHead,
@@ -26,12 +36,51 @@ from objectdetection_3d_tpu_torch.models.layers import (
     PillarFeatureNetBuffers,
     SparseMiddleExtractor,
     SubmanifoldSparseRPN,
+    recomputing,
 )
 from objectdetection_3d_tpu_torch.models.sparse_middle import (
     SparseMiddleExtractorGather,
 )
 from objectdetection_3d_tpu_torch.ops.grid_scatter import scatter_to_grid
 from objectdetection_3d_tpu_torch.ops.sparse_conv import flatten_cells
+
+# the values of ``tpu.remat`` and the regions each recomputes
+REMAT_REGIONS = {False: (), True: ("middle", "rpn"), "all": ("middle", "rpn"),
+                 "middle": ("middle",), "rpn": ("rpn",)}
+# what a sharded step sets on a region's modules
+# (``parallel/data_parallel.py``, ``Shard.context``)
+_SHARD_HOOKS = ("stats_sum", "halo")
+
+
+def parse_remat(value):
+    """The ``tpu.remat`` value, or ``ValueError`` (the JAX package's
+    ``_parse_remat``)."""
+    if value in (False, True, "all", "middle", "rpn"):
+        return value
+    raise ValueError(
+        f"tpu.remat must be true/false/'all'/'middle'/'rpn', got {value!r}")
+
+
+@contextlib.contextmanager
+def _replaying(hooks):
+    """A checkpointed region's recompute: the sharded step's ``hooks``
+    (module, name, value), as the forward saw them, set again (the
+    backward runs after the step's context has closed, and the recompute
+    must repeat the forward's collectives in the same groups), and the
+    batch norms' running statistics held (``layers.recomputing``)."""
+    unset = object()
+    before = [(m, k, m.__dict__.get(k, unset)) for m, k, _ in hooks]
+    for m, k, v in hooks:
+        setattr(m, k, v)
+    try:
+        with recomputing():
+            yield
+    finally:
+        for m, k, v in before:
+            if v is unset:
+                del m.__dict__[k]
+            else:
+                setattr(m, k, v)
 
 
 class PointPillarsNet(nn.Module):
@@ -46,11 +95,14 @@ class PointPillarsNet(nn.Module):
     ``use_dense_backbone`` replaces the RPN by the strided backbone
     (``rpn_channels``, ``rpn_layer_nums``, ``backbone_strides``) and the
     neck (``neck_channels``, ``neck_upsample_strides``); each layer takes
-    its input width from the layer before it.
+    its input width from the layer before it.  ``remat``: the
+    ``tpu.remat`` value (:func:`parse_remat`), the regions recomputed in
+    the backward (:data:`REMAT_REGIONS`).
     """
 
     # (h0, h1): build only the grid rows h0 <= y < h1 (a slab of H, when H
-    # is split over ranks by ``parallel/data_parallel.py``); None: all
+    # is split over ranks by ``parallel/data_parallel.py``), or, after the
+    # gather encoder, keep only those rows of the pseudo-image; None: all
     rows = None
 
     def __init__(self, grid, in_channels, pfn_channels, voxel_size,
@@ -62,9 +114,10 @@ class PointPillarsNet(nn.Module):
                  neck_channels=(), neck_upsample_strides=(),
                  sparse_middle=False, sparse_budget=0, decompose_convs=False,
                  pallas_subm=False, zfold_convs=False, zfold_pallas=False,
-                 fused_stages=False):
+                 fused_stages=False, remat=False):
         super().__init__()
         self.grid = tuple(int(g) for g in grid)  # (D, H, W)
+        self.remat_regions = REMAT_REGIONS[parse_remat(remat)]
         self.dtype = dtype
         self.point_pfn = bool(point_pfn)
         self.sparse_middle = bool(sparse_middle)
@@ -145,19 +198,38 @@ class PointPillarsNet(nn.Module):
                                      for i in range(b)])
             pseudo = self.pseudoimage_generator(feats, coords, cell_flat,
                                                 voxel_mask)
+            if self.rows is not None:
+                # the encoder ran whole; this rank keeps its slab of H
+                pseudo = pseudo[:, :, self.rows[0]:self.rows[1]]
         else:
             grid, mask = self._dense_grid(feats, coords, voxel_mask)
             # NDHWC memory seen as NCDHW (channels_last_3d): no copy
-            pseudo = self.pseudoimage_generator(grid.permute(0, 4, 1, 2, 3),
-                                                mask)
+            pseudo = self._region("middle", self.pseudoimage_generator,
+                                  grid.permute(0, 4, 1, 2, 3), mask)
         if self.use_dense_backbone:
             x = self.neck(self.backbone(pseudo))
         else:
             # the reference re-derives the 2D active set from nonzero
             # pixels
             rpn_mask = (pseudo != 0).any(dim=1, keepdim=True)
-            x = self.sparse_rpn(pseudo, rpn_mask)
+            x = self._region("rpn", self.sparse_rpn, pseudo, rpn_mask)
         return self.bbox_head(x)
+
+    def _region(self, name, module, *args):
+        """``module(*args)``; checkpointed (its activations recomputed in
+        the backward) where ``remat`` names the region ``name`` and the
+        forward trains with autograd on.  Eval, predict and export never
+        checkpoint."""
+        if not (name in self.remat_regions and self.training
+                and torch.is_grad_enabled()):
+            return module(*args)
+        hooks = [(m, k, m.__dict__[k]) for m in module.modules()
+                 for k in _SHARD_HOOKS if k in m.__dict__]
+        # the regions draw no random numbers: no RNG state to keep
+        return checkpoint(
+            module, *args, use_reentrant=False, preserve_rng_state=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                _replaying(hooks)))
 
     def _point_feats(self, num_points, coords, voxel_mask, points, pt_voxel,
                      pt_valid):

@@ -118,6 +118,43 @@ def box_axes(boxes):
     return rot, mid
 
 
+def box_planes(boxes):
+    """Half-space form of (..., 9) boxes: a point x is inside iff
+    ``n_i . x <= d_i`` for the six outward planes.
+
+    Returns:
+        normals (..., 6, 3) (the three axes, then their negatives) and
+        offsets (..., 6).
+    """
+    rot, mid = box_axes(boxes)
+    axes = rot.transpose(-1, -2)
+    half = boxes[..., 3:6] * 0.5
+    normals = torch.cat([axes, -axes], dim=-2)
+    offsets = (torch.einsum("...ik,...k->...i", normals, mid)
+               + torch.cat([half, half], dim=-1))
+    return normals, offsets
+
+
+def get_min_bbox(points):
+    """PCA minimum vertical bounding box of a (P, >= 3) point set:
+    ``(x, y, z_mid, w, l, h, yaw)`` from ``eigh`` of the 2x2 xy
+    covariance (the JAX package's; the reference's ``torch.eig`` is
+    gone)."""
+    z = points[:, 2]
+    h_min, h_max = z.min(), z.max()
+    xy = points[:, :2]
+    centered = xy - xy.mean(dim=0)
+    cov = centered.T @ centered / (xy.shape[0] - 1)
+    tvect = torch.linalg.eigh(cov)[1].T
+    pts_rot = xy @ torch.linalg.inv(tvect)
+    mn, mx = pts_rot.min(dim=0).values, pts_rot.max(dim=0).values
+    diff = mx - mn
+    center = (mn + diff * 0.5) @ tvect
+    yaw = torch.atan2(tvect[0, 1], tvect[0, 0])
+    return torch.stack([center[0], center[1], (h_min + h_max) * 0.5,
+                        diff[0], diff[1], h_max - h_min, yaw])
+
+
 # point-box pairs per chunk of points_in_boxes: its (chunk, N, 3)
 # temporaries stay near 200 MB in float32 (1.95 M points x 100 boxes in one
 # piece would take 2.3 GB each)

@@ -26,7 +26,11 @@ face per thread.
 
 import torch
 
-from objectdetection_3d_tpu_torch.ops.boxes import _CORNER_SIGNS, box_axes
+from objectdetection_3d_tpu_torch.ops.boxes import (
+    _CORNER_SIGNS,
+    box_axes,
+    box_corners_3d,
+)
 
 _EPS = 1e-6
 _SHRINK = 1e-5
@@ -257,6 +261,34 @@ def intersection_volume_aligned(boxes1, boxes2):
         return b1.new_zeros((0,))
     return torch.cat([_clip_chunk(b1[i:i + PAIR_CHUNK], b2[i:i + PAIR_CHUNK])
                       for i in range(0, b1.shape[0], PAIR_CHUNK)])
+
+
+def intersection_volume_3d_aligned(boxes1, boxes2):
+    """Elementwise intersection volumes of aligned (N, 9) x (N, 9) boxes
+    (the JAX package's name for :func:`intersection_volume_aligned`)."""
+    return intersection_volume_aligned(boxes1, boxes2)
+
+
+def intersection_volume_3d(boxes1, boxes2):
+    """Pairwise intersection volumes, (N, 9) x (K, 9) -> (N, K)."""
+    n, k = boxes1.shape[0], boxes2.shape[0]
+    b1 = boxes1.float()[:, None, :].expand(n, k, 9)
+    b2 = boxes2.float()[None, :, :].expand(n, k, 9)
+    return intersection_volume_aligned(b1.reshape(-1, 9),
+                                       b2.reshape(-1, 9)).reshape(n, k)
+
+
+def iou3d_upper_bound(boxes1, boxes2):
+    """A provable upper bound on the exact pairwise IoU, (N, 9) x (K, 9)
+    -> (N, K): the intersection of the corners' axis-aligned envelopes
+    bounds the true one, and ``I / (v1 + v2 - I)`` grows with I."""
+    c1, c2 = box_corners_3d(boxes1), box_corners_3d(boxes2)
+    lo = torch.maximum(c1.amin(dim=-2)[:, None], c2.amin(dim=-2)[None])
+    hi = torch.minimum(c1.amax(dim=-2)[:, None], c2.amax(dim=-2)[None])
+    inter = torch.clamp(hi - lo, min=0.0).prod(dim=-1)
+    denom = _volume(boxes1)[:, None] + _volume(boxes2)[None] - inter
+    return torch.where(denom > _EPS, inter / torch.clamp(denom, min=_EPS),
+                       torch.zeros_like(denom))
 
 
 def iou_from_volumes(inter, vol1, vol2, eps=_UNION_EPS):

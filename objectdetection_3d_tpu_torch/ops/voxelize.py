@@ -216,6 +216,21 @@ def voxelize_batch(points, num_points, *, voxel_size, point_cloud_range,
     }
 
 
+def voxelize(points, num_points, *, voxel_size, point_cloud_range,
+             max_points_per_voxel, max_voxels, reflectance_sampling=True,
+             generator=None):
+    """Voxelize one padded cloud, (P, C) points and its count, into
+    per-voxel point buffers: :func:`voxelize_batch` of a batch of one,
+    the JAX package's ``voxelize``."""
+    out = voxelize_batch(
+        points[None], torch.as_tensor(num_points,
+                                      device=points.device).reshape(1),
+        voxel_size=voxel_size, point_cloud_range=point_cloud_range,
+        max_points_per_voxel=max_points_per_voxel, max_voxels=max_voxels,
+        reflectance_sampling=reflectance_sampling, generator=generator)
+    return {k: v[0] for k, v in out.items()}
+
+
 class Voxelizer:
     """Configured voxelization op: point granularity
     (:meth:`points_batch`) or per-voxel buffers (``__call__``)."""

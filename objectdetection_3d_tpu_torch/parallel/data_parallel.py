@@ -19,6 +19,11 @@ has a ``Mesh``, and explicit collectives where GSPMD inserts them.
   eval and predict; every rank returns the global batch's outputs.
 * ``make_spatial_predict_fn``: the batch over ``data`` and H over
   ``space``, with a one-row halo exchange before every 3x3(x3) conv.
+  The gather encoder (``tpu.sparse_middle``) runs whole on every space
+  rank, which keeps its slab of the pseudo-image; the dense backbone
+  (``use_dense_backbone``) takes one halo row before each of its 3x3
+  convs, strided ones included, where ``H / n_space`` is a multiple of
+  the product of its strides (else ``ValueError``; ROADMAP C14).
 
 Every kernel of the one-device path stays live on the data-parallel
 paths.  On the spatial paths the encoder runs its default lowering (K8-K10
@@ -171,16 +176,24 @@ class Shard:
         self.group = mesh.world_group if spatial else mesh.data_group
         self.rows = self.anchor_rows = None
         if spatial:
-            if model.net.sparse_middle or model.net.use_dense_backbone:
-                raise ValueError(
-                    "the spatial path splits the dense grid and the RPN; "
-                    "tpu.sparse_middle and use_dense_backbone run on the "
-                    "data path only")
             _, h, w = model.grid_dhw
+            if model.net.use_dense_backbone:
+                # every stage's slab must start on a row its stride
+                # keeps, so one halo row serves every strided conv
+                stride = model.net.backbone.total_stride
+                if h % (mesh.n_space * stride):
+                    raise ValueError(
+                        f"the spatial path splits H = {h} over "
+                        f"{mesh.n_space} space ranks, and the dense "
+                        f"backbone needs H / n_space to be a multiple of "
+                        f"prod(layer_strides) = {stride} (ROADMAP C14)")
             self.rows = mesh.rows(h, "space")
-            per_row = w * model.num_anchors
-            self.anchor_rows = (self.rows[0] * per_row,
-                                self.rows[1] * per_row)
+            # the featmap's rows (the neck's resolution under the dense
+            # backbone) and its anchors
+            fh, fw = model.featmap
+            lo, hi = (r * fh // h for r in self.rows)
+            per_row = fw * model.num_anchors
+            self.anchor_rows = (lo * per_row, hi * per_row)
             _warn_unused_knobs(model)
 
     def batch_rows(self, n):
@@ -190,31 +203,44 @@ class Shard:
     @contextlib.contextmanager
     def context(self, net):
         """Inside: ``net``'s masked batch norms sum their training
-        statistics over the ranks (the PFN's over the data group: its
-        points are repeated on every space rank), and on the spatial path
-        the grid build keeps this rank's rows and the convs exchange a
-        halo row with the neighbours."""
+        statistics over the ranks (the PFN's, and the gather encoder's,
+        over the data group: they run on the same voxels on every space
+        rank), and on the spatial path the grid build (or, after the
+        gather encoder, the pseudo-image) keeps this rank's rows and the
+        3x3(x3) convs of the dense encoder and of the RPN or the dense
+        backbone exchange a halo row with the neighbours."""
         mesh = self.mesh
         bns = [m for m in net.modules() if isinstance(m, MaskedBatchNorm)]
-        pfn = set(net.voxel_encoder.modules())
+        # what every space rank computes whole: the PFN, and the gather
+        # encoder on the spatial path
+        whole = set(net.voxel_encoder.modules())
+        halos = []
+        if self.spatial:
+            halos.append(net.backbone if net.use_dense_backbone
+                         else net.sparse_rpn)
+            if net.sparse_middle:
+                whole |= set(net.pseudoimage_generator.modules())
+            else:
+                halos.append(net.pseudoimage_generator)
         for m in bns:
-            m.stats_sum = _summer(mesh.data_group if m in pfn
+            m.stats_sum = _summer(mesh.data_group if m in whole
                                   else self.group)
         if self.spatial:
             def halo(x, dim):
                 return collectives.halo_rows(x, dim, mesh.space_group,
                                              mesh.space_index, mesh.n_space)
             net.rows = self.rows
-            net.pseudoimage_generator.halo = halo
-            net.sparse_rpn.halo = halo
+            for m in halos:
+                m.halo = halo
         try:
             yield
         finally:
             for m in bns:
                 del m.stats_sum
             if self.spatial:
-                del net.rows, net.pseudoimage_generator.halo
-                del net.sparse_rpn.halo
+                del net.rows
+                for m in halos:
+                    del m.halo
 
     def num_pos_sum(self, num_pos):
         """The batch's positive count over the data group (each space
@@ -349,7 +375,10 @@ def make_spatial_predict_fn(model, mesh):
     dump cell), and runs the encoder and the RPN on the slab with a
     one-row halo exchange before every 3x3x3 subm conv and 3x3 RPN conv;
     the down convs act on D and the head is 1x1, so they need none.  The
-    head outputs are gathered along H within the space group and each
+    gather encoder runs whole and each rank keeps its rows of the
+    pseudo-image; the dense backbone takes a halo row before each 3x3
+    conv, and its neck's transposed convs (kernel = stride) need none.
+    The head outputs are gathered along H within the space group and each
     item is decoded (``_predict_single``); the detections are gathered
     over the data group.
     """

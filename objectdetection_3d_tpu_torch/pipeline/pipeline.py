@@ -4,7 +4,9 @@ The port of the JAX package's ``pipeline/pipeline.py`` with its artifact
 set: ``process_config.json``, per-run ``log_train_*.txt`` /
 ``log_test_*.txt``, ``training_record.csv``, ``metrics.npy``,
 ``test_protocol.yaml``, periodic ``ckpt_{epoch:05d}.pth`` and the best-F1
-``ckpt_best.pth``.  Batches come from the host data path
+``ckpt_best.pth`` (``.dcp`` directories of ``torch.distributed.checkpoint``
+under ``ckpt_backend: orbax``; resume and testing read either, the
+backend told by the path).  Batches come from the host data path
 (``dataset/loader.py``: static shapes, host-thread prefetch) and go to the
 model's train step (with gradient accumulation under ``tpu.microbatch``),
 eval step and predict on the pipeline's device.
@@ -140,7 +142,8 @@ class ObjectDetection(BasePipeline):
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the "
                              f"pipeline on {self.device}")
-        ckpt_io.check_backend(self.cfg.get("ckpt_backend", None))
+        self.ckpt_backend = ckpt_io.check_backend(
+            self.cfg.get("ckpt_backend", None))
         self.ME = MetricEvaluator(eval_dim=self.cfg.get("eval_dim", 3),
                                   device=self.device)
 
@@ -217,18 +220,21 @@ class ObjectDetection(BasePipeline):
             return
         ckpt_dir = join(self.cfg.log_dir, "checkpoint/")
         make_dir(ckpt_dir)
-        path = join(ckpt_dir, "ckpt_best.pth" if save_best
-                    else f"ckpt_{epoch:05d}.pth")
+        suffix = ckpt_io.SUFFIX[self.ckpt_backend]
+        path = join(ckpt_dir, f"ckpt_best{suffix}" if save_best
+                    else f"ckpt_{epoch:05d}{suffix}")
         if self.cfg.get("async_ckpt", True):
             # the state is copied to the host before save() returns; the
             # write overlaps the next epoch
             if not hasattr(self, "_ckpt_saver"):
                 self._ckpt_saver = ckpt_io.AsyncSaver()
             self._ckpt_saver.save(path, epoch, self.model.net,
-                                  self.optimizer, self._augment_generator())
+                                  self.optimizer, self._augment_generator(),
+                                  backend=self.ckpt_backend)
         else:
             ckpt_io.save_ckpt(path, epoch, self.model.net, self.optimizer,
-                              self._augment_generator())
+                              self._augment_generator(),
+                              backend=self.ckpt_backend)
         log.info(f"Epoch {epoch:3d}: save ckpt to {path:s}")
 
     def wait_for_ckpts(self):
@@ -264,7 +270,8 @@ class ObjectDetection(BasePipeline):
                 log.info("Initializing from scratch.")
                 return epoch, None
         else:
-            ckpt_path = join(ckpt_dir, "ckpt_best.pth")
+            ckpt_path = join(
+                ckpt_dir, f"ckpt_best{ckpt_io.SUFFIX[self.ckpt_backend]}")
             if not os.path.exists(ckpt_path):
                 # ckpt_best exists only once validation F1 has beaten 0;
                 # a short run is still testable from its latest checkpoint
@@ -288,7 +295,8 @@ class ObjectDetection(BasePipeline):
         if opt_state is not None and self.optimizer is not None:
             log.info("Loading checkpoint optimizer state")
             try:
-                self.optimizer.load_state_dict(opt_state)
+                ckpt_io.load_optimizer_state(self.model.net,
+                                             self.optimizer, opt_state)
             except (ValueError, KeyError) as e:  # another optimizer layout
                 log.warning("Could not restore optimizer state: %s", e)
         rng_state = payload.get("augment_rng_state")

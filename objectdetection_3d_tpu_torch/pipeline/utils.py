@@ -7,7 +7,8 @@ from datetime import datetime
 
 
 def latest_ckpt(train_ckpt_dir):
-    """Natural-sorted newest periodic checkpoint, excluding the best one."""
+    """Natural-sorted newest periodic checkpoint (a ``.pth`` file or a
+    ``.dcp`` directory), excluding the best one."""
 
     def atoi(text):
         return int(text) if text.isdigit() else text
@@ -21,7 +22,7 @@ def latest_ckpt(train_ckpt_dir):
     if not files:
         return None
     ckpt_list = [f for f in files
-                 if f.endswith(".pth")
+                 if f.endswith((".pth", ".dcp"))
                  and "ckpt_best" not in f]
     if len(ckpt_list) == 0:
         return None

@@ -33,7 +33,7 @@ from objectdetection_3d_tpu_torch.pipeline import checkpoint as ckpt_io
 
 def export(cfg, out_dir, batch_size=1, device=None, ckpt=None):
     """Export the predict of ``cfg`` (a ``Config``) with the weights of
-    ``ckpt`` (a ``.pth``), or of the run ``entry test`` would load, to
+    ``ckpt`` (a ``.pth`` file or a ``.dcp`` directory), or of the run ``entry test`` would load, to
     ``out_dir``; returns the manifest."""
     if device is not None:
         cfg.global_args.device = device
@@ -63,7 +63,7 @@ def main(argv=None):
                         help="cpu, or an accelerator name for the card "
                              "(default: the config's global_args.device)")
     parser.add_argument("--ckpt", default=None,
-                        help="a .pth checkpoint (default: the run that "
+                        help="a .pth or .dcp checkpoint (default: the run that "
                              "'entry test' would load)")
     args = parser.parse_args(argv)
     manifest = export(Config.load_from_file(args.config), args.out_dir,

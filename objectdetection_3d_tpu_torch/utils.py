@@ -1,4 +1,4 @@
-"""Small host-side helpers: directories and device names."""
+"""Small host-side helpers: directories, device and framework names."""
 
 import os
 
@@ -24,3 +24,14 @@ def convert_device_name(device):
             "the device should be one of {} but got {}".format(
                 cpu_names + accel_names, device))
     return "cpu" if name in cpu_names else "cuda"
+
+
+def convert_framework_name(framework):
+    """Normalize a framework name; the port runs on PyTorch, so every
+    spelling the JAX package accepts names ``"torch"`` here (the JAX
+    package's names ``"jax"``)."""
+    names = ["jax", "JAX", "tpu", "torch", "pytorch", "PyTorch", "tf",
+             "tensorflow", "TF"]
+    if framework not in names:
+        raise KeyError("unknown framework {}".format(framework))
+    return "torch"

@@ -46,6 +46,7 @@ Prints one JSON line of {case: {variant: ms}}.
 
 import argparse
 import ctypes
+import importlib
 import json
 import shutil
 import subprocess
@@ -138,8 +139,9 @@ def aligned_callers(parent_lib):
 
 def voxelize_with(layer, scan, points, num_points):
     """``layer.points_batch`` with ``scan`` as its post-sort scan."""
-    from objectdetection_3d_tpu_torch.ops import voxelize
-
+    # the module (the package's ``voxelize`` is the function)
+    voxelize = importlib.import_module(
+        "objectdetection_3d_tpu_torch.ops.voxelize")
     saved = voxelize.postsort_scan
     voxelize.postsort_scan = scan
     try:

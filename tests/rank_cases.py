@@ -408,10 +408,12 @@ def bf16_ulp(x):
         return np.where(x > 0, 2.0 ** (np.floor(np.log2(x)) - 7), 0.0)
 
 
-def check_step(ranks, want, lr, bf16_start=None):
+def check_step(ranks, want, lr, bf16_start=None, grad_scale="leaf"):
     """Hold every rank's :func:`train` result against the one-device
     ``want``: losses at ``LOSS_TOL``; each gradient the update took
-    within ``GRAD_RTOL`` of its parameter's largest gradient element;
+    within ``GRAD_RTOL`` of its parameter's largest gradient element
+    (``grad_scale="step"``: of the step's largest gradient element, for
+    a float32 step whose small leaves are sums that nearly cancel);
     parameters and running statistics at ``PARAM_TOL``, but within 2 lr
     (and the values' float32 rounding) where the gradient lies within its
     tolerance of 0 (AdamW's first step moves an element by lr * g / (|g|
@@ -452,6 +454,8 @@ def check_step(ranks, want, lr, bf16_start=None):
     def rel(v, tol):
         return tol["atol"] + tol["rtol"] * np.abs(v)
 
+    step_max = max(float(np.abs(g.numpy()).max(initial=0.0))
+                   for g in want["grads"].values())
     for got in ranks:
         assert set(got["losses"]) == set(want["losses"])
         for k, v in want["losses"].items():
@@ -470,7 +474,8 @@ def check_step(ranks, want, lr, bf16_start=None):
                 hold("stat", got_v, v, tol, k)
                 continue
             g, g_want = got["grads"][k].numpy(), want["grads"][k].numpy()
-            g_max = np.abs(g_want).max(initial=0.0)
+            g_max = (step_max if grad_scale == "step"
+                     else np.abs(g_want).max(initial=0.0))
             tol = (BF16_ULPS * bf16_ulp(g_max) if bf16_start is not None
                    else GRAD_RTOL * g_max)
             hold("grad", g, g_want, tol, k)

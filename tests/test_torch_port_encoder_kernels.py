@@ -322,7 +322,9 @@ def test_zfold_pallas_train_step_gradients_match_jax(tiny_variables,
 
     tx.step = step_recording_grads
     got = tm.make_train_step(tx)(batch)
-    assert len(folds) == 1          # the tiny encoder's one stage, folded
+    # the tiny encoder's one stage, folded; under tpu.remat (the
+    # default, True) its forward runs again in the backward
+    assert len(folds) == (2 if "middle" in tm.net.remat_regions else 1)
     assert set(got_g) == set(want_g)
     for path, arr in want_g.items():
         scale = float(np.abs(arr).max())

@@ -10,6 +10,8 @@ IoU (sin/cos and the last sums round differently); the JAX package's XLA
 clipper clips the planes in another order and is held at 2e-5.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +31,9 @@ from objectdetection_3d_tpu.ops.pallas_iou3d import (
 from objectdetection_3d_tpu.ops.pallas_iou3d import (
     iou_gathered as jax_iou_gathered,
 )
-from objectdetection_3d_tpu_torch.ops import iou3d as port_iou3d
+# the module (the package's ``iou3d`` is the function, as in the JAX
+# package)
+port_iou3d = importlib.import_module("objectdetection_3d_tpu_torch.ops.iou3d")
 from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
     iou_gathered,
     iou_gathered_pair,

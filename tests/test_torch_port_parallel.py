@@ -21,9 +21,20 @@ tolerances (``tests/test_parallel.py``, ``test_pipeline_parallel.py``;
   unsplit conv, and the global masked-BN statistics against one
   device's: 1e-5 and 2e-5; bfloat16 and float16 slabs gathered back
   bit for bit;
+* the gather encoder (``tpu.sparse_middle``) and the dense backbone
+  (``use_dense_backbone``) on the spatial path: their predict at 1 x 2
+  and 2 x 2 against one device and the JAX package's spatial predict
+  (boxes 1e-4, scores 1e-5, labels and valid exact), their step at
+  1 x 2 against one device as above, the gather encoder's batch norms
+  summed over the data group, and the ``ValueError`` of a slab that the
+  backbone's strides do not divide (ROADMAP C14);
+* the spatial step under ``tpu.remat`` bitwise the step without (the
+  recompute repeats the batch-norm sums and halo exchanges);
 * a mesh of another size than the world raises ``ValueError``;
 * the pipeline at ``data_parallel: 2`` against one device at batch 2,
-  step by step (rtol 3e-4, atol 1e-5), with only rank 0 writing files;
+  step by step (rtol 3e-4, atol 1e-5), with only rank 0 writing files,
+  and under ``ckpt_backend: orbax`` rank 0 writing DCP directories alone
+  (no hang, within the spawn's time limit);
   ``data_parallel: 2`` x ``spatial_parallel: 2`` trains to finite
   losses;
 * ``TiledInference`` with the sharded predict as its ``predict_fn``
@@ -48,6 +59,11 @@ from objectdetection_3d_tpu_torch.parallel import (
 )
 from objectdetection_3d_tpu_torch.parallel.launch import default_backend
 import rank_cases as rr
+from test_torch_port_parked import (
+    _assert_predict,
+    _dense_backbone_cfg,
+    _sparse_cfg,
+)
 from tiny import tiny_batch
 
 torch.set_num_threads(1)
@@ -78,9 +94,11 @@ def _case(kind, mesh, cfg=None, **kw):
                 opt=OPT, clip=2.0, **kw)
 
 
-def _jax_spatial_case():
+def _jax_spatial_case(cfg=None, mesh_shape=(2, 4)):
     """Weights drawn by the JAX package, the port's state from them, and
-    the JAX package's spatial predict of a batch on its 2 x 4 mesh."""
+    the JAX package's spatial predict of a batch on its ``mesh_shape``
+    mesh (the tiny configuration, or the dict ``cfg`` for both
+    packages)."""
     import jax
     from jax.sharding import Mesh
 
@@ -92,16 +110,17 @@ def _jax_spatial_case():
     from test_torch_port_model import _random_variables
     from tiny import tiny_model_cfg
 
-    jm = JaxPP(**tiny_model_cfg())
+    jm = JaxPP(**(cfg or tiny_model_cfg()))
     variables = _random_variables(jm.init_variables(jax.random.PRNGKey(0)))
     batch = tiny_batch(batch_size=2, seed=9)
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4),
+    n = int(np.prod(mesh_shape))
+    mesh = Mesh(np.array(jax.devices()[:n]).reshape(mesh_shape),
                 ("data", "space"))
     want = make_spatial_predict_fn(jm, mesh)(
         {"params": variables["params"],
          "batch_stats": variables["batch_stats"]},
         {k: jax.numpy.asarray(v) for k, v in batch.items()})
-    model = PointPillars(configs.tiny_model_cfg(), device="cpu")
+    model = PointPillars(cfg or configs.tiny_model_cfg(), device="cpu")
     from_jax_variables(model.net, variables)
     return (rr.model_state(model), batch,
             {k: np.asarray(v) for k, v in want.items()})
@@ -110,6 +129,20 @@ def _jax_spatial_case():
 @pytest.fixture(scope="module")
 def jax_spatial():
     return _jax_spatial_case()
+
+
+# the networks the spatial path runs besides the default one: the gather
+# encoder and the dense backbone and neck (tests/test_torch_port_parked.py)
+NETWORKS = {"sparse_middle": _sparse_cfg,
+            "dense_backbone": _dense_backbone_cfg}
+
+
+@pytest.fixture(scope="module")
+def jax_networks():
+    """Each network's weights, batch and JAX spatial predict on a 1 x 2
+    mesh."""
+    return {name: _jax_spatial_case(cfg(), (1, 2))
+            for name, cfg in NETWORKS.items()}
 
 
 def _pipeline_cfg(root, **pipeline):
@@ -137,10 +170,27 @@ def workspace(tmp_path_factory):
     return root
 
 
+def _network_cases(mesh, jax_networks, train=False):
+    """Each network's spatial predict (and step) on ``mesh``."""
+    cases = {}
+    for name, cfg in NETWORKS.items():
+        state, batch, _ = jax_networks[name]
+        cases[f"spatial_predict_{name}"] = _case(
+            "predict", mesh, cfg=cfg(), state=state, fn="spatial_predict",
+            batch=batch)
+        if train:
+            cases[f"spatial_train_{name}"] = _case(
+                "train", mesh, cfg=cfg(), state=state, spatial=True,
+                batch=tiny_batch(batch_size=2, seed=5))
+    return cases
+
+
 @pytest.fixture(scope="module")
-def world2(tmp_path_factory, workspace, jax_spatial):
+def world2(tmp_path_factory, workspace, jax_spatial, jax_networks):
     cfg = configs.tiny_model_cfg()
     state = _state(cfg)
+    no_remat = configs.tiny_model_cfg()
+    no_remat["tpu"] = dict(no_remat["tpu"], remat=False)
     aug_cfg = dict(configs.tiny_model_cfg(), device_augment=AUGMENT)
     aug_state = _state(aug_cfg)
     j_state, j_batch, _ = jax_spatial
@@ -162,8 +212,15 @@ def world2(tmp_path_factory, workspace, jax_spatial):
                                  fn="spatial_predict", batch=j_batch),
         "spatial_train": _case("train", (1, 2), state=state, spatial=True,
                                batch=tiny_batch(batch_size=2, seed=5)),
+        "spatial_train_no_remat": _case(
+            "train", (1, 2), cfg=no_remat, state=state, spatial=True,
+            batch=tiny_batch(batch_size=2, seed=5)),
+        **_network_cases((1, 2), jax_networks, train=True),
         "stat_groups": dict(kind="stat_groups", mesh=(1, 2),
                             device="cpu", cfg=cfg),
+        "stat_groups_sparse_middle": dict(
+            kind="stat_groups", mesh=(1, 2), device="cpu",
+            cfg=_sparse_cfg()),
         "halo": dict(kind="halo", mesh=(1, 2), device="cpu", h=8),
         "batch_norm": dict(kind="batch_norm", mesh=(2, 1), device="cpu"),
         "mismatch": dict(kind="mesh_mismatch", device="cpu"),
@@ -172,6 +229,12 @@ def world2(tmp_path_factory, workspace, jax_spatial):
         "pipeline": dict(
             kind="pipeline", cfg=_pipeline_cfg(workspace, data_parallel=2),
             outputs=[str(workspace / f"dp2_rank{r}") + "/"
+                     for r in range(2)]),
+        "pipeline_dcp": dict(
+            kind="pipeline",
+            cfg=_pipeline_cfg(workspace, data_parallel=2, max_epoch=1,
+                              ckpt_backend="orbax"),
+            outputs=[str(workspace / f"dp2_dcp_rank{r}") + "/"
                      for r in range(2)]),
         "imported": dict(kind="imported"),
     }
@@ -182,12 +245,13 @@ def world2(tmp_path_factory, workspace, jax_spatial):
 
 
 @pytest.fixture(scope="module")
-def world4(tmp_path_factory, workspace, jax_spatial):
+def world4(tmp_path_factory, workspace, jax_spatial, jax_networks):
     cfg = configs.tiny_model_cfg()
     j_state, j_batch, _ = jax_spatial
     cases = {
         "spatial_predict": _case("predict", (2, 2), state=j_state,
                                  fn="spatial_predict", batch=j_batch),
+        **_network_cases((2, 2), jax_networks),
         "spatial_train": _case("train", (2, 2), state=_state(cfg, seed=1),
                                spatial=True,
                                batch=tiny_batch(batch_size=2, seed=15)),
@@ -251,6 +315,40 @@ def test_spatial_step_matches_one_device(world, request):
     _check_step(ranks, case)
 
 
+def test_spatial_step_with_remat_is_bitwise_the_step_without(world2):
+    """``tpu.remat`` recomputes the encoder and the RPN in the backward,
+    their batch-norm sums and halo exchanges included: every rank's
+    collectives pair up (the spawn's time limit holds a hang), and the
+    step is bitwise the one without."""
+    with_remat, _ = world2["spatial_train"]
+    without, case = world2["spatial_train_no_remat"]
+    assert case["cfg"]["tpu"]["remat"] is False
+    for got, want in zip(with_remat, without):
+        assert got["losses"] == want["losses"]
+        for part in ("grads", "state"):
+            src = want[part]["net"] if part == "state" else want[part]
+            dst = got[part]["net"] if part == "state" else got[part]
+            assert list(dst) == list(src)
+            for k, v in src.items():
+                assert torch.equal(dst[k], v), (part, k)
+
+
+@pytest.mark.parametrize("network", NETWORKS)
+def test_spatial_step_of_other_networks_matches_one_device(world2, network):
+    _check_step(*world2[f"spatial_train_{network}"])
+
+
+def test_dense_backbone_needs_slabs_its_strides_keep():
+    """H = 16 over 4 space ranks gives slabs of 4 rows, and the tiny
+    backbone's strides multiply to 8 (ROADMAP C14)."""
+    model = PointPillars(_dense_backbone_cfg(), device="cpu")
+    tx = model.get_optimizer(OPT, grad_clip_value=2.0)
+    mesh = types.SimpleNamespace(n_data=1, n_space=4, world_group=None,
+                                 data_group=None)
+    with pytest.raises(ValueError, match="prod\\(layer_strides\\) = 8"):
+        make_sharded_train_step(model, tx, mesh, space_axis="space")
+
+
 @pytest.mark.parametrize("world", ["world2", "world4"])
 def test_spatial_step_counts_each_pfn_point_once(world, request):
     """The PFN runs on the same points on every space rank: its batch
@@ -263,6 +361,16 @@ def test_spatial_step_counts_each_pfn_point_once(world, request):
         assert got["voxel_encoder.pfn_0.norm"] == n_data
         others = [v for k, v in got.items() if "voxel_encoder" not in k]
         assert others and set(others) == {n_data * n_space}
+
+
+def test_spatial_gather_encoder_sums_over_the_data_group(world2):
+    """The gather encoder runs whole on every space rank, as the PFN
+    does: its batch norms sum over the data group, the RPN's over every
+    rank."""
+    for got in world2["stat_groups_sparse_middle"][0]:
+        for k, v in got.items():
+            whole = "voxel_encoder" in k or "pseudoimage_generator" in k
+            assert v == (1 if whole else 2), k
 
 
 @pytest.mark.parametrize("world", ["world2", "world4"])
@@ -308,6 +416,21 @@ def test_spatial_predict_matches_one_device_and_jax(world, request,
     for got in ranks:
         _check_preds(got["preds"], want)
         _check_preds(got["preds"], jax_spatial[2])
+
+
+@pytest.mark.parametrize("network", NETWORKS)
+@pytest.mark.parametrize("world", ["world2", "world4"])
+def test_spatial_predict_of_other_networks_matches_one_device_and_jax(
+        world, network, request, jax_networks):
+    """The gather encoder and the dense backbone on 1 x 2 and 2 x 2
+    meshes against one device and the JAX package's spatial predict:
+    boxes 1e-4, scores 1e-5, labels and valid exact."""
+    ranks, case = request.getfixturevalue(world)[
+        f"spatial_predict_{network}"]
+    want = rr.predict(case)["preds"]
+    for got in ranks:
+        _assert_predict(got["preds"], want)
+        _assert_predict(got["preds"], jax_networks[network][2])
 
 
 def test_tiled_inference_with_the_sharded_predict(world2):
@@ -383,6 +506,25 @@ def test_pipeline_data_parallel_matches_one_device(world2, workspace):
     assert "training_record.csv" in written[0]
     assert any(f.endswith(".pth") for f in written[0])
     assert written[1] == []
+
+
+def test_pipeline_data_parallel_writes_dcp_checkpoints(world2):
+    """``ckpt_backend: orbax``: rank 0 writes each DCP directory alone
+    (no collective, so the other rank cannot hang in one; the spawn's
+    time limit holds a hang), and they load back."""
+    from objectdetection_3d_tpu_torch.pipeline import checkpoint as ckpt_io
+
+    ranks, case = world2["pipeline_dcp"]
+    assert [r["is_main"] for r in ranks] == [True, False]
+    dirs = [os.path.join(d, sub) for d, subs, _ in
+            os.walk(case["outputs"][0]) for sub in subs
+            if sub.endswith(".dcp")]
+    assert {"ckpt_00000.dcp", "ckpt_00001.dcp"} <= {
+        os.path.basename(d) for d in dirs}
+    for d in dirs:
+        payload = ckpt_io.load_ckpt(d)
+        assert payload["optimizer_state_dict"]["state"]
+    assert _files(case["outputs"][1:]) == [[]]
 
 
 def test_pipeline_data_and_spatial_parallel_trains(world4):

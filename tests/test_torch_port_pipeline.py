@@ -15,7 +15,13 @@ synthetic forest workspace and config of ``tests/test_pipeline.py``
   and F1 equal to 1e-9 relative.
 * ``.pth`` checkpoints: round trip of the net and the optimizer, the
   host snapshot, the async writer's error propagation, the atomic write;
-  ``ckpt_backend: orbax`` raises.
+  an unknown ``ckpt_backend`` raises.
+* ``ckpt_backend: orbax`` (``torch.distributed.checkpoint`` directories,
+  ``tests/test_pipeline.py``'s orbax round trip): the round trip of the
+  net, the optimizer, the epoch and a generator's state; training writes
+  ``.dcp`` directories and is the ``.pth`` run step for step; resume
+  starts at the next epoch with the optimizer restored; ``run_testing``
+  from ``ckpt_best.dcp`` gives the ``.pth`` run's P/R/F1.
 * ``show_inference`` from the same weights in both packages: with
   Python's ``random`` seeded alike, the same P/R/F1 block, detections
   equal to ``run_inference`` on the same item, a PNG in the run
@@ -173,9 +179,9 @@ def test_resume_appends_and_restores_the_optimizer(trained_run, workspace):
     assert steps == {3}
 
 
-def _inference_pipeline(workspace, version, out="output"):
+def _inference_pipeline(workspace, version, out="output", **pipeline):
     cfg = port_cfg(workspace, out=out, inference_mode=True,
-                   resume_from=version)
+                   resume_from=version, **pipeline)
     pipeline, cfg_pipeline = build_pipeline(cfg=cfg)
     require_mode(cfg_pipeline, True, "testing")
     with pytest.raises(ValueError, match="inference_mode"):
@@ -249,6 +255,10 @@ def test_latest_ckpt_natural_sort(tmp_path):
                  "ckpt_00011.pth.tmp"):
         (tmp_path / name).write_bytes(b"x")
     assert latest_ckpt(str(tmp_path)).endswith("ckpt_00010.pth")
+    # DCP directories take part; a directory being written does not
+    for name in ("ckpt_00012.dcp", "ckpt_best.dcp", "ckpt_00013.dcp.tmp"):
+        (tmp_path / name).mkdir()
+    assert latest_ckpt(str(tmp_path)).endswith("ckpt_00012.dcp")
 
 
 def test_preemption_checkpoints_and_stops(workspace, tmp_path):
@@ -316,8 +326,82 @@ def test_unported_pipeline_options_raise(workspace):
     # one process without a process group is a world of one rank
     with pytest.raises(ValueError, match="world has 1"):
         build(port_cfg(workspace, out="dp_out", data_parallel=2))
-    with pytest.raises(ValueError, match="orbax"):
-        build(port_cfg(workspace, out="orbax_out", ckpt_backend="orbax"))
+    # orbax is ported (DCP directories); a backend neither package has
+    # raises
+    with pytest.raises(ValueError, match="unknown ckpt_backend"):
+        build(port_cfg(workspace, out="bad_out", ckpt_backend="zarr"))
+
+
+@pytest.fixture(scope="module")
+def dcp_run(workspace):
+    """``trained_run``'s configuration under ``ckpt_backend: orbax``."""
+    pipeline = build(port_cfg(workspace, out="dcp_out",
+                              ckpt_backend="orbax"))
+    return pipeline, pipeline.run_training()
+
+
+def test_dcp_training_writes_directories_and_equals_pth(dcp_run,
+                                                        trained_run):
+    pipeline, record = dcp_run
+    ckpt_dir = os.path.join(pipeline.cfg.log_dir, "checkpoint")
+    names = set(os.listdir(ckpt_dir))
+    assert {"ckpt_00000.dcp", "ckpt_00001.dcp"} <= names
+    assert not any(n.endswith((".pth", ".tmp")) for n in names)
+    assert all(os.path.isdir(os.path.join(ckpt_dir, n)) for n in names)
+    # the same run as the .pth one: the backend changes no step
+    pth, pth_record = trained_run
+    assert repr(record) == repr(pth_record)   # nan == nan here
+    for k, v in pth.losses.items():
+        assert pipeline.losses[k] == v, k
+    got = ckpt_io.load_ckpt(os.path.join(ckpt_dir, "ckpt_00001.dcp"))
+    want = ckpt_io.load_ckpt(os.path.join(pth.cfg.log_dir, "checkpoint",
+                                          "ckpt_00001.pth"))
+    assert got["epoch"] == want["epoch"] == 1
+    for k, v in want["model_state_dict"].items():
+        assert torch.equal(got["model_state_dict"][k], v), k
+
+
+def test_dcp_resume_restores_the_optimizer(dcp_run, workspace):
+    pipeline, _ = dcp_run
+    resumed = build(port_cfg(workspace, out="dcp_out", ckpt_backend="orbax",
+                             is_resume=True,
+                             resume_from=version_of(pipeline), max_epoch=2))
+    assert resumed.load_ckpt()[0] == 2
+    record = resumed.run_training()
+    assert [r["epoch"] for r in record] == [0, 1, 2]
+    ckpt = ckpt_io.load_ckpt(os.path.join(resumed.cfg.log_dir, "checkpoint",
+                                          "ckpt_00002.dcp"))
+    assert ckpt["epoch"] == 2
+    # two steps before the resume, one after: Adam's step count is 3
+    steps = {int(s["step"]) for s in
+             ckpt["optimizer_state_dict"]["state"].values()}
+    assert steps == {3}
+
+
+def test_dcp_run_testing_equals_pth(dcp_run, trained_run, workspace):
+    """``run_testing`` from ``ckpt_best.dcp`` gives the P/R/F1 of the
+    ``.pth`` run from ``ckpt_best.pth``; both bests are made the epoch-1
+    checkpoint (whether validation F1 ever beat 0 depends on the random
+    weights)."""
+    got = {}
+    for (pipeline, _), out, suffix in ((dcp_run, "dcp_out", ".dcp"),
+                                       (trained_run, "output", ".pth")):
+        ckpt_dir = os.path.join(pipeline.cfg.log_dir, "checkpoint")
+        best = os.path.join(ckpt_dir, "ckpt_best" + suffix)
+        epoch1 = os.path.join(ckpt_dir, "ckpt_00001" + suffix)
+        if suffix == ".dcp":
+            shutil.rmtree(best, ignore_errors=True)
+            shutil.copytree(epoch1, best)
+        else:
+            shutil.copy(epoch1, best)
+        extra = {"ckpt_backend": "orbax"} if suffix == ".dcp" else {}
+        tester = _inference_pipeline(workspace, version_of(pipeline),
+                                     out=out, **extra)
+        assert tester.load_ckpt()[1] == best
+        got[suffix] = tester.run_testing()
+    for k in ("4_precision", "5_recall", "6_f1"):
+        assert got[".dcp"][k] == pytest.approx(got[".pth"][k],
+                                               nan_ok=True), k
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +629,51 @@ def test_pth_round_trip_and_snapshot(tmp_path):
     s1, s2 = opt.state_dict()["state"], opt2.state_dict()["state"]
     for i in s1:
         assert torch.equal(s1[i]["exp_avg"], s2[i]["exp_avg"])
+
+
+def test_dcp_round_trip_and_snapshot(tmp_path):
+    """The directory backend (``tests/test_pipeline.py``'s orbax round
+    trip): the backend is told by the path; the model, the optimizer's
+    state, the epoch and a generator's state come back."""
+    net, opt = _tiny_state()
+    gen = torch.Generator().manual_seed(7)
+    torch.rand(3, generator=gen)          # a state other than the seed's
+    want = {k: v.clone() for k, v in net.state_dict().items()}
+    path = str(tmp_path / "ckpt_00003.dcp")
+    saver = ckpt_io.AsyncSaver()
+    saver.save(path, 3, net, opt, gen, backend="dcp")
+    with torch.no_grad():                 # after save(): not in the files
+        for p in net.parameters():
+            p.add_(100.0)
+    saver.wait()
+    assert os.path.isdir(path) and not os.path.exists(path + ".tmp")
+    assert ckpt_io.backend_of(path) == "dcp"
+    payload = ckpt_io.load_ckpt(path)
+    assert payload["epoch"] == 3 and isinstance(payload["epoch"], int)
+    assert torch.equal(payload["augment_rng_state"], gen.get_state())
+    for k, v in want.items():
+        assert torch.equal(payload["model_state_dict"][k], v), k
+    net2, opt2 = _tiny_state(seed=1)
+    net2.load_state_dict(payload["model_state_dict"])
+    ckpt_io.load_optimizer_state(net2, opt2, payload["optimizer_state_dict"])
+    a, b = opt.state_dict(), opt2.state_dict()
+    assert a["param_groups"] == b["param_groups"]
+    for i in a["state"]:
+        for k, v in a["state"][i].items():
+            assert torch.equal(v, b["state"][i][k]), (i, k)
+    # written again: the directory is replaced
+    ckpt_io.save_ckpt(path, 4, net2, None, backend="dcp")
+    again = ckpt_io.load_ckpt(path)
+    assert again["epoch"] == 4 and again["optimizer_state_dict"] is None
+
+
+def test_dcp_leaves_an_unstepped_optimizer_alone(tmp_path):
+    net = torch.nn.Linear(3, 2)
+    opt = torch.optim.AdamW(net.parameters(), lr=1e-2)
+    path = str(tmp_path / "ckpt_00000.dcp")
+    ckpt_io.save_ckpt(path, 0, net, opt, backend="dcp")
+    assert not opt.state
+    assert ckpt_io.load_ckpt(path)["optimizer_state_dict"] is None
 
 
 def test_async_saver_error_propagates(tmp_path):
