@@ -209,10 +209,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     and the spatial 1 x 2 step in float32 (TF32 off, B = 1) at the CPU
     tolerances, K1 and K2 launched on every rank in every run; the same
     spatial predict and step of the gather encoder (``sparse_budget``
-    131,072, the npz) and of the dense backbone (phase 20c's config and
-    seeded weights), float32, against one device at those tolerances (K1
-    launched on every rank, K2 on the dense backbone's only).  Times in
-    (c) come from two ranks sharing one card;
+    131,072, the npz) and of the dense backbone (phase 20c's config; the
+    npz's PFN and encoder, a seeded backbone, neck and head), float32,
+    against one device at those tolerances (K1 launched on every rank, K2
+    on the dense backbone's only), but the dense backbone's gradients by
+    ROADMAP C16's gates (``c16_phase``): its step through the float64
+    instrument (``tests/rank_cases.py::to_float64``) whole at the full
+    extent and at a 25.6 m window (``scene.tree_scene(1, extent=25.6,
+    n_trees=5, n_points=40_960)``), and split where the whole step's peak
+    leaves two ranks room; the float64 split within 1e-6 of each leaf's
+    largest element of the float64 whole, and the float32 split (TF32
+    off) within ``C16_C`` times the larger of two one-device float32
+    steps' largest errors on each leaf (the step, and the step from every
+    parameter moved by one ulp) plus ``C16_F`` times the leaf's largest
+    float64 element; every leaf's share printed.  Times in (c) come from
+    two ranks sharing one card;
 20. the paths the flagship does not take, at its width: (a) the
     layout-free assignment (the flagship's 1.92 M anchors taken as a grid
     with no layout) of cloud 0's 128 padded GT boxes, through K6 and
@@ -246,11 +257,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     step each: ms and peak memory, or "does not fit" where the card runs
     out of memory, which is a reading, not a failure); K9 exactly 6
     forward and 3 dx launches in one ``zfold_pallas`` step under
-    ``"middle"``.
+    ``"middle"``;
+22. the full width against the JAX package: the flagship's float32
+    predict (TF32 off, the npz and its ``score_thr``) of clouds 0-3
+    against ``tests/jax_reference/flagship_predict.npz``, the JAX
+    package's predict of the same clouds (read with numpy; written by
+    ``tests/make_jax_flagship_reference.py``): ``valid`` and labels
+    exact, scores within 1e-5 and boxes within 1e-4 of max(|value|, 1 m),
+    the largest differences and their share of each gate printed; K1 and
+    K2 launched.
 
 The last lines are the ``serving`` JSON line (phase 18's readings), the
 ``parallel`` JSON line (phase 19's), the ``parked`` JSON line (phase
-20's), the ``remat`` JSON line (phase 21's), the ``kernels`` JSON line
+20's), the ``remat`` JSON line (phase 21's), the ``full_width`` JSON
+line (phase 22's), the ``kernels`` JSON line
 (all ten
 kernels; K1 and K2 with ``launches_tiled`` and ``launches_tiled_batch2``;
 K1-K4, K6 and K7 with ``launches_data_path``; K1, K2, K8, K9 and K10
@@ -260,7 +280,8 @@ predicts, and K1 and K2 with ``launches_parallel_gloo_ranks``, per rank
 and run of (c); K1-K4, K6 and K7 with ``launches_layout_free``,
 ``launches_sparse_middle`` and ``launches_dense_backbone``, over phase
 20's predicts and steps of each path; K9 with ``launches_remat_middle``,
-phase 21's one step), the card line and
+phase 21's one step; K1 and K2 with ``launches_full_width``, over phase
+22's four predicts), the card line and
 ``{"ok": true, "device": {...}}``.
 Each phase's wall seconds are printed as ``phase time:`` lines.
 """
@@ -2689,14 +2710,188 @@ def leaf_grad_share(ranks, want):
     return share
 
 
-def dense_backbone_cfg(cfg):
-    """``cfg`` with the dense backbone and neck: config.yaml's backbone
-    (the flagship's) and neck widths."""
-    cfg = dict(cfg, use_dense_backbone=True)
-    cfg["neck"] = dict(in_channels=[512, 256, 128],
-                       out_channels=[256, 256, 256],
-                       upsample_strides=[1, 2, 4])
-    return cfg
+# ROADMAP C16's gate on the dense backbone's float32 spatial step
+# (c16_gates): each leaf's largest error against the float64 instrument's
+# whole step at most C16_C times the one-device float32 step's own
+# largest error on that leaf, plus C16_F times the leaf's largest float64
+# element.  The constants were fixed from CPU readings at 25.6 m, where
+# the largest ratio of the two errors was 3.03 (2.10 at 12.8 m) with
+# C16_F's term taken off; the card then showed that one sample of the
+# one-device error can miss a kink that rounding flips, and the reference
+# became the larger of two samples (PERF.md §6)
+C16_C = 5.0
+C16_F = 1e-6
+# the float64 instrument's smaller window, m: the CPU readings' window
+C16_WINDOW = 25.6
+# the largest peak, as a share of the card's memory, of the float64 whole
+# step that its split (two ranks on the card) is run after
+C16_SPLIT_SHARE = 0.4
+
+
+def c16_windows(rr, fp32, full_batch):
+    """Phase 19c's dense-backbone windows: {extent m: (cfg, state, batch)}
+    at the flagship's full extent (cloud 1) and at ``C16_WINDOW`` m
+    (``scene.tree_scene(1, extent=25.6, n_trees=5, n_points=40_960)``,
+    budgets 65,536), each with the npz's PFN and encoder and the seeded
+    backbone, neck and head."""
+    from objectdetection_3d_tpu_torch.scene import make_batch, tree_scene
+
+    full = rr.dense_backbone_cfg(fp32)
+    small = rr.window_cfg(full, C16_WINDOW, 65_536)
+    return {40.0: (full, rr.dense_backbone_state(full, NPZ, "cuda"),
+                   full_batch),
+            C16_WINDOW: (small, rr.dense_backbone_state(small, NPZ, "cuda"),
+                         make_batch(tree_scene(1, extent=C16_WINDOW,
+                                               n_trees=5, n_points=40_960),
+                                    65_536))}
+
+
+def c16_phase(rr, base, windows, whole32, split32):
+    """Phase 19c's ROADMAP C16 gates on the dense backbone's spatial 1 x 2
+    step (``base``: the case's device, optimizer and clip; ``windows``:
+    :func:`c16_windows`; ``whole32``, ``split32``: the float32 step at the
+    full extent, whole and each rank's).  At each window it runs the
+    float64 instrument's whole step (none where it does not fit), the
+    float32 whole step from every parameter moved by one float32 ulp, and
+    at the smaller window the float32 whole step; then two ranks on this
+    card over gloo: the float32 split at the smaller window and the
+    float64 split at each window whose whole step's peak leaves the ranks
+    room (``C16_SPLIT_SHARE``).  Holds each window by :func:`c16_gates`
+    after printing every leaf's share; returns the readings."""
+    import tempfile
+
+    from objectdetection_3d_tpu_torch.parallel import spawn
+
+    old_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {ext: {} for ext in windows}
+    runs[40.0].update(whole32=whole32, split32=split32)
+    split_cases, memory = {}, {}
+    total_bytes = torch.cuda.get_device_properties(0).total_memory
+    for ext, (cfg, state, batch) in windows.items():
+        case = dict(base, kind="train", cfg=cfg, state=state, batch=batch,
+                    exact_fp32=True, spatial=True, mesh=(1, 2))
+        if ext != 40.0:
+            runs[ext]["whole32"] = rr.train(case)
+            split_cases[(ext, "split32")] = case
+        gen = torch.Generator().manual_seed(1)
+        wiggled = {k: v * (1 + 2.0 ** -23 * torch.sign(
+                       torch.rand(v.shape, generator=gen) - 0.5))
+                   if v.is_floating_point() else v
+                   for k, v in state["net"].items()}
+        runs[ext]["whole32_ulp"] = rr.train(
+            dict(case, state=dict(state, net=wiggled)))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            runs[ext]["whole64"] = rr.train(dict(case, float64=True))
+        except torch.cuda.OutOfMemoryError:
+            runs[ext]["whole64"] = None
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        # two ranks share the card: each holds about half the slab's
+        # activations, and the point and anchor work whole; a rank that
+        # ran out of memory would leave the other in a collective until
+        # its timeout, so the split is run only with room to spare
+        fits = (runs[ext]["whole64"] is not None
+                and peak <= C16_SPLIT_SHARE * total_bytes)
+        if fits:
+            split_cases[(ext, "split64")] = dict(case, float64=True)
+        memory[ext] = {
+            "whole64_peak_gib": (peak / 2 ** 30 if runs[ext]["whole64"]
+                                 else "does not fit"),
+            "whole64_ms": (runs[ext]["whole64"] or {}).get("ms"),
+            "split64": "runs" if fits else "does not fit"}
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old_tf32
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(
+            prefix="spawn_", dir=os.path.join(REPO, "build")) as init_dir:
+        ranks = spawn(rr.run_cases, 2, init_dir,
+                      args=(list(split_cases.values()),))
+    spawn_s = time.perf_counter() - t
+    for i, (ext, kind) in enumerate(split_cases):
+        runs[ext][kind] = [r[i] for r in ranks]
+    report = {"c": C16_C, "f": C16_F, "memory": memory, "spawn_s": spawn_s,
+              "windows": {}}
+    held = []
+    for ext, got in runs.items():
+        # one ulp of every parameter moves the one-device float32
+        # gradients by this share of 1e-4 of a leaf's largest
+        ulp_share = leaf_grad_share([got["whole32_ulp"]], got["whole32"])
+        if got["whole64"] is None:
+            # the float32 split keeps check_step's other gates; its
+            # gradients are held at the windows where float64 fits
+            held.append((got["split32"], got["whole32"], {
+                k: np.inf for k in got["whole32"]["grads"]}))
+            report["windows"][ext] = {"one_ulp_grad_share": ulp_share}
+            print(f"phase 19c C16 {ext} m: the float64 whole step does not "
+                  f"fit; one ulp of every parameter moves the float32 "
+                  f"gradients by {ulp_share:.4g} x 1e-4 of a leaf's largest",
+                  flush=True)
+            continue
+        tols, errors = c16_gates(rr, got)
+        shares = {key: {k: e / tols[key][k] if tols[key][k] > 0
+                        else (e > 0) * np.inf for k, e in errors[key].items()}
+                  for key in tols}
+        for key, d in shares.items():
+            print(f"phase 19c C16 {ext} m {key} shares: " + json.dumps(
+                {k: float(f"{v:.4g}") for k, v in d.items()}), flush=True)
+        # the leaves where the split's float32 error is largest against
+        # the one-device step's own, each error over the leaf's largest
+        e = errors
+        top = sorted(e["split32"], key=lambda k: -e["split32"][k] / max(
+            e["whole32"][k], 1e-300))[:3]
+        max64 = {k: float(g.abs().max())
+                 for k, g in got["whole64"]["grads"].items()}
+        row = {"one_ulp_grad_share": ulp_share,
+               "largest_share": {key: [max(d.values()), max(d, key=d.get)]
+                                 for key, d in shares.items()},
+               "errors_where_split32_is_worst": {
+                   k: {n: e[n][k] / max64[k] for n in
+                       ("whole32", "whole32_ulp", "split32")} for k in top},
+               "split_ms": {k: [r["ms"] for r in got[k]]
+                            for k in ("split32", "split64") if k in got},
+               "whole_ms": {k: got[k]["ms"]
+                            for k in ("whole32", "whole32_ulp", "whole64")}}
+        report["windows"][ext] = row
+        print(f"phase 19c C16 dense backbone at {ext} m (float32 TF32 off, "
+              f"and the float64 instrument; {memory[ext]}): {row} "
+              f"(split64: the share of 1e-6 of each leaf's largest; "
+              f"split32: of {C16_C} x the larger float32 one-device error "
+              f"+ {C16_F} x the leaf's largest)", flush=True)
+        for key, tol in tols.items():
+            held.append((got[key], got["whole64"], tol))
+    for ranks_, want, tol in held:
+        rr.check_step(ranks_, want, OPT["lr"], grad_tol=tol)
+    return report
+
+
+def c16_gates(rr, runs):
+    """ROADMAP C16's gradient tolerances for one window's dense-backbone
+    steps (``runs``: ``whole32``, ``whole32_ulp``, ``split32`` (the
+    ranks' results), ``whole64`` and, where it ran, ``split64``), with
+    each step's per-leaf errors against the float64 instrument's whole
+    step: the float64 split within 1e-6 of each leaf's largest element;
+    the float32 split within ``C16_C`` times the larger of the two
+    one-device float32 steps' errors on that leaf (the step, and the step
+    from every parameter one ulp away: rounding flips a ReLU or a max
+    somewhere, and a leaf's gradient jumps) plus ``C16_F`` times the
+    leaf's largest float64 element.  Returns ({run: {leaf: tolerance}},
+    {run: {leaf: error}})."""
+    w64 = runs["whole64"]
+    errors = {k: rr.leaf_errors(runs[k] if isinstance(runs[k], list)
+                                else [runs[k]], w64)
+              for k in ("whole32", "whole32_ulp", "split32", "split64")
+              if k in runs}
+    tols = {"split32": {
+        k: C16_C * max(errors["whole32"][k], errors["whole32_ulp"][k])
+        + C16_F * float(g.abs().max()) for k, g in w64["grads"].items()}}
+    if "split64" in runs:
+        tols["split64"] = rr.leaf_tol(w64, 1e-6)
+    return tols, errors
 
 
 def parallel_phase(prepared):
@@ -2710,7 +2905,6 @@ def parallel_phase(prepared):
 
     from objectdetection_3d_tpu_torch import configs
     from objectdetection_3d_tpu_torch.models.detector import PointPillars
-    from objectdetection_3d_tpu_torch.models.network import init_parameters
     from objectdetection_3d_tpu_torch.models.weights import load_npz
     from objectdetection_3d_tpu_torch.parallel import make_mesh, spawn
     rr = _rank_cases()
@@ -2808,24 +3002,14 @@ def parallel_phase(prepared):
     # and the dense backbone (config.yaml's neck; the npz's PFN and
     # encoder, the backbone, neck and head seeded as in phase 20c): the
     # spatial 1 x 2 predict and step, float32, TF32 off
+    windows = c16_windows(rr, fp32, items[0])
     net_cases, want_nets = {}, {}
     for name, cfg in (("sparse_middle", configs.flagship_cfg({
             "compute_dtype": "float32", "sparse_middle": True,
             "sparse_budget": 131_072})),
-            ("dense_backbone", dense_backbone_cfg(fp32))):
-        if name == "dense_backbone":
-            model = PointPillars(cfg, device="cuda")
-            init_parameters(model.net, torch.Generator().manual_seed(0))
-            encoder = exact["state"]["net"]
-            with torch.no_grad():
-                for k, v in model.net.state_dict().items():
-                    if k.startswith(("voxel_encoder.",
-                                     "pseudoimage_generator.")):
-                        v.copy_(encoder[k])
-            state = rr.model_state(model)
-            del model
-        else:
-            state = state_of(cfg)
+            ("dense_backbone", windows[40.0][0])):
+        state = (windows[40.0][1] if name == "dense_backbone"
+                 else state_of(cfg))
         ex = dict(base, cfg=cfg, state=state, batch=items[0],
                   exact_fp32=True)
         net_cases[name] = [
@@ -2834,18 +3018,6 @@ def parallel_phase(prepared):
         want_nets[name] = [rr.predict(net_cases[name][0]),
                            rr.train(net_cases[name][1])]
         torch.cuda.empty_cache()
-    # the conditioning of the dense backbone's float32 gradients: the
-    # one-device step again with every parameter moved by one ulp
-    gen = torch.Generator().manual_seed(1)
-    case = net_cases["dense_backbone"][1]
-    wiggled = {k: v * (1 + 2.0 ** -23 * torch.sign(
-                   torch.rand(v.shape, generator=gen) - 0.5))
-               if v.is_floating_point() else v
-               for k, v in case["state"]["net"].items()}
-    ulp_share = 1e-4 * leaf_grad_share(
-        [rr.train(dict(case, state=dict(case["state"], net=wiggled)))],
-        want_nets["dense_backbone"][1])
-    torch.cuda.empty_cache()
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = old_tf32
     dp_steps = [dict(step2, mesh=(2, 1))]
@@ -2898,35 +3070,35 @@ def parallel_phase(prepared):
             raise AssertionError(f"gloo world 2, spatial {name}: K1/K2 "
                                  f"launches {k1k2}")
         # the dense backbone's float32 gradients are ill-conditioned at
-        # this size: its batch norms' bias gradients are sums over every
-        # site that nearly cancel, and one float32 ulp of every parameter
-        # moves them by about 1e-4 of a leaf's largest element (printed),
-        # so they are held to 1e-4 of the step's largest gradient; their
-        # share of the per-leaf tolerance is printed
-        scale = "step" if name == "dense_backbone" else "leaf"
+        # this size (a ReLU or a max that rounding flips moves a batch
+        # norm's bias gradient, a sum that nearly cancels, past 1e-4 of
+        # its largest element): c16_phase holds its split against the
+        # float64 instrument's step instead
+        step = None
+        if name == "dense_backbone":
+            dense_split32 = got_s
+        else:
+            step = rr.check_step(got_s, want_s, OPT["lr"])
         nets[name] = {
             "predict": [rr.check_preds(g["preds"], want_p["preds"])
                         for g in got_p],
-            "step": rr.check_step(got_s, want_s, OPT["lr"],
-                                  grad_scale=scale),
-            "grad_tolerance": scale,
+            "step": step,
             "per_leaf_grad_share": leaf_grad_share(got_s, want_s),
-            "one_ulp_grad_move": (ulp_share if name == "dense_backbone"
-                                  else None),
             "step_ms": [g["ms"] for g in got_s],
             "one_device_step_ms": want_s["ms"], "k1_k2": k1k2}
+        step_text = ("" if step is None else
+                     f"step loss {step['loss']:.3g}, gradient "
+                     f"{step['grad']:.3g}, parameter {step['param']:.3g}; ")
         print(f"phase 19c spatial 1 x 2 {name} (float32, TF32 off, cloud "
               f"1) against one device: predict {nets[name]['predict']}; "
-              f"step loss {nets[name]['step']['loss']:.3g}, gradient "
-              f"{nets[name]['step']['grad']:.3g} (held to 1e-4 of the "
-              f"{scale}'s largest; the largest share of 1e-4 of a leaf's "
-              f"own largest {nets[name]['per_leaf_grad_share']:.3g}; one "
-              f"ulp of every parameter moves the one-device gradients by "
-              f"{nets[name]['one_ulp_grad_move']} of a leaf's largest), "
-              f"parameter {nets[name]['step']['param']:.3g}; step ms per "
-              f"rank {[round(m, 1) for m in nets[name]['step_ms']]} (one "
+              f"{step_text}the largest gradient share of 1e-4 of a leaf's "
+              f"own largest {nets[name]['per_leaf_grad_share']:.3g}; "
+              f"step ms per rank "
+              f"{[round(m, 1) for m in nets[name]['step_ms']]} (one "
               f"device {want_s['ms']:.1f}); K1 / K2 per rank and run "
               f"{k1k2}", flush=True)
+    nets["dense_backbone"]["c16"] = c16_phase(
+        rr, base, windows, want_nets["dense_backbone"][1], dense_split32)
     print(f"phase 19c gloo collectives on CUDA tensors: {probe}",
           flush=True)
     dp_text = "; ".join(
@@ -3258,7 +3430,7 @@ def parked_phase(batches, counted, layout_step_ms, predict_ms):
     torch.cuda.empty_cache()
 
     # ---- (c) the dense backbone and neck --------------------------------
-    cfg = dense_backbone_cfg(configs.flagship_cfg())
+    cfg = _rank_cases().dense_backbone_cfg(configs.flagship_cfg())
     model = PointPillars(cfg, device="cuda")
     init_parameters(model.net, torch.Generator().manual_seed(0))
     if model.featmap != (200, 200) or \
@@ -3449,6 +3621,81 @@ def remat_phase(batches, scenes):
     del model, step
     free()
     return k9, report
+
+
+def full_width_phase():
+    """Phase 22: the port's float32 flagship predict (TF32 off) of clouds
+    0-3 on the card against the JAX package's, read from
+    ``tests/jax_reference/flagship_predict.npz``
+    (``tests/make_jax_flagship_reference.py``): ``valid`` and labels
+    exact; where valid, scores within 1e-5 and boxes within 1e-4 of
+    max(|value|, 1 m).  Returns K1's and K2's launches over the four
+    predicts and the readings."""
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+    from objectdetection_3d_tpu_torch.ops.grid_scatter import scatter_to_grid
+    from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
+    from objectdetection_3d_tpu_torch.scene import make_batch, tree_scene
+
+    path = os.path.join(REPO, "tests", "jax_reference",
+                        "flagship_predict.npz")
+    with np.load(path) as z:
+        want = {k: z[k] for k in z.files}
+    old_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = PointPillars(configs.flagship_cfg({"compute_dtype": "float32"}),
+                         device="cuda")
+    load_npz(model.net, NPZ)
+    with np.load(NPZ) as z:
+        model.head_cfg["score_thr"] = float(z["score_thr"])
+    predict = model.make_predict_fn()
+    p_max = model.tpu_cfg["max_points_static"]
+    batches = [make_batch(tree_scene(seed), p_max)
+               for seed in range(len(want["valid"]))]
+    postsort_scan.launches = 0
+    scatter_to_grid.launches = 0
+    got = [{k: v.cpu().numpy()[0] for k, v in predict(b).items()}
+           for b in batches]
+    torch.cuda.synchronize()
+    launches = {"postsort_scan": postsort_scan.launches,
+                "scatter_to_grid": scatter_to_grid.launches}
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old_tf32
+    del model
+    torch.cuda.empty_cache()
+    if not all(launches.values()):
+        raise AssertionError(f"phase 22: K1 / K2 did not launch: {launches}")
+    clouds = []
+    for i, out in enumerate(got):
+        valid = want["valid"][i]
+        if not np.array_equal(out["valid"], valid) or not np.array_equal(
+                out["label"][valid], want["label"][i][valid]):
+            raise AssertionError(
+                f"phase 22 cloud {i}: valid or labels differ from the JAX "
+                f"package's ({int(out['valid'].sum())} valid against "
+                f"{int(valid.sum())})")
+        d_score = np.abs(out["score"][valid] - want["score"][i][valid])
+        box = want["bbox"][i][valid]
+        d_box = np.abs(out["bbox"][valid] - box)
+        row = {"valid": int(valid.sum()),
+               "score": float(d_score.max(initial=0.0)),
+               "score_share": float(d_score.max(initial=0.0) / 1e-5),
+               "bbox": float(d_box.max(initial=0.0)),
+               "bbox_share": float((d_box / (1e-4 * np.maximum(
+                   np.abs(box), 1.0))).max(initial=0.0))}
+        clouds.append(row)
+        print(f"phase 22 cloud {i} (float32, TF32 off) against the JAX "
+              f"package: {row['valid']} valid, labels equal; largest score "
+              f"difference {row['score']:.3g} ({row['score_share']:.3g} of "
+              f"1e-5), box {row['bbox']:.3g} m ({row['bbox_share']:.3g} of "
+              f"1e-4 of max(|value|, 1 m))", flush=True)
+        if row["score_share"] > 1 or row["bbox_share"] > 1:
+            raise AssertionError(f"phase 22 cloud {i}: {row}")
+    return launches, {"reference": str(want["provenance"]),
+                      "clouds": clouds, "launches": launches}
 
 
 def main():
@@ -4001,6 +4248,12 @@ def main():
                                                       + k9["dx"])
     print("remat: " + json.dumps(remat_report), flush=True)
     clock.mark("tpu.remat (phase 21)")
+    # ---- the full width against the JAX package's reference ------------
+    launches, full_report = full_width_phase()
+    for name, count in launches.items():
+        kernels[name]["launches_full_width"] = count
+    print("full_width: " + json.dumps(full_report), flush=True)
+    clock.mark("the full width against the JAX package (phase 22)")
     if len(kernels) != 10:
         raise AssertionError(f"{len(kernels)} kernels in the line, not 10")
 

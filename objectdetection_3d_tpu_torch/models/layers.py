@@ -89,16 +89,19 @@ class MaskedBatchNorm(nn.Module):
 
     ``y = ((x - mean) * rsqrt(var + eps) * scale + bias) * mask``; inactive
     sites stay exactly zero.  In training mode the statistics are those of
-    the active sites of the batch (computed in float32), and the running
-    statistics move by ``momentum`` towards the batch mean and the
+    the active sites of the batch (computed in ``stats_dtype``), and the
+    running statistics move by ``momentum`` towards the batch mean and the
     *unbiased* batch variance; in eval mode the running statistics are
     used.  ``weight`` is the JAX package's ``scale``.
     """
 
-    # sums a float32 tensor over the ranks that share the batch, with
-    # autograd (``parallel/data_parallel.py`` sets it for a sharded step);
-    # None: the statistics are those of this device's batch
+    # sums a ``stats_dtype`` tensor over the ranks that share the batch,
+    # with autograd (``parallel/data_parallel.py`` sets it for a sharded
+    # step); None: the statistics are those of this device's batch
     stats_sum = None
+    # the statistics' type, whatever the compute type; float64 only for a
+    # test's float64 run of the whole network, which no config reaches
+    stats_dtype = torch.float32
 
     def __init__(self, channels, eps=1e-5, momentum=0.1):
         super().__init__()
@@ -126,13 +129,14 @@ class MaskedBatchNorm(nn.Module):
         """(mean, var) of the channels (dim 1) over the active sites."""
         if not self.training:
             return self.running_mean, self.running_var
-        m = mask.to(torch.float32)
-        xf = x.float()
+        sdt = self.stats_dtype
+        m = mask.to(sdt)
+        xf = x.to(sdt)
         dims = [d for d in range(x.dim()) if d != 1]
         if self.stats_sum is None:
             count = torch.clamp(m.sum(), min=1.0)
             mean = (xf * m).sum(dim=dims) / count
-            var = (((xf - _bcast(mean, x.dim(), torch.float32)) ** 2)
+            var = (((xf - _bcast(mean, x.dim(), sdt)) ** 2)
                    * m).sum(dim=dims) / count
         else:
             # the sums of every rank's sites, then the centred sum
@@ -141,7 +145,7 @@ class MaskedBatchNorm(nn.Module):
             count = torch.clamp(tot[-1], min=1.0)
             mean = tot[:-1] / count
             var = self.stats_sum(
-                (((xf - _bcast(mean, x.dim(), torch.float32)) ** 2)
+                (((xf - _bcast(mean, x.dim(), sdt)) ** 2)
                  * m).sum(dim=dims)) / count
         if self._moves_running():
             self._update_running(mean.detach(), var.detach(), count)
@@ -196,17 +200,18 @@ class PointMaskedBN(MaskedBatchNorm):
     """
 
     def forward(self, x, pt_valid, total_slots):
-        m = pt_valid.to(torch.float32)[:, None]
+        sdt = self.stats_dtype
+        m = pt_valid.to(sdt)[:, None]
         if self.training:
-            xf = x.float()
+            xf = x.to(sdt)
             if self.stats_sum is None:
-                count = torch.clamp(total_slots.to(torch.float32), min=1.0)
+                count = torch.clamp(total_slots.to(sdt), min=1.0)
                 mean = (xf * m).sum(dim=0) / count
                 n_real = m.sum()
                 centred = (((xf - mean) ** 2) * m).sum(dim=0)
             else:
                 tot = self.stats_sum(torch.cat([
-                    (xf * m).sum(dim=0), total_slots.to(torch.float32)[None],
+                    (xf * m).sum(dim=0), total_slots.to(sdt)[None],
                     m.sum()[None]]))
                 count = torch.clamp(tot[-2], min=1.0)
                 mean = tot[:-2] / count
@@ -258,12 +263,13 @@ class PFNLayerPoints(nn.Module):
         y = F.relu(y)
         floor = F.relu(pad_y)
         units = y.shape[1]
-        # the max is exact in float32, whatever the compute dtype
-        vals = torch.where(pt_valid[:, None], y.float(),
-                           torch.full_like(y, float("-inf"),
-                                           dtype=torch.float32))
+        # the max is exact in float32 (or wider), whatever the compute
+        # dtype
+        pdt = torch.promote_types(y.dtype, torch.float32)
+        vals = torch.where(pt_valid[:, None], y.to(pdt),
+                           torch.full_like(y, float("-inf"), dtype=pdt))
         pooled = torch.full((counts.shape[0], units), float("-inf"),
-                            dtype=torch.float32, device=y.device)
+                            dtype=pdt, device=y.device)
         pooled = pooled.scatter_reduce_(
             0, seg.long()[:, None].expand(-1, units), vals, "amax")
         pooled = pooled.to(y.dtype)
@@ -778,7 +784,8 @@ class BackboneUPS(nn.Module):
 
 class Anchor3DHead(nn.Module):
     """1x1 conv head: per cell class logits (A*C), box deltas (A*9) and
-    direction logits (A*6), returned NHWC in float32."""
+    direction logits (A*6), returned NHWC in float32 (float64 from a
+    float64 network)."""
 
     def __init__(self, in_channels, num_classes, num_anchors,
                  box_params_num=9, dtype=torch.float32):
@@ -801,7 +808,8 @@ class Anchor3DHead(nn.Module):
         outs = []
         for conv in (self.conv_cls, self.conv_reg, self.conv_dir):
             y = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt))
-            outs.append(y.float().permute(0, 2, 3, 1))
+            outs.append(y.to(torch.promote_types(dt, torch.float32))
+                        .permute(0, 2, 3, 1))
         return tuple(outs)
 
 

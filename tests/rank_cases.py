@@ -11,15 +11,22 @@ n_space), ``device``, and what the kind reads (``cfg``, ``state`` from
 with ``mesh=None`` are the one-device runs the sharded ones are held
 against.  Results come back on the host.  ``tests/test_torch_port_
 parallel.py``, ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py``
-phase 19 use these cases and the checks at the end.
+phase 19 use these cases and the checks at the end.  A case with
+``float64=True`` trains through the float64 instrument of ROADMAP C16
+(:func:`to_float64`); run as a script, the module prints C16's CPU
+readings (:func:`main`).
 """
 
+import contextlib
+import copy
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from objectdetection_3d_tpu_torch.models import network
 from objectdetection_3d_tpu_torch.models.detector import PointPillars
 from objectdetection_3d_tpu_torch.models.layers import (
     MaskedBatchNorm,
@@ -35,7 +42,10 @@ from objectdetection_3d_tpu_torch.ops.gathered_iou3d import (
     iou_gathered,
     iou_gathered_pair,
 )
-from objectdetection_3d_tpu_torch.ops.grid_scatter import scatter_to_grid
+from objectdetection_3d_tpu_torch.ops.grid_scatter import (
+    scatter_to_grid,
+    scatter_to_grid_plain,
+)
 from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
 from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
 from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
@@ -94,6 +104,70 @@ def load_model(cfg, device, state):
     return model
 
 
+def to_float64(model):
+    """The float64 instrument: ``model``'s network cast to float64, every
+    module of it computing in float64 and every batch norm taking its
+    statistics in float64 (``stats_dtype``).  A test's instrument, which
+    no config reaches: it shows what a step computes without float32's
+    rounding.  Run the network under :func:`float64_grid`."""
+    model.net.double()
+    for m in model.net.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+        if isinstance(m, MaskedBatchNorm):
+            m.stats_dtype = torch.float64
+
+
+def float64_grid():
+    """Inside: the network's grid build calls K2's plain version, which
+    takes float64 (K2 itself refuses it)."""
+    return mock.patch.object(network, "scatter_to_grid",
+                             scatter_to_grid_plain)
+
+
+def dense_backbone_cfg(cfg):
+    """``cfg`` with the dense backbone and neck: config.yaml's backbone
+    (the flagship's) and neck widths."""
+    cfg = dict(cfg, use_dense_backbone=True)
+    cfg["neck"] = dict(in_channels=[512, 256, 128],
+                       out_channels=[256, 256, 256],
+                       upsample_strides=[1, 2, 4])
+    return cfg
+
+
+def window_cfg(cfg, extent, budget):
+    """``cfg`` (either package's config dict) cropped to an ``extent`` x
+    ``extent`` m window at the origin, every width kept: the range and the
+    anchors' range, and point and voxel budgets of ``budget``."""
+    cfg = copy.deepcopy(cfg)
+    pcr = [0.0, 0.0, 0.0, float(extent), float(extent),
+           cfg["point_cloud_range"][5]]
+    cfg["point_cloud_range"] = pcr
+    cfg["head"]["ranges"] = [pcr]
+    cfg["tpu"] = dict(cfg["tpu"], max_points_static=int(budget),
+                      max_voxels_static=int(budget))
+    return cfg
+
+
+def dense_backbone_state(cfg, npz, device="cpu"):
+    """The weights of the dense-backbone network ``cfg``: the PFN and the
+    vertical encoder of the checkpoint ``npz``, the backbone, neck and head
+    drawn by ``init_parameters`` from seed 0."""
+    from objectdetection_3d_tpu_torch.models.network import init_parameters
+    from objectdetection_3d_tpu_torch.models.weights import load_npz
+
+    flat = PointPillars(dict(cfg, use_dense_backbone=False), device=device)
+    load_npz(flat.net, npz)
+    encoder = flat.net.state_dict()
+    model = PointPillars(cfg, device=device)
+    init_parameters(model.net, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for k, v in model.net.state_dict().items():
+            if k.startswith(("voxel_encoder.", "pseudoimage_generator.")):
+                v.copy_(encoder[k])
+    return model_state(model)
+
+
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -102,10 +176,14 @@ def _sync(device):
 def train(case, mesh=None):
     """One train step (``case["microbatch"]``, ``case["spatial"]``) from
     ``case["state"]`` on ``case["batch"]``, AdamW from ``case["opt"]`` with
-    ``case["clip"]``.  Returns the losses, the state after the step, the
-    gradients the update took (after the clip), the kernel launches of
-    the step and its wall ms (the model's first step)."""
+    ``case["clip"]``; with ``case["float64"]`` through the float64
+    instrument (:func:`to_float64`).  Returns the losses, the state after
+    the step, the gradients the update took (after the clip), the kernel
+    launches of the step and its wall ms (the model's first step)."""
     model = load_model(case["cfg"], case["device"], case["state"])
+    float64 = case.get("float64", False)
+    if float64:
+        to_float64(model)
     tx = model.get_optimizer(case["opt"], grad_clip_value=case.get("clip"))
     microbatch = case.get("microbatch")
     if mesh is None:
@@ -116,7 +194,8 @@ def train(case, mesh=None):
             space_axis="space" if case.get("spatial") else None)
     reset_launches()
     t = time.perf_counter()
-    losses = step(case["batch"])
+    with float64_grid() if float64 else contextlib.nullcontext():
+        losses = step(case["batch"])
     _sync(case["device"])
     ms = (time.perf_counter() - t) * 1e3
     return {"losses": {k: float(v) for k, v in losses.items()},
@@ -383,6 +462,61 @@ def run_cases(rank, cases):
     return results
 
 
+def leaf_errors(ranks, want):
+    """{parameter: the largest |gradient difference| of any of ``ranks``
+    against the :func:`train` result ``want``}."""
+    return {k: max(float((r["grads"][k].double() - g.double()).abs().max())
+                   for r in ranks) for k, g in want["grads"].items()}
+
+
+def c16_readings(extent, n_trees, n_points, budget, npz, init_dir):
+    """ROADMAP C16's CPU readings at one window of the flagship's range:
+    the dense backbone at the flagship's widths (``dense_backbone_state``)
+    on ``scene.tree_scene(1, extent, n_trees, n_points)`` with point and
+    voxel budgets ``budget``; its step float32 and through the float64
+    instrument, whole in this process and split 1 x 2 over gloo (ranks
+    spawned with their rendezvous in ``init_dir``).  Returns each run's
+    seconds and, per parameter, its largest float64 gradient element
+    (``max64``) and the largest errors against the float64 whole step of
+    the float32 whole (``whole32``), float32 split (``split32``) and
+    float64 split (``split64``) steps, and of the float32 split against
+    the float32 whole (``split32_vs_whole32``)."""
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.parallel import spawn
+    from objectdetection_3d_tpu_torch.scene import make_batch, tree_scene
+
+    cfg = window_cfg(dense_backbone_cfg(configs.flagship_cfg(
+        {"compute_dtype": "float32"})), extent, budget)
+    case = dict(kind="train", cfg=cfg, state=dense_backbone_state(cfg, npz),
+                batch=make_batch(tree_scene(1, extent=extent,
+                                            n_trees=n_trees,
+                                            n_points=n_points), budget),
+                device="cpu", opt=dict(lr=1e-3, betas=[0.95, 0.99],
+                                       weight_decay=0.01),
+                clip=2.0, mesh=(1, 2))
+    runs, seconds = {}, {}
+    for prec in ("32", "64"):
+        c = dict(case, float64=prec == "64")
+        t = time.perf_counter()
+        runs["whole" + prec] = train(c)
+        seconds["whole" + prec] = time.perf_counter() - t
+        t = time.perf_counter()
+        ranks = spawn(run_cases, 2, init_dir, args=([dict(c, spatial=True)],))
+        runs["split" + prec] = [r[0] for r in ranks]
+        seconds["split" + prec] = time.perf_counter() - t
+    w64, w32 = runs["whole64"], runs["whole32"]
+    errors = {"whole32": leaf_errors([w32], w64),
+              "split32": leaf_errors(runs["split32"], w64),
+              "split64": leaf_errors(runs["split64"], w64),
+              "split32_vs_whole32": leaf_errors(runs["split32"], w32)}
+    leaves = {k: {"max64": float(g.abs().max()),
+                  "max32": float(w32["grads"][k].abs().max()),
+                  **{name: e[k] for name, e in errors.items()}}
+              for k, g in w64["grads"].items()}
+    return {"seconds": seconds, "losses32": w32["losses"],
+            "losses64": w64["losses"], "leaves": leaves}
+
+
 def max_diff(a, b):
     """The largest absolute difference of two equal-shaped arrays."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -408,13 +542,17 @@ def bf16_ulp(x):
         return np.where(x > 0, 2.0 ** (np.floor(np.log2(x)) - 7), 0.0)
 
 
-def check_step(ranks, want, lr, bf16_start=None, grad_scale="leaf"):
+def leaf_tol(want, rtol):
+    """{parameter: ``rtol`` of its largest gradient element in the
+    :func:`train` result ``want``}."""
+    return {k: rtol * float(g.abs().max()) for k, g in want["grads"].items()}
+
+
+def check_step(ranks, want, lr, bf16_start=None, grad_tol=None):
     """Hold every rank's :func:`train` result against the one-device
     ``want``: losses at ``LOSS_TOL``; each gradient the update took
-    within ``GRAD_RTOL`` of its parameter's largest gradient element
-    (``grad_scale="step"``: of the step's largest gradient element, for
-    a float32 step whose small leaves are sums that nearly cancel);
-    parameters and running statistics at ``PARAM_TOL``, but within 2 lr
+    within ``grad_tol[parameter]`` (default: ``GRAD_RTOL`` of its
+    parameter's largest gradient element, :func:`leaf_tol`); parameters and running statistics at ``PARAM_TOL``, but within 2 lr
     (and the values' float32 rounding) where the gradient lies within its
     tolerance of 0 (AdamW's first step moves an element by lr * g / (|g|
     + 1e-8), so there it follows the summation order's rounding); every
@@ -454,8 +592,6 @@ def check_step(ranks, want, lr, bf16_start=None, grad_scale="leaf"):
     def rel(v, tol):
         return tol["atol"] + tol["rtol"] * np.abs(v)
 
-    step_max = max(float(np.abs(g.numpy()).max(initial=0.0))
-                   for g in want["grads"].values())
     for got in ranks:
         assert set(got["losses"]) == set(want["losses"])
         for k, v in want["losses"].items():
@@ -474,10 +610,10 @@ def check_step(ranks, want, lr, bf16_start=None, grad_scale="leaf"):
                 hold("stat", got_v, v, tol, k)
                 continue
             g, g_want = got["grads"][k].numpy(), want["grads"][k].numpy()
-            g_max = (step_max if grad_scale == "step"
-                     else np.abs(g_want).max(initial=0.0))
+            g_max = np.abs(g_want).max(initial=0.0)
             tol = (BF16_ULPS * bf16_ulp(g_max) if bf16_start is not None
-                   else GRAD_RTOL * g_max)
+                   else GRAD_RTOL * g_max if grad_tol is None
+                   else grad_tol[k])
             hold("grad", g, g_want, tol, k)
             live = np.abs(g_want) > tol
             hold("param", got_v[live], v[live], rel(v[live], PARAM_TOL), k)
@@ -506,3 +642,60 @@ def check_preds(got, want):
                                np.asarray(want["bbox"]), atol=1e-3)
     return {"bbox": max_diff(got["bbox"], want["bbox"]),
             "score": max_diff(got["score"], want["score"])}
+
+
+def main():
+    """``PYTHONPATH=. python tests/rank_cases.py [EXTENT:TREES:POINTS:BUDGET
+    ...]`` from the repository root:
+    :func:`c16_readings` at each window (default 25.6 m, 5 trees, 40,960
+    points, budgets 65,536), the shares of ROADMAP C16's gates printed and
+    every reading written to ``chiprun_out/c16_cpu_readings.json``.
+    ``THREADS`` sets this process's threads (the ranks take half each)."""
+    import json
+    import os
+    import sys
+    import tempfile
+
+    import rank_cases   # by name: the spawned ranks import it so
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    npz = os.path.join(repo, "artifacts", "overfit_ckpt.npz")
+    threads = int(os.environ.get("THREADS", os.cpu_count()))
+    torch.set_num_threads(threads)
+    os.environ["OMP_NUM_THREADS"] = str(max(1, threads // 2))
+    report = {"threads": threads, "cpus": os.cpu_count(), "windows": {}}
+    for spec in sys.argv[1:] or ["25.6:5:40960:65536"]:
+        extent, n_trees, n_points, budget = spec.split(":")
+        with tempfile.TemporaryDirectory() as init_dir:
+            got = rank_cases.c16_readings(float(extent), int(n_trees),
+                                          int(n_points), int(budget), npz,
+                                          init_dir)
+        report["windows"][extent] = dict(
+            got, n_trees=int(n_trees), n_points=int(n_points),
+            budget=int(budget))
+        leaves = got["leaves"]
+        share32 = {k: v["split32_vs_whole32"] / (1e-4 * v["max32"])
+                   for k, v in leaves.items()}
+        share64 = {k: v["split64"] / (1e-6 * v["max64"])
+                   for k, v in leaves.items()}
+        # the c each leaf needs under the f of chip_smoke.py's C16 gate
+        need = {k: (v["split32"] - 1e-6 * v["max64"]) / v["whole32"]
+                if v["whole32"] > 0 else 0.0 for k, v in leaves.items()}
+        for name, d in (("float32 split against float32 whole, share of "
+                         "1e-4", share32),
+                        ("float64 split against float64 whole, share of "
+                         "1e-6", share64),
+                        ("float32 split error over float32 whole error "
+                         "(against float64, f = 1e-6)", need)):
+            top = max(d, key=d.get)
+            print(f"{extent} m: {name}: largest {d[top]:.4g} on {top}",
+                  flush=True)
+        print(f"{extent} m: seconds {got['seconds']}", flush=True)
+        os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(repo, "chiprun_out", "c16_cpu_readings.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """The port stands alone: no module of it, not ``chip_smoke.py`` and not
 ``tests/rank_cases.py`` (what the port's ranks run in the tests and in
-``chip_smoke.py``) imports JAX, flax, optax or the JAX package; its
-configs are faithful copies of the JAX package's."""
+``chip_smoke.py``) imports JAX, flax, optax or the JAX package, nor
+``tests/make_jax_flagship_reference.py`` (phase 22 reads its file with
+numpy); its configs are faithful copies of the JAX package's."""
 
 import ast
 import pathlib
@@ -80,6 +81,24 @@ PARALLEL_MODULES = tuple(
 @pytest.mark.parametrize("module", PARALLEL_MODULES)
 def test_native_and_parallel_modules_are_walked(module):
     assert ROOT / module in _sources()
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_the_jax_reference_script(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] == "make_jax_flagship_reference"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# chip_smoke.py's phases that hold the port against the JAX package's
+# reference file (22) and against the float64 instrument (19c)
+@pytest.mark.parametrize("name", ["full_width_phase", "c16_phase"])
+def test_reference_phases_are_walked(name):
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    assert name in {n.name for n in tree.body
+                    if isinstance(n, ast.FunctionDef)}
+    assert ROOT / "chip_smoke.py" in _sources()
 
 
 def test_rule_tells_the_port_from_the_jax_package():

@@ -30,6 +30,14 @@ tolerances (``tests/test_parallel.py``, ``test_pipeline_parallel.py``;
   backbone's strides do not divide (ROADMAP C14);
 * the spatial step under ``tpu.remat`` bitwise the step without (the
   recompute repeats the batch-norm sums and halo exchanges);
+* ROADMAP C16: the dense backbone at the flagship's widths (phase 19c's
+  weights: the npz's PFN and encoder, a seeded backbone, neck and head)
+  on a 6.4 x 6.4 m window (a 64 x 64 x 100 grid), its spatial 1 x 2 step
+  against one device per leaf: in float32 at 1e-4 of each leaf's
+  largest gradient element, and through the float64 instrument
+  (``rank_cases.to_float64``) at 1e-6; the instrument changes no float32
+  or bfloat16 result by a bit (the tiny step and predict against the
+  batch norms, the PFN's max and the head as they were before it);
 * a mesh of another size than the world raises ``ValueError``;
 * the pipeline at ``data_parallel: 2`` against one device at batch 2,
   step by step (rtol 3e-4, atol 1e-5), with only rank 0 writing files,
@@ -52,12 +60,14 @@ import pytest
 import torch
 
 from objectdetection_3d_tpu_torch import configs
+from objectdetection_3d_tpu_torch.models import layers
 from objectdetection_3d_tpu_torch.models.detector import PointPillars
 from objectdetection_3d_tpu_torch.parallel import (
     make_sharded_train_step,
     spawn,
 )
 from objectdetection_3d_tpu_torch.parallel.launch import default_backend
+from objectdetection_3d_tpu_torch.scene import make_batch, tree_scene
 import rank_cases as rr
 from test_torch_port_parked import (
     _assert_predict,
@@ -67,6 +77,9 @@ from test_torch_port_parked import (
 from tiny import tiny_batch
 
 torch.set_num_threads(1)
+
+NPZ = os.path.join(os.path.dirname(__file__), "..", "artifacts",
+                   "overfit_ckpt.npz")
 
 OPT = dict(lr=3e-3, betas=[0.95, 0.99], weight_decay=0.01)
 AUGMENT = {"rotate": {"min": 0.0, "max": 6.28}, "flip_x": True,
@@ -185,6 +198,20 @@ def _network_cases(mesh, jax_networks, train=False):
     return cases
 
 
+def _flagship_dense_backbone_cases():
+    """ROADMAP C16's spatial steps: the dense backbone at the flagship's
+    widths on a 6.4 x 6.4 m window (H / 2 = 32 keeps its strides, C14),
+    16,000 points of three trunks, float32 and float64."""
+    cfg = rr.window_cfg(rr.dense_backbone_cfg(configs.flagship_cfg(
+        {"compute_dtype": "float32"})), 6.4, 16_384)
+    case = _case("train", (1, 2), cfg=cfg, spatial=True,
+                 state=rr.dense_backbone_state(cfg, NPZ),
+                 batch=make_batch(tree_scene(1, extent=6.4, n_trees=3,
+                                             n_points=16_000), 16_384))
+    return {"flagship_dense_backbone_float32": case,
+            "flagship_dense_backbone_float64": dict(case, float64=True)}
+
+
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory, workspace, jax_spatial, jax_networks):
     cfg = configs.tiny_model_cfg()
@@ -216,6 +243,7 @@ def world2(tmp_path_factory, workspace, jax_spatial, jax_networks):
             "train", (1, 2), cfg=no_remat, state=state, spatial=True,
             batch=tiny_batch(batch_size=2, seed=5)),
         **_network_cases((1, 2), jax_networks, train=True),
+        **_flagship_dense_backbone_cases(),
         "stat_groups": dict(kind="stat_groups", mesh=(1, 2),
                             device="cpu", cfg=cfg),
         "stat_groups_sparse_middle": dict(
@@ -336,6 +364,147 @@ def test_spatial_step_with_remat_is_bitwise_the_step_without(world2):
 @pytest.mark.parametrize("network", NETWORKS)
 def test_spatial_step_of_other_networks_matches_one_device(world2, network):
     _check_step(*world2[f"spatial_train_{network}"])
+
+
+@pytest.mark.parametrize("precision, rtol", [("float32", rr.GRAD_RTOL),
+                                             ("float64", 1e-6)])
+def test_flagship_width_dense_backbone_split_step_per_leaf(world2,
+                                                           precision, rtol):
+    """ROADMAP C16: the dense backbone's spatial step at the flagship's
+    widths against one device, each gradient within ``rtol`` of its
+    leaf's largest element; through the float64 instrument the split
+    does one device's arithmetic to 1e-6 of every leaf."""
+    ranks, case = world2[f"flagship_dense_backbone_{precision}"]
+    want = rr.train({k: v for k, v in case.items() if k != "spatial"})
+    assert want["losses"]["num_pos"] > 0
+    dtype = getattr(torch, precision)
+    assert all(g.dtype == dtype for g in want["grads"].values())
+    rr.check_step(ranks, want, OPT["lr"],
+                  grad_tol=rr.leaf_tol(want, rtol))
+
+
+# the batch norms' statistics, the PFN's max and the head's output type
+# as they were before the float64 instrument (float32 fixed)
+def _stats_before(self, x, mask):
+    if not self.training:
+        return self.running_mean, self.running_var
+    m = mask.to(torch.float32)
+    xf = x.float()
+    dims = [d for d in range(x.dim()) if d != 1]
+    if self.stats_sum is None:
+        count = torch.clamp(m.sum(), min=1.0)
+        mean = (xf * m).sum(dim=dims) / count
+        var = (((xf - layers._bcast(mean, x.dim(), torch.float32)) ** 2)
+               * m).sum(dim=dims) / count
+    else:
+        tot = self.stats_sum(torch.cat([(xf * m).sum(dim=dims),
+                                        m.sum()[None]]))
+        count = torch.clamp(tot[-1], min=1.0)
+        mean = tot[:-1] / count
+        var = self.stats_sum(
+            (((xf - layers._bcast(mean, x.dim(), torch.float32)) ** 2)
+             * m).sum(dim=dims)) / count
+    if self._moves_running():
+        self._update_running(mean.detach(), var.detach(), count)
+    return mean, var
+
+
+def _point_bn_before(self, x, pt_valid, total_slots):
+    m = pt_valid.to(torch.float32)[:, None]
+    if self.training:
+        xf = x.float()
+        if self.stats_sum is None:
+            count = torch.clamp(total_slots.to(torch.float32), min=1.0)
+            mean = (xf * m).sum(dim=0) / count
+            n_real = m.sum()
+            centred = (((xf - mean) ** 2) * m).sum(dim=0)
+        else:
+            tot = self.stats_sum(torch.cat([
+                (xf * m).sum(dim=0), total_slots.to(torch.float32)[None],
+                m.sum()[None]]))
+            count = torch.clamp(tot[-2], min=1.0)
+            mean = tot[:-2] / count
+            n_real = tot[-1]
+            centred = self.stats_sum((((xf - mean) ** 2) * m).sum(dim=0))
+        var = (centred + (count - n_real) * mean ** 2) / count
+        if self._moves_running():
+            self._update_running(mean.detach(), var.detach(), count)
+    else:
+        mean, var = self.running_mean, self.running_var
+    dt = x.dtype
+    mean_t = mean.to(dt)
+    inv = torch.rsqrt(var + self.eps).to(dt)
+    scale, bias = self.weight.to(dt), self.bias.to(dt)
+    y = (x - mean_t) * inv
+    y = y * scale + bias
+    pad_y = (torch.zeros_like(mean_t) - mean_t) * inv * scale + bias
+    return y * m.to(dt), pad_y
+
+
+def _pfn_before(self, x, seg, pt_valid, counts, total_slots):
+    y = torch.nn.functional.linear(x.to(self.dtype),
+                                   self.linear.weight.to(self.dtype))
+    y, pad_y = self.norm(y, pt_valid, total_slots)
+    y = torch.relu(y)
+    floor = torch.relu(pad_y)
+    units = y.shape[1]
+    vals = torch.where(pt_valid[:, None], y.float(),
+                       torch.full_like(y, float("-inf"),
+                                       dtype=torch.float32))
+    pooled = torch.full((counts.shape[0], units), float("-inf"),
+                        dtype=torch.float32, device=y.device)
+    pooled = pooled.scatter_reduce_(
+        0, seg.long()[:, None].expand(-1, units), vals, "amax")
+    pooled = pooled.to(y.dtype)
+    return torch.where(counts[:, None] < self.max_slots,
+                       torch.maximum(pooled, floor[None, :]), pooled)
+
+
+def _head_before(self, x):
+    dt = self.dtype
+    x = x.to(dt)
+    outs = []
+    for conv in (self.conv_cls, self.conv_reg, self.conv_dir):
+        y = torch.nn.functional.conv2d(x, conv.weight.to(dt),
+                                       conv.bias.to(dt))
+        outs.append(y.float().permute(0, 2, 3, 1))
+    return tuple(outs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("network", ["default", "dense_backbone"])
+def test_float64_instrument_changes_no_float32_or_bf16_bit(
+        monkeypatch, network, dtype):
+    """The tiny step (losses, gradients, parameters, running statistics)
+    and predict, bitwise equal to the same runs with the code the float64
+    instrument replaced."""
+    cfg = (_dense_backbone_cfg() if network == "dense_backbone"
+           else configs.tiny_model_cfg())
+    cfg["tpu"] = dict(cfg["tpu"], compute_dtype=dtype)
+    step = _case("train", None, cfg=cfg, state=_state(cfg),
+                 batch=tiny_batch(batch_size=2, seed=5))
+    pred = dict(step, kind="predict", fn="predict")
+
+    def runs():
+        return rr.train(step), rr.predict(pred)["preds"]
+
+    after = runs()
+    for cls, name, fn in (
+            (layers.MaskedBatchNorm, "_stats", _stats_before),
+            (layers.PointMaskedBN, "forward", _point_bn_before),
+            (layers.PFNLayerPoints, "forward", _pfn_before),
+            (layers.Anchor3DHead, "forward", _head_before)):
+        monkeypatch.setattr(cls, name, fn)
+    before = runs()
+    assert after[0]["losses"] == before[0]["losses"]
+    for part in ("grads", "state"):
+        src = before[0][part] if part == "grads" else before[0][part]["net"]
+        dst = after[0][part] if part == "grads" else after[0][part]["net"]
+        assert list(dst) == list(src)
+        for k, v in src.items():
+            assert dst[k].dtype == v.dtype and torch.equal(dst[k], v), k
+    for k, v in before[1].items():
+        assert torch.equal(after[1][k], v), k
 
 
 def test_dense_backbone_needs_slabs_its_strides_keep():
