@@ -65,6 +65,7 @@ from objectdetection_3d_tpu_torch.ops.assign_geometry import combo_table
 from objectdetection_3d_tpu_torch.ops.boxes import limit_period
 from objectdetection_3d_tpu_torch.ops.nms import multiclass_nms
 from objectdetection_3d_tpu_torch.ops.voxelize import Voxelizer
+from objectdetection_3d_tpu_torch.profiling import span
 
 
 log = logging.getLogger(__name__)
@@ -340,13 +341,16 @@ class PointPillars(BaseModel):
         return outs, dict(self.net.named_buffers())
 
     def _forward(self, batch):
-        points, num_points = self._batch_tensors(batch)
+        with span("predict.voxelize"):
+            points, num_points = self._batch_tensors(batch)
+            if self.use_point_pfn:
+                vox = self.voxel_layer.points_batch(points, num_points)
+            else:
+                vox = self.voxel_layer(points, num_points)
         if self.use_point_pfn:
-            vox = self.voxel_layer.points_batch(points, num_points)
             return self.net(vox["num_points_per_voxel"], vox["coords"],
                             vox["voxel_mask"], vox["points"],
                             vox["pt_voxel"], vox["pt_valid"])
-        vox = self.voxel_layer(points, num_points)
         return self.net(vox["num_points_per_voxel"], vox["coords"],
                         vox["voxel_mask"], voxels=vox["voxels"])
 
@@ -364,7 +368,7 @@ class PointPillars(BaseModel):
         boxes = torch.as_tensor(inputs["bboxes"], device=self.device)
         labels = torch.as_tensor(inputs["labels"], device=self.device)
         mask = torch.as_tensor(inputs["gt_mask"], device=self.device)
-        with torch.profiler.record_function("assignment"):
+        with span("assignment"):
             outs = [assign_targets(
                 self.anchors, boxes[i], labels[i], mask[i], self._pos_thr,
                 self._neg_thr, self.anchor_layout,
@@ -532,8 +536,8 @@ class PointPillars(BaseModel):
             (:meth:`augment`; once per chunk under accumulation), forward
             in train mode, assignment, losses, backward, clip and update;
             the net's parameters and running statistics and the
-            optimizer's state change in place.  The phases are
-            ``torch.profiler`` ranges (``forward``, ``assignment`` inside
+            optimizer's state change in place.  The phases are spans
+            (``profiling.span``: ``forward``, ``assignment`` inside
             ``loss+backward``, ``optimizer``; per chunk under
             accumulation), which ``profile_train`` reads from a trace.
 
@@ -548,21 +552,20 @@ class PointPillars(BaseModel):
         """
         if microbatch is not None:
             return self._accum_step(tx, int(microbatch), shard)
-        record = torch.profiler.record_function
         params = [p for group in tx.param_groups for p in group["params"]]
 
         def step(batch):
             batch = self.augment(batch, None if shard is None
                                  else shard.batch_rows(len(batch["points"])))
-            with record("forward"), _sharded(shard, self.net):
+            with span("forward"), _sharded(shard, self.net):
                 outs, _ = self.apply(batch, train=True)
-            with record("loss+backward"):
+            with span("loss+backward"):
                 losses, num_pos = self.loss(outs, batch, with_num_pos=True,
                                             shard=shard)
                 total = sum(losses.values())
                 tx.zero_grad(set_to_none=True)
                 total.backward()
-            with record("optimizer"):
+            with span("optimizer"):
                 if shard is not None:
                     shard.sum_grads(params)
                 tx.step()
@@ -594,7 +597,6 @@ class PointPillars(BaseModel):
         rows of it, and the summed gradients are summed over the ranks
         before the update.
         """
-        record = torch.profiler.record_function
         params = [p for group in tx.param_groups for p in group["params"]]
 
         def step(batch):
@@ -610,9 +612,9 @@ class PointPillars(BaseModel):
                     {k: v[start:start + microbatch]
                      for k, v in batch.items()},
                     None if shard is None else shard.batch_rows(microbatch))
-                with record("forward"), _sharded(shard, self.net):
+                with span("forward"), _sharded(shard, self.net):
                     outs, _ = self.apply(mb, train=True)
-                with record("loss+backward"):
+                with span("loss+backward"):
                     losses, n_i = self.loss(outs, mb, with_num_pos=True,
                                             shard=shard)
                     grads = torch.autograd.grad(sum(losses.values()),
@@ -629,7 +631,7 @@ class PointPillars(BaseModel):
                     n_total = n_total + n_i
                     # the chunk's head outputs go before the next forward
                     del outs, grads
-            with record("optimizer"):
+            with span("optimizer"):
                 total_pos = torch.clamp(n_total, min=1.0)
                 for p, g in zip(params, sums):
                     p.grad = (None if g is None
@@ -684,8 +686,9 @@ class PointPillars(BaseModel):
         dirs_sel = dirs.reshape(-1, 6)[top_idx]
         bins_sel = dirs_sel.reshape(-1, 3, 2).argmax(dim=-1)
 
-        keep = multiclass_nms(boxes, scores_sel, score_thr, nms_thresh,
-                              nms_dim=self.nms_dim)
+        with span("predict.nms"):
+            keep = multiclass_nms(boxes, scores_sel, score_thr, nms_thresh,
+                                  nms_dim=self.nms_dim)
 
         # direction recovery per rotation axis
         rot = boxes[:, -3:]
@@ -715,7 +718,8 @@ class PointPillars(BaseModel):
             dict of ``bbox`` (B, K, 9), ``label`` (B, K) int32, ``score``
             (B, K) and ``valid`` (B, K) bool, K = max detections.
         """
-        return self.predict_traceable(batch, anchors)
+        with span("predict"):
+            return self.predict_traceable(batch, anchors)
 
     def predict_traceable(self, batch, anchors=None):
         """:meth:`predict` without its inference mode, which
@@ -731,9 +735,10 @@ class PointPillars(BaseModel):
     def _decode(self, outs, anchors):
         """Head outputs -> stacked per-item detections."""
         cls, reg, dirs = outs
-        items = [self._predict_single(cls[i], reg[i], dirs[i], anchors)
-                 for i in range(cls.shape[0])]
-        return {k: torch.stack([o[k] for o in items]) for k in items[0]}
+        with span("predict.decode_nms"):
+            items = [self._predict_single(cls[i], reg[i], dirs[i], anchors)
+                     for i in range(cls.shape[0])]
+            return {k: torch.stack([o[k] for o in items]) for k in items[0]}
 
     def make_predict_fn(self):
         """``run(batch) -> predict(batch)`` with the model's anchors."""

@@ -42,6 +42,7 @@ from torch import nn
 from objectdetection_3d_tpu_torch.ops.fused_stage import fused_stage
 from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
 from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
+from objectdetection_3d_tpu_torch.profiling import span
 
 
 # > 0 while a checkpointed region of the network (``tpu.remat``) runs its
@@ -632,13 +633,15 @@ class SparseMiddleExtractor(nn.Module):
             y = fused_stage(_ndhwc(x), mask[:, 0], *self.fused_stage_args(i))
             return _ncdhw(y), F.max_pool3d(mask, (3, 1, 1), (2, 1, 1))
         x = self._subm_conv3d(x, i)
-        x = x * mask
-        x = F.relu(getattr(self, f"subm_bn_{i}")(x, mask))
+        with span("encoder.norm"):
+            x = x * mask
+            x = F.relu(getattr(self, f"subm_bn_{i}")(x, mask))
 
         wd = getattr(self, f"down_{i}_kernel").to(self.dtype)
         x = F.conv3d(x, wd, stride=(2, 1, 1))
-        mask = F.max_pool3d(mask, (3, 1, 1), (2, 1, 1))
-        x = F.relu(getattr(self, f"down_bn_{i}")(x, mask))
+        with span("encoder.norm"):
+            mask = F.max_pool3d(mask, (3, 1, 1), (2, 1, 1))
+            x = F.relu(getattr(self, f"down_bn_{i}")(x, mask))
         return x, mask
 
     def forward(self, grid, mask):

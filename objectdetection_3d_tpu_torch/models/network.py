@@ -43,6 +43,7 @@ from objectdetection_3d_tpu_torch.models.sparse_middle import (
 )
 from objectdetection_3d_tpu_torch.ops.grid_scatter import scatter_to_grid
 from objectdetection_3d_tpu_torch.ops.sparse_conv import flatten_cells
+from objectdetection_3d_tpu_torch.profiling import span
 
 # the values of ``tpu.remat`` and the regions each recomputes
 REMAT_REGIONS = {False: (), True: ("middle", "rpn"), "all": ("middle", "rpn"),
@@ -181,39 +182,44 @@ class PointPillarsNet(nn.Module):
             float32; (H', W') is the grid's (H, W), or the neck's.
         """
         b, v = num_points.shape
-        if self.point_pfn:
-            feats = self._point_feats(num_points, coords, voxel_mask,
-                                      points, pt_voxel, pt_valid)
-        else:
-            m, c = voxels.shape[2:]
-            feats = self.voxel_encoder(
-                voxels.reshape(b * v, m, c), num_points.reshape(b * v),
-                coords.reshape(b * v, 3), voxel_mask.reshape(b * v))
-        feats = feats.reshape(b, v, -1).to(self.dtype)
+        with span("predict.pfn_grid"):
+            if self.point_pfn:
+                feats = self._point_feats(num_points, coords, voxel_mask,
+                                          points, pt_voxel, pt_valid)
+            else:
+                m, c = voxels.shape[2:]
+                feats = self.voxel_encoder(
+                    voxels.reshape(b * v, m, c), num_points.reshape(b * v),
+                    coords.reshape(b * v, 3), voxel_mask.reshape(b * v))
+            feats = feats.reshape(b, v, -1).to(self.dtype)
+            if self.sparse_middle:
+                # the voxelizer emits cells sorted by flat id, the order
+                # the gather encoder's active sets keep
+                cell_flat = torch.stack([flatten_cells(coords[i], self.grid)
+                                         for i in range(b)])
+            else:
+                grid, mask = self._dense_grid(feats, coords, voxel_mask)
 
-        if self.sparse_middle:
-            # the voxelizer emits cells sorted by flat id, the order the
-            # gather encoder's active sets keep
-            cell_flat = torch.stack([flatten_cells(coords[i], self.grid)
-                                     for i in range(b)])
-            pseudo = self.pseudoimage_generator(feats, coords, cell_flat,
-                                                voxel_mask)
-            if self.rows is not None:
-                # the encoder ran whole; this rank keeps its slab of H
-                pseudo = pseudo[:, :, self.rows[0]:self.rows[1]]
-        else:
-            grid, mask = self._dense_grid(feats, coords, voxel_mask)
-            # NDHWC memory seen as NCDHW (channels_last_3d): no copy
-            pseudo = self._region("middle", self.pseudoimage_generator,
-                                  grid.permute(0, 4, 1, 2, 3), mask)
-        if self.use_dense_backbone:
-            x = self.neck(self.backbone(pseudo))
-        else:
-            # the reference re-derives the 2D active set from nonzero
-            # pixels
-            rpn_mask = (pseudo != 0).any(dim=1, keepdim=True)
-            x = self._region("rpn", self.sparse_rpn, pseudo, rpn_mask)
-        return self.bbox_head(x)
+        with span("predict.encoder"):
+            if self.sparse_middle:
+                pseudo = self.pseudoimage_generator(feats, coords, cell_flat,
+                                                    voxel_mask)
+                if self.rows is not None:
+                    # the encoder ran whole; this rank keeps its slab of H
+                    pseudo = pseudo[:, :, self.rows[0]:self.rows[1]]
+            else:
+                # NDHWC memory seen as NCDHW (channels_last_3d): no copy
+                pseudo = self._region("middle", self.pseudoimage_generator,
+                                      grid.permute(0, 4, 1, 2, 3), mask)
+        with span("predict.rpn_head"):
+            if self.use_dense_backbone:
+                x = self.neck(self.backbone(pseudo))
+            else:
+                # the reference re-derives the 2D active set from nonzero
+                # pixels
+                rpn_mask = (pseudo != 0).any(dim=1, keepdim=True)
+                x = self._region("rpn", self.sparse_rpn, pseudo, rpn_mask)
+            return self.bbox_head(x)
 
     def _region(self, name, module, *args):
         """``module(*args)``; checkpointed (its activations recomputed in

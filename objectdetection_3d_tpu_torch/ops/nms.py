@@ -8,9 +8,10 @@ The fixpoint is a ``while_loop`` operator (``torch.ops.higher_order``),
 so ``torch.export`` takes it as one node with its cond and body graphs
 and the exported predict has no data-dependent control flow in Python.
 Eager mode runs the same operator, whose loop reads its condition on the
-host once per round (on CUDA a sync per round, as the Python loop did);
-a predict free of host syncs, which a CUDA graph would need, is not
-built yet.  The operator is called directly, with the suppression matrix
+host once per round (on CUDA a sync per round, as the Python loop did;
+the counter ``nms.rounds`` counts the reads while a profiler records); a
+predict free of host syncs, which a CUDA graph would need, is not built
+yet.  The operator is called directly, with the suppression matrix
 as an additional input: the public ``while_loop`` function compiles its
 arguments with ``torch.compile`` on every eager call.
 
@@ -28,6 +29,7 @@ from objectdetection_3d_tpu_torch.ops.boxes import (
     rotated_corners_2d_envelope,
 )
 from objectdetection_3d_tpu_torch.ops.iou3d import iou3d, obb_intersect
+from objectdetection_3d_tpu_torch.profiling import count
 
 # at or below this threshold "iou > thr" means "any overlap", which the
 # exact SAT intersection test decides
@@ -35,6 +37,7 @@ _SAT_THRESH = 1e-4
 
 
 def _keep_cond(it, kept, prev, s_upper, valid):
+    count("nms.rounds")
     return (it < valid.shape[0]) & (kept != prev).any()
 
 

@@ -733,10 +733,10 @@ class ObjectDetection(BasePipeline):
                 else:
                     losses = train_step(arrays)
                 losses.pop("num_pos")
-                timer.step()
-
                 desc = "training - "
                 vals = {k: float(v) for k, v in losses.items()}
+                # the losses are on the host: the step has finished
+                timer.step()
                 for k, val in vals.items():
                     if np.isnan(val) and self.cfg.get("halt_on_nan", True):
                         raise FloatingPointError(

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from objectdetection_3d_tpu_torch.ops.nms import multiclass_nms
+from objectdetection_3d_tpu_torch.profiling import span
 
 SENTINEL = 1e9   # a coordinate outside every window
 
@@ -288,6 +289,10 @@ class TiledInference:
         Returns:
             list of {'bbox', 'label', 'score'} dicts in scene coordinates.
         """
+        with span("plot"):
+            return self._detect(points)
+
+    def _detect(self, points):
         points = np.asarray(points, np.float32)
         lo = points[:, :3].min(axis=0)
         hi = points[:, :3].max(axis=0)
@@ -309,52 +314,57 @@ class TiledInference:
             shifts_np = np.concatenate(
                 [shifts_np, np.repeat(shifts_np[-1:], pad_tiles, 0)])
 
-        if self.device_crop:
-            lo0 = float(lo[0])
-            sorted_scene, key = self._sort_scene_cols(
-                torch.as_tensor(points, device=dev), lo0)
-            shifts = torch.as_tensor(shifts_np, device=dev)
-            u = self._compaction_draws(dev)
-            num = torch.full((bt,), max_pts, dtype=torch.int32, device=dev)
-        else:
-            sorted_pts, starts, grid = self._bucket_sort(points, lo)
+        with span("plot.sort"):
+            if self.device_crop:
+                lo0 = float(lo[0])
+                sorted_scene, key = self._sort_scene_cols(
+                    torch.as_tensor(points, device=dev), lo0)
+                shifts = torch.as_tensor(shifts_np, device=dev)
+                u = self._compaction_draws(dev)
+                num = torch.full((bt,), max_pts, dtype=torch.int32,
+                                 device=dev)
+            else:
+                sorted_pts, starts, grid = self._bucket_sort(points, lo)
 
         # every chunk is enqueued before any result is read back
         pending = []
         for ci in range(n_chunks):
-            if self.device_crop:
-                batch = {"points": self._crop_cols(
-                    sorted_scene, key, shifts[ci * bt:(ci + 1) * bt], lo0,
-                    u), "num_points": num}
-            else:
-                batch_pts = np.zeros((bt, max_pts, points.shape[1]),
-                                     np.float32)
-                batch_n = np.zeros((bt,), np.int32)
-                for j in range(bt):
-                    x0, y0 = tiles[min(ci * bt + j, n_tiles - 1)]
-                    local = self._crop_tile(sorted_pts, starts, grid, lo,
-                                            pcr, x0, y0)
-                    batch_pts[j, :local.shape[0]] = local
-                    batch_n[j] = local.shape[0]
-                batch = {"points": batch_pts, "num_points": batch_n}
+            with span("plot.crop"):
+                if self.device_crop:
+                    batch = {"points": self._crop_cols(
+                        sorted_scene, key, shifts[ci * bt:(ci + 1) * bt],
+                        lo0, u), "num_points": num}
+                else:
+                    batch_pts = np.zeros((bt, max_pts, points.shape[1]),
+                                         np.float32)
+                    batch_n = np.zeros((bt,), np.int32)
+                    for j in range(bt):
+                        x0, y0 = tiles[min(ci * bt + j, n_tiles - 1)]
+                        local = self._crop_tile(sorted_pts, starts, grid,
+                                                lo, pcr, x0, y0)
+                        batch_pts[j, :local.shape[0]] = local
+                        batch_n[j] = local.shape[0]
+                    batch = {"points": batch_pts, "num_points": batch_n}
             pending.append(self._predict(batch))
 
-        # one copy to the host for the whole scene
-        packed = torch.cat([torch.cat(
-            [p["bbox"].float(), p["score"][..., None].float(),
-             p["label"][..., None].float(), p["valid"][..., None].float()],
-            dim=-1) for p in pending]).cpu().numpy()
-        all_boxes, all_scores, all_labels = [], [], []
-        for t, (x0, y0) in enumerate(tiles):
-            v = packed[t, :, 11] > 0
-            b = packed[t, v, :9].copy()
-            b[:, 0] += x0
-            b[:, 1] += y0
-            b[:, 2] += lo[2]
-            all_boxes.append(b)
-            all_scores.append(packed[t, v, 9])
-            all_labels.append(packed[t, v, 10].astype(np.int32))
-        return self._merge_host(all_boxes, all_scores, all_labels)
+        with span("plot.merge"):
+            # one copy to the host for the whole scene
+            packed = torch.cat([torch.cat(
+                [p["bbox"].float(), p["score"][..., None].float(),
+                 p["label"][..., None].float(),
+                 p["valid"][..., None].float()],
+                dim=-1) for p in pending]).cpu().numpy()
+            all_boxes, all_scores, all_labels = [], [], []
+            for t, (x0, y0) in enumerate(tiles):
+                v = packed[t, :, 11] > 0
+                b = packed[t, v, :9].copy()
+                b[:, 0] += x0
+                b[:, 1] += y0
+                b[:, 2] += lo[2]
+                all_boxes.append(b)
+                all_scores.append(packed[t, v, 9])
+                all_labels.append(packed[t, v, 10].astype(np.int32))
+            return self._merge_host(all_boxes, all_scores, all_labels)
 
     def _merge_host(self, all_boxes, all_scores, all_labels):
         if not all_boxes or sum(len(b) for b in all_boxes) == 0:
