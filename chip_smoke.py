@@ -72,7 +72,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     (TF32 off; within 1e-3 of the largest element) and in bf16 (within
     1e-2), timed beside its bound and cuDNN's conv (K9 per stage and
     direction, with its share of the bound; K10 per stage beside K8 on
-    the same stage); and K5 on 1.92 M
+    the same stage); K11 on cloud 0's ten real eval stage norms (bf16 and
+    float32, each bitwise equal to its plain version), timed beside its
+    bytes bound and the ATen chain it replaces; and K5 on 1.92 M
     aligned pairs, each flagship anchor against a random tree of cloud 0
     (the drive) and against a jittered copy of itself (dense), within
     1e-5 of the volume scale and exactly 0 wherever the plain
@@ -271,9 +273,9 @@ The last lines are the ``serving`` JSON line (phase 18's readings), the
 ``parallel`` JSON line (phase 19's), the ``parked`` JSON line (phase
 20's), the ``remat`` JSON line (phase 21's), the ``full_width`` JSON
 line (phase 22's), the ``kernels`` JSON line
-(all ten
+(all eleven
 kernels; K1 and K2 with ``launches_tiled`` and ``launches_tiled_batch2``;
-K1-K4, K6 and K7 with ``launches_data_path``; K1, K2, K8, K9 and K10
+K1-K4, K6 and K7 with ``launches_data_path``; K1, K2, K8-K11
 with ``launches_serving``, over phase 18's twelve served calls; every
 kernel with ``launches_parallel``, over phase 19(b)'s sharded step and
 predicts, and K1 and K2 with ``launches_parallel_gloo_ranks``, per rank
@@ -1060,6 +1062,91 @@ def encoder_kernels(model, batch):
     return entries
 
 
+def norm_entry(model, batch):
+    """Phase 10b, K11: the ten eval stage norms of cloud 0's predict (the
+    npz weights), each on its real input (the conv's output, the mask and
+    the batch norm's eval affine), in bf16 and float32 bitwise equal to the
+    plain version, then timed in bf16 beside its bound (x and the mask
+    read once, y written once), the plain version and the ATen chain it
+    replaces (``library_ms``).  Returns the ``kernels`` entry."""
+    import torch.nn.functional as F
+
+    from objectdetection_3d_tpu_torch.ops.masked_norm import (
+        masked_affine_relu,
+        masked_affine_relu_plain,
+    )
+
+    enc = model.net.pseudoimage_generator
+    ins = stage_inputs(model, batch, len(enc.out_channels))
+    rows = []
+    with torch.inference_mode():
+        for i, (x, m) in enumerate(ins):
+            xs = enc._subm_conv3d(x, i)
+            wd = getattr(enc, f"down_{i}_kernel").to(enc.dtype)
+            y = enc._eval_norm(xs, m, getattr(enc, f"subm_bn_{i}"))
+            md = F.max_pool3d(m, (3, 1, 1), (2, 1, 1))
+            xd = F.conv3d(y, wd, stride=(2, 1, 1))
+            del y
+            for kind, xk, mk in (("subm", xs, m), ("down", xd, md)):
+                bn = getattr(enc, f"{kind}_bn_{i}")
+                xn, mn = xk.permute(0, 2, 3, 4, 1), mk[:, 0].contiguous()
+                a, b = bn.eval_affine()
+                for dt in (torch.bfloat16, torch.float32):
+                    xi, mi = xn.to(dt), mn.to(dt)
+                    got = masked_affine_relu(xi, mi, a, b)
+                    want = masked_affine_relu_plain(xi, mi, a, b)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"K11 stage {i} {kind} ({dt}) differs from its "
+                            f"plain version by {max_abs_err(got, want)}")
+                    del got, want, xi, mi
+                b_, d, h, w, c = xn.shape
+                e, pix = b_ * d * h * w * c, b_ * d * h * w
+                itemsize = xn.element_size()
+                b_ms, b_by = bound(2 * e * itemsize + pix * itemsize
+                                   + 8 * c, 4 * e)
+                if kind == "subm":
+                    def chain(xk=xk, mk=mk, bn=bn):
+                        return F.relu(bn(xk * mk, mk))
+                else:
+                    def chain(xk=xk, mk=mk, bn=bn):
+                        return F.relu(bn(xk, mk))
+                ms = cuda_ms(lambda: masked_affine_relu(xn, mn, a, b), 10)
+                rows.append({
+                    "stage": i, "norm": kind, "shape": [b_, d, h, w, c],
+                    "ms": ms,
+                    "plain_ms": cuda_ms(
+                        lambda: masked_affine_relu_plain(xn, mn, a, b), 3),
+                    "library_ms": cuda_ms(chain, 10),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "share": b_ms / ms})
+                r = rows[-1]
+                print(f"K11 stage {i} {kind} {r['shape']}: {ms:.4f} ms, "
+                      f"share of bound {r['share']:.3f} (bound "
+                      f"{b_ms:.4f} ms, {b_by}), ATen chain "
+                      f"{r['library_ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f} ms; bitwise equal to plain "
+                      f"in bf16 and float32", flush=True)
+            del xs, xd, md
+            torch.cuda.empty_cache()
+    del ins
+    torch.cuda.empty_cache()
+    entry = {"name": "masked_affine_relu", "route": "cuda",
+             "source": "objectdetection_3d_tpu_torch/csrc/masked_norm.cu",
+             "replaces": None, "max_abs_err": 0.0}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        entry[key] = sum(r[key] for r in rows)
+    entry["bound_by"] = "bytes"
+    entry["share"] = entry["bound_ms"] / entry["ms"]
+    entry["share_stage0_subm"] = rows[0]["share"]
+    entry["norms"] = rows
+    print(f"K11 over the ten norms: {entry['ms']:.4f} ms against the ATen "
+          f"chain's {entry['library_ms']:.4f} ms; share of bound "
+          f"{entry['share']:.3f} (stage 0 subm {rows[0]['share']:.3f})",
+          flush=True)
+    return entry
+
+
 def aligned_clipper(model, batch):
     """K5 on two inputs of 1.92 M aligned pairs: the drive (each flagship
     anchor against a random one of cloud 0's trees, as the JAX package's
@@ -1164,6 +1251,9 @@ def knob_predicts(batches, default_preds):
     from objectdetection_3d_tpu_torch.models.detector import PointPillars
     from objectdetection_3d_tpu_torch.models.weights import load_npz
     from objectdetection_3d_tpu_torch.ops.fused_stage import fused_stage
+    from objectdetection_3d_tpu_torch.ops.masked_norm import (
+        masked_affine_relu,
+    )
     from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
     from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
 
@@ -1176,12 +1266,13 @@ def knob_predicts(batches, default_preds):
         return {"fused_stage": fused_stage.launches,
                 "subm_conv3d": subm_conv3d.launches,
                 "conv2d_3x3": conv2d_3x3.launches,
-                "conv2d_3x3_dx": conv2d_3x3.dx_launches}
+                "conv2d_3x3_dx": conv2d_3x3.dx_launches,
+                "masked_affine_relu": masked_affine_relu.launches}
 
     knob_sets = (
-        ({"fused_stages": True}, {"fused_stage": 3}),
+        ({"fused_stages": True}, {"fused_stage": 3, "masked_affine_relu": 4}),
         ({"pallas_subm_conv": True, "zfold_pallas": True},
-         {"subm_conv3d": 2, "conv2d_3x3": 1}))
+         {"subm_conv3d": 2, "conv2d_3x3": 1, "masked_affine_relu": 10}))
     from objectdetection_3d_tpu_torch.models import layers
 
     # does the K10 wrapper's x.contiguous() copy on the predict path?
@@ -1191,18 +1282,31 @@ def knob_predicts(batches, default_preds):
         contiguous.append(x.is_contiguous())
         return subm_conv3d(x, kernel)
 
+    # K11 copies nothing: does each norm get a contiguous channels-last
+    # view of the whole of its conv's output, and a contiguous mask?
+    norm_views = []
+
+    def watched_norm(x, mask, a, b):
+        whole = x.untyped_storage().nbytes() == x.numel() * x.element_size()
+        norm_views.append(x.is_contiguous() and whole
+                          and mask.is_contiguous())
+        return masked_affine_relu(x, mask, a, b)
+
     launches = {}
     for tpu, per_cloud in knob_sets:
         model = knob_model(tpu)
         predict = model.make_predict_fn()
         layers.subm_conv3d = watched
+        layers.masked_affine_relu = watched_norm
         try:
             predict(batches[0])             # warm-up
         finally:
             layers.subm_conv3d = subm_conv3d
+            layers.masked_affine_relu = masked_affine_relu
         torch.cuda.synchronize()
         fused_stage.launches = subm_conv3d.launches = 0
         conv2d_3x3.launches = conv2d_3x3.dx_launches = 0
+        masked_affine_relu.launches = 0
         times, outs = [], []
         for batch in batches:
             t = time.perf_counter()
@@ -1255,6 +1359,12 @@ def knob_predicts(batches, default_preds):
     print(f"K10 inputs on the predict path contiguous: {contiguous}",
           flush=True)
     launches["subm_conv3d_inputs_contiguous"] = contiguous
+    print(f"K11 inputs on the predict path views of the conv outputs, "
+          f"contiguous: {norm_views}", flush=True)
+    if not all(norm_views):
+        raise AssertionError("a K11 input on the predict path is not a "
+                             "contiguous view of its conv's output")
+    launches["masked_affine_relu_inputs_contiguous"] = norm_views
     return launches
 
 
@@ -2399,10 +2509,11 @@ from objectdetection_3d_tpu_torch.serving import load_serving
 from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
 from objectdetection_3d_tpu_torch.ops.grid_scatter import scatter_to_grid
 from objectdetection_3d_tpu_torch.ops.fused_stage import fused_stage
+from objectdetection_3d_tpu_torch.ops.masked_norm import masked_affine_relu
 from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
 from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
 counted = (postsort_scan, scatter_to_grid, fused_stage, subm_conv3d,
-           conv2d_3x3)
+           conv2d_3x3, masked_affine_relu)
 inputs = torch.load(sys.argv[1])
 report = {}
 for path in sys.argv[2:]:
@@ -2421,11 +2532,12 @@ print(json.dumps({"launches": report, "model_modules": mods}))
 """
 
 SERVING_KNOBS = (
-    ("default", {}, {}),
-    ("fused_stages", {"fused_stages": True}, {"fused_stage": 3}),
+    ("default", {}, {"masked_affine_relu": 10}),
+    ("fused_stages", {"fused_stages": True},
+     {"fused_stage": 3, "masked_affine_relu": 4}),
     ("pallas_subm_conv+zfold_pallas",
      {"pallas_subm_conv": True, "zfold_pallas": True},
-     {"subm_conv3d": 2, "conv2d_3x3": 1}))
+     {"subm_conv3d": 2, "conv2d_3x3": 1, "masked_affine_relu": 10}))
 
 
 def _same_detections(label, got, want):
@@ -2454,12 +2566,15 @@ def serving_phase(batches):
     from objectdetection_3d_tpu_torch.models.weights import load_npz
     from objectdetection_3d_tpu_torch.ops.fused_stage import fused_stage
     from objectdetection_3d_tpu_torch.ops.grid_scatter import scatter_to_grid
+    from objectdetection_3d_tpu_torch.ops.masked_norm import (
+        masked_affine_relu,
+    )
     from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
     from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
     from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
 
     counted = (postsort_scan, scatter_to_grid, fused_stage, subm_conv3d,
-               conv2d_3x3)
+               conv2d_3x3, masked_affine_relu)
     report = {}
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="serving_", dir=os.path.join(REPO,
@@ -3735,6 +3850,9 @@ def main():
         scatter_to_grid_plain,
     )
     from objectdetection_3d_tpu_torch.ops.iou3d import separated_directions
+    from objectdetection_3d_tpu_torch.ops.masked_norm import (
+        masked_affine_relu,
+    )
     from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
     from objectdetection_3d_tpu_torch.profile_train import (
         phase_device_ms,
@@ -3775,6 +3893,7 @@ def main():
                   f"{r['bound_ms']:.4f} ms, input contiguous "
                   f"{r['input_contiguous']}", flush=True)
         del ins
+        norm_entry(model, batches[0])
         scan_entry(model, batches)
         gt = torch.as_tensor(batches[0]["bboxes"][0], device="cuda")
         gt_mask = torch.as_tensor(batches[0]["gt_mask"][0], device="cuda")
@@ -3884,6 +4003,7 @@ def main():
     predict = model.make_predict_fn()
     postsort_scan.launches = 0
     scatter_to_grid.launches = 0
+    masked_affine_relu.launches = 0
     torch.cuda.reset_peak_memory_stats()
     warm = predict(batches[0])              # warm-up
     torch.cuda.synchronize()
@@ -3896,6 +4016,11 @@ def main():
         preds.append(out)
     launches = {"postsort_scan": postsort_scan.launches,
                 "scatter_to_grid": scatter_to_grid.launches}
+    # K11: the ten eval stage norms of each of the five predicts
+    k11_predict = masked_affine_relu.launches
+    if k11_predict != 10 * (len(batches) + 1):
+        raise AssertionError(f"K11 launched {k11_predict} times in "
+                             f"{len(batches) + 1} predicts, not 10 each")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -4168,6 +4293,8 @@ def main():
     # ---- encoder kernels and K5 at flagship shapes ----------------------
     load_npz(model.net, NPZ)                # the npz weights, untrained
     kernels.update(encoder_kernels(model, batches[0]))
+    kernels["masked_affine_relu"] = norm_entry(model, batches[0])
+    kernels["masked_affine_relu"]["launches_predict"] = k11_predict
     kernels["intersection_volume_aligned"] = aligned_clipper(model,
                                                              batches[0])
     del model
@@ -4181,6 +4308,10 @@ def main():
     kernels["subm_conv3d"]["predict_inputs_contiguous"] = launches[
         "subm_conv3d_inputs_contiguous"]
     kernels["conv2d_3x3"]["launches_predict"] = launches["conv2d_3x3"]
+    kernels["masked_affine_relu"]["launches"] = launches[
+        "masked_affine_relu"]
+    kernels["masked_affine_relu"]["predict_inputs_contiguous"] = launches[
+        "masked_affine_relu_inputs_contiguous"]
     k9 = zfold_train(batches, counted)
     kernels["conv2d_3x3"]["launches"] = k9["forward"] + k9["dx"]
     kernels["conv2d_3x3"]["launches_forward"] = k9["forward"]
@@ -4254,8 +4385,8 @@ def main():
         kernels[name]["launches_full_width"] = count
     print("full_width: " + json.dumps(full_report), flush=True)
     clock.mark("the full width against the JAX package (phase 22)")
-    if len(kernels) != 10:
-        raise AssertionError(f"{len(kernels)} kernels in the line, not 10")
+    if len(kernels) != 11:
+        raise AssertionError(f"{len(kernels)} kernels in the line, not 11")
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())

@@ -28,7 +28,10 @@ and K9, ``ops/zfold_conv.py``) and ``fused_stages`` (K8,
 package and compute the same conv are ``torch.nn.functional.conv3d``
 here: ``decompose_convs`` (z-shifted 2D convs), the z-fold without
 ``zfold_pallas``, and the folded down conv under every knob.  All
-lowerings share one parameter tree.
+lowerings share one parameter tree.  In eval mode, under every knob, the
+mask, batch norm and ReLU after each conv of a stage that K8 does not
+run whole is one pass (K11, ``ops/masked_norm.py``), where XLA fuses the
+same chain on the TPU.
 """
 
 import contextlib
@@ -40,9 +43,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from objectdetection_3d_tpu_torch.ops.fused_stage import fused_stage
+from objectdetection_3d_tpu_torch.ops.masked_norm import masked_affine_relu
 from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
 from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
-from objectdetection_3d_tpu_torch.profiling import span
+from objectdetection_3d_tpu_torch.profiling import count, span
 
 
 # > 0 while a checkpointed region of the network (``tpu.remat``) runs its
@@ -152,13 +156,14 @@ class MaskedBatchNorm(nn.Module):
             self._update_running(mean.detach(), var.detach(), count)
         return mean, var
 
-    def eval_affine(self):
+    def eval_affine(self, dtype=torch.float32):
         """The eval-mode batch norm as ``y = a * x + b`` at active sites:
         ``a = weight * rsqrt(running_var + eps)``,
-        ``b = bias - running_mean * a``, float32 (K8's epilogue)."""
-        a = self.weight.float() * torch.rsqrt(self.running_var.float()
-                                              + self.eps)
-        return a, self.bias.float() - self.running_mean.float() * a
+        ``b = bias - running_mean * a``, in ``dtype`` (float32: K8's and
+        K11's epilogue)."""
+        a = self.weight.to(dtype) * torch.rsqrt(self.running_var.to(dtype)
+                                                + self.eps)
+        return a, self.bias.to(dtype) - self.running_mean.to(dtype) * a
 
     def forward(self, x, mask):
         """x: (B, C, ...); mask: (B, 1, ...) activity, broadcastable."""
@@ -486,11 +491,14 @@ def zfold_operands(x, kernel, zb):
 
 
 def zfold_unfold(y, b, d, zb):
-    """(B*dblk, H, W, zb*Co) folded conv output -> (B, D, H, W, Co)."""
+    """(B*dblk, H, W, zb*Co) folded conv output -> (B, D, H, W, Co),
+    contiguous (the eval stage norm, K11, reads it as it is).  Where
+    dblk*zb > D and B > 1 the first D slices of each cloud are no
+    contiguous view, and only then is this a copy."""
     n, h, w, cf = y.shape
     co = cf // zb
     y = y.reshape(b, n // b, h, w, zb, co).permute(0, 1, 4, 2, 3, 5)
-    return y.reshape(b, n // b * zb, h, w, co)[:, :d]
+    return y.reshape(b, n // b * zb, h, w, co)[:, :d].contiguous()
 
 
 def _ndhwc(x):
@@ -633,16 +641,42 @@ class SparseMiddleExtractor(nn.Module):
             y = fused_stage(_ndhwc(x), mask[:, 0], *self.fused_stage_args(i))
             return _ncdhw(y), F.max_pool3d(mask, (3, 1, 1), (2, 1, 1))
         x = self._subm_conv3d(x, i)
+        bn = getattr(self, f"subm_bn_{i}")
         with span("encoder.norm"):
-            x = x * mask
-            x = F.relu(getattr(self, f"subm_bn_{i}")(x, mask))
+            if self.training:
+                x = x * mask
+                x = F.relu(bn(x, mask))
+            else:
+                x = self._eval_norm(x, mask, bn)
 
         wd = getattr(self, f"down_{i}_kernel").to(self.dtype)
         x = F.conv3d(x, wd, stride=(2, 1, 1))
+        bn = getattr(self, f"down_bn_{i}")
         with span("encoder.norm"):
             mask = F.max_pool3d(mask, (3, 1, 1), (2, 1, 1))
-            x = F.relu(getattr(self, f"down_bn_{i}")(x, mask))
+            if self.training:
+                x = F.relu(bn(x, mask))
+            else:
+                x = self._eval_norm(x, mask, bn)
         return x, mask
+
+    def _eval_norm(self, x, mask, bn):
+        """Eval-mode ``relu(bn(x * mask, mask))`` of NCDHW ``x`` in one
+        pass (K11); ``mask`` (B, 1, D, H, W).  The mask multiply before a
+        subm norm changes nothing here: the mask is 0 or 1."""
+        count("encoder.norm_fused")
+        if self.halo is not None:
+            # the split's halo rows come from the all_gather in NCDHW
+            # memory, and so does its conv's output: one copy into the
+            # channels-last layout K11 reads (the unsplit convs give it)
+            x = x.contiguous(memory_format=torch.channels_last_3d)
+        wide = torch.float64 if x.dtype == torch.float64 else torch.float32
+        # the grid build's mask is a strided view where B > 1 (its rows
+        # are one cell longer); the pooled masks of later stages are
+        # contiguous already
+        y = masked_affine_relu(_ndhwc(x), mask[:, 0].contiguous(),
+                               *bn.eval_affine(wide))
+        return _ncdhw(y)
 
     def forward(self, grid, mask):
         """

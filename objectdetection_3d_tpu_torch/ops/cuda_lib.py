@@ -26,14 +26,16 @@ from objectdetection_3d_tpu_torch.shared_lib import (
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 KERNEL_SOURCES = ("voxel_scan", "grid_scatter", "assign_geometry",
-                  "iou3d_clip", "subm_conv3d", "zfold_conv", "fused_stage")
+                  "iou3d_clip", "subm_conv3d", "zfold_conv", "fused_stage",
+                  "masked_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # no fused multiply-add contraction: these kernels round operation for
 # operation like their plain PyTorch versions (the conv kernels are held
 # to a tolerance instead and keep the contraction)
 SOURCE_FLAGS = {"assign_geometry": ("-fmad=false",),
-                "iou3d_clip": ("-fmad=false",)}
+                "iou3d_clip": ("-fmad=false",),
+                "masked_norm": ("-fmad=false",)}
 
 _libs = {}
 _lock = threading.Lock()

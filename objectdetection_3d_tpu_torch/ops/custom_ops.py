@@ -19,6 +19,7 @@ operator                       #      gradient
                                       the flipped, transposed taps); dw: the
                                       9 contractions in ``torch.matmul``
 ``fused_stage``                K8     none (the encoder's eval mode only)
+``masked_affine_relu``         K11    none (the encoder's eval mode only)
 =============================  =====  =====================================
 
 The public wrappers (``ops/voxel_scan.postsort_scan`` and the others)
@@ -33,6 +34,7 @@ from torch import Tensor
 from objectdetection_3d_tpu_torch.ops import (
     fused_stage as _k8,
     grid_scatter as _k2,
+    masked_norm as _k11,
     pallas_conv as _k10,
     voxel_scan as _k1,
     zfold_conv as _k9,
@@ -170,3 +172,18 @@ def _(x, mask, subm_w, down_w, a_s, b_s, a_d, b_d):
     b, d, h, w, _ = x.shape
     return x.new_empty((b, (d - 3) // 2 + 1, h, w, subm_w.shape[-1]))
 
+
+# K11 -----------------------------------------------------------------------
+@torch.library.custom_op("od3d::masked_affine_relu", mutates_args=(),
+                         device_types="cpu")
+def masked_affine_relu(x: Tensor, mask: Tensor, a: Tensor,
+                       b: Tensor) -> Tensor:
+    return _k11.masked_affine_relu_plain(x, mask, a, b)
+
+
+masked_affine_relu.register_kernel("cuda")(_k11.norm_kernel)
+
+
+@masked_affine_relu.register_fake
+def _(x, mask, a, b):
+    return x.new_empty(x.shape)

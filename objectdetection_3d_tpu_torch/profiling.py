@@ -12,7 +12,7 @@
   a directory (``chrome://tracing`` or ui.perfetto.dev read it).
 * :class:`TensorBoardLogger`: optional TensorBoard scalars.
 
-The program's spans (and the one counter), each where its work happens:
+The program's spans and counters, each where its work happens:
 
 * ``predict``: ``PointPillars.predict``, one per call;
 * ``predict.voxelize``: the upload and the voxelizer;
@@ -20,6 +20,8 @@ The program's spans (and the one counter), each where its work happens:
 * ``predict.encoder``: the vertical encoder, and inside it
   ``encoder.norm``: each mask multiply, masked BN, ReLU and mask pooling
   after a conv of a stage that K8 does not run whole;
+* counter ``encoder.norm_fused``: those norms that ran as one pass (K11,
+  eval mode), 10 a flagship predict under the default knobs;
 * ``predict.rpn_head``: the sparse RPN (or the backbone and neck), then
   the head;
 * ``predict.decode_nms``: decode, NMS and the output top-k, and inside it

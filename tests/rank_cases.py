@@ -46,6 +46,7 @@ from objectdetection_3d_tpu_torch.ops.grid_scatter import (
     scatter_to_grid,
     scatter_to_grid_plain,
 )
+from objectdetection_3d_tpu_torch.ops.masked_norm import masked_affine_relu
 from objectdetection_3d_tpu_torch.ops.pallas_conv import subm_conv3d
 from objectdetection_3d_tpu_torch.ops.voxel_scan import postsort_scan
 from objectdetection_3d_tpu_torch.ops.zfold_conv import conv2d_3x3
@@ -62,7 +63,8 @@ from objectdetection_3d_tpu_torch.parallel.data_parallel import (
 
 KERNELS = (postsort_scan, scatter_to_grid, chunk_geometry,
            containment_rescue, intersection_volume_aligned, iou_gathered,
-           iou_gathered_pair, fused_stage, conv2d_3x3, subm_conv3d)
+           iou_gathered_pair, fused_stage, conv2d_3x3, subm_conv3d,
+           masked_affine_relu)
 
 
 def reset_launches():

@@ -11,7 +11,11 @@ counts on both sides of a warp and a block, back to back and replayed
 from a CUDA graph; its wrapper refuses 2^30 pairs before it allocates.
 The train step with gradient accumulation and the eval step run on the
 card at the tiny width (float32, TF32 off) against their CPU runs, with
-their kernel launches counted.  The conv kernels K8, K9 (forward, and the
+their kernel launches counted.  K11 (the eval stage norm) bit-exact at
+the flagship predict's ten norm shapes and on ragged ones, with 10
+launches a flagship predict (4 under ``fused_stages``) on views of the
+convs' outputs, at B = 1 and, under each conv knob, at B = 2; it refuses
+widths that are no multiple of 4 or above 256.  The conv kernels K8, K9 (forward, and the
 backward's dx and dw) and K10 sum in float32 in another order than their
 plain versions: in float32 within 1e-4 of the largest element (with TF32
 off), in bf16 within 1e-2 (a few bf16 roundings of the output, or of
@@ -69,6 +73,10 @@ from objectdetection_3d_tpu_torch.ops.grid_scatter import (
     scatter_to_grid_plain,
 )
 from objectdetection_3d_tpu_torch.ops.iou3d import separated_directions
+from objectdetection_3d_tpu_torch.ops.masked_norm import (
+    masked_affine_relu,
+    masked_affine_relu_plain,
+)
 from objectdetection_3d_tpu_torch.ops.pallas_conv import (
     subm_conv3d,
     subm_conv3d_plain,
@@ -736,6 +744,166 @@ def test_fused_stage_kernel_matches_plain(cuda, exact_fp32, dtype, shape):
     _assert_rel(got, fused_stage_plain(x, mask, ks, kd, *vecs), dtype)
 
 
+# K11 at the ten norms of a flagship predict, (D, C) over the 400 x 400
+# image: after each stage's subm conv, then after its down conv
+_NORM_SHAPES = [(100, 20), (49, 32), (24, 64), (11, 128), (5, 196),
+                (49, 20), (24, 32), (11, 64), (5, 128), (2, 196)]
+
+
+def _norm_inputs(rng, shape, device, dtype):
+    *pix, c = shape
+    mask = torch.from_numpy(rng.uniform(size=pix) < 0.3).to(device, dtype)
+    x = _normal(rng, shape, 2.0, device, dtype)
+    a = torch.from_numpy(rng.uniform(0.2, 2.0, c).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.5, c).astype(np.float32))
+    return x, mask, a.to(device), b.to(device)
+
+
+def _assert_norm_exact(x, mask, a, b):
+    before = masked_affine_relu.launches
+    got = masked_affine_relu(x, mask, a, b)
+    torch.cuda.synchronize()
+    assert masked_affine_relu.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    # built without multiply-add contraction, K11 rounds as the plain
+    # version does: the float32 product, then the sum; the ReLU and the
+    # 0/1 mask are exact; bf16 rounds once, to nearest even, in both
+    want = masked_affine_relu_plain(x, mask, a, b)
+    assert torch.equal(got, want), float((got.double()
+                                          - want.double()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dc", _NORM_SHAPES)
+def test_masked_affine_relu_kernel_at_flagship_norms(cuda, dtype, dc):
+    d, c = dc
+    rng = np.random.default_rng(d * 1000 + c)
+    _assert_norm_exact(*_norm_inputs(rng, (1, d, 400, 400, c), cuda, dtype))
+
+
+# bf16 element counts that leave a ragged tail of 4 (an odd pixel count
+# at C % 8 == 4: 2100, 540, 252, 24,948, 9,601,060, 92,283,740), one
+# with no whole vector (4), B > 1, and 92 M elements, many grid strides
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 3, 5, 7, 20), (1, 3, 3, 5, 12),
+                                   (1, 1, 1, 1, 4), (1, 1, 3, 3, 28),
+                                   (3, 7, 9, 11, 12), (1, 5, 97, 101, 196),
+                                   (1, 37, 311, 401, 20)])
+def test_masked_affine_relu_kernel_ragged(cuda, dtype, shape):
+    rng = np.random.default_rng(sum(shape))
+    _assert_norm_exact(*_norm_inputs(rng, shape, cuda, dtype))
+
+
+# widths the kernel does not take: no multiple of 4 (its runs of four
+# channels would cross a pixel), or wider than its shared a and b
+@pytest.mark.parametrize("c", [3, 5, 7, 260])
+def test_masked_affine_relu_rejects_widths(cuda, c):
+    rng = np.random.default_rng(c)
+    x, mask, a, b = _norm_inputs(rng, (1, 2, 3, 5, c), cuda, torch.bfloat16)
+    before = masked_affine_relu.launches
+    with pytest.raises(ValueError):
+        masked_affine_relu(x, mask, a, b)
+    assert masked_affine_relu.launches == before
+
+
+def test_masked_affine_relu_rejects_bad_input(cuda):
+    rng = np.random.default_rng(0)
+    x, mask, a, b = _norm_inputs(rng, (1, 4, 8, 8, 20), cuda, torch.bfloat16)
+    before = masked_affine_relu.launches
+    with pytest.raises(ValueError):            # NCDHW memory seen as NDHWC
+        masked_affine_relu(x.permute(0, 4, 1, 2, 3).contiguous().permute(
+            0, 2, 3, 4, 1), mask, a, b)
+    with pytest.raises(ValueError):            # a strided mask
+        masked_affine_relu(x, mask.transpose(2, 3).contiguous().transpose(
+            2, 3), a, b)
+    with pytest.raises(ValueError):            # float16
+        masked_affine_relu(x.half(), mask.half(), a, b)
+    with pytest.raises(ValueError):            # float64: the CPU's only
+        masked_affine_relu(x.double(), mask.double(), a.double(),
+                           b.double())
+    with pytest.raises(ValueError):            # mask of another shape
+        masked_affine_relu(x, mask[:, :3], a, b)
+    with pytest.raises(ValueError):            # affine on the CPU
+        masked_affine_relu(x, mask, a.cpu(), b.cpu())
+    with pytest.raises(ValueError):            # affine of another width
+        masked_affine_relu(x, mask, a[:16], b[:16])
+    flat = torch.zeros(x.numel() + 1, device=cuda, dtype=x.dtype)
+    with pytest.raises(ValueError):            # 2 bytes off alignment
+        masked_affine_relu(flat[1:].view(x.shape), mask, a, b)
+    assert masked_affine_relu.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("knobs,per_cloud", [({}, 10),
+                                             ({"fused_stages": True}, 4)])
+def test_flagship_predict_runs_its_norms_through_k11(cuda, dtype, knobs,
+                                                     per_cloud,
+                                                     monkeypatch):
+    """K11 launches 10 times a flagship predict (4 under ``fused_stages``,
+    where K8 runs stages 0-2 whole), each on a channels-last view of the
+    conv's own output: contiguous, and the whole of its storage, so no
+    copy lies between the conv and K11 (the wrapper copies nothing)."""
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models import layers
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.scene import make_batch, tree_scene
+
+    model = PointPillars(configs.flagship_cfg(dict(knobs,
+                                                   compute_dtype=dtype)),
+                         device=cuda)
+    seen = []
+
+    def watched(x, mask, a, b):
+        whole = x.untyped_storage().nbytes() == x.numel() * x.element_size()
+        seen.append((x.is_contiguous(), whole, mask.is_contiguous()))
+        return masked_affine_relu(x, mask, a, b)
+
+    monkeypatch.setattr(layers, "masked_affine_relu", watched)
+    p = model.tpu_cfg["max_points_static"]
+    batches = [make_batch(tree_scene(seed), p) for seed in (0, 1)]
+    masked_affine_relu.launches = 0
+    for batch in batches:
+        model.predict(batch)
+    torch.cuda.synchronize()
+    assert masked_affine_relu.launches == per_cloud * len(batches)
+    assert seen == [(True, True, True)] * (per_cloud * len(batches))
+
+
+@pytest.mark.parametrize("knobs,per_call", [
+    ({}, 10), ({"fused_stages": True}, 4), ({"zfold_pallas": True}, 10),
+    ({"pallas_subm_conv": True}, 10)])
+def test_flagship_batch_predict_runs_its_norms_through_k11(cuda, knobs,
+                                                           per_call,
+                                                           monkeypatch):
+    """A predict of two clouds (bf16) under each knob set reaches K11 10
+    times (4 under ``fused_stages``) with contiguous channels-last inputs.
+    Under ``zfold_pallas`` stage 1's z-fold (zb 4, D 49) computes 52
+    slices a cloud; at B > 1 the first 49 are a strided view unless the
+    unfold copies them."""
+    from objectdetection_3d_tpu_torch import configs
+    from objectdetection_3d_tpu_torch.models import layers
+    from objectdetection_3d_tpu_torch.models.detector import PointPillars
+    from objectdetection_3d_tpu_torch.scene import make_batch, tree_scene
+
+    model = PointPillars(configs.flagship_cfg(knobs), device=cuda)
+    seen = []
+
+    def watched(x, mask, a, b):
+        seen.append((x.shape[0], x.is_contiguous(), mask.is_contiguous()))
+        return masked_affine_relu(x, mask, a, b)
+
+    monkeypatch.setattr(layers, "masked_affine_relu", watched)
+    p = model.tpu_cfg["max_points_static"]
+    one = [make_batch(tree_scene(seed), p) for seed in (0, 1)]
+    batch = {k: np.concatenate([o[k] for o in one]) for k in one[0]}
+    masked_affine_relu.launches = 0
+    out = model.predict(batch)
+    torch.cuda.synchronize()
+    assert masked_affine_relu.launches == per_call
+    assert seen == [(2, True, True)] * per_call
+    assert tuple(out["valid"].shape)[0] == 2
+
+
 def test_conv_wrappers_reject_bad_input(cuda):
     x = torch.zeros((1, 4, 8, 8, 20), device=cuda)
     k3 = torch.zeros((3, 3, 3, 20, 20), device=cuda)
@@ -1063,11 +1231,12 @@ def test_chunk_geometry_refuses_live_rows_with_negative_dims(cuda):
 # serving: predict exported with torch.export, reloaded and served
 # ---------------------------------------------------------------------------
 _SERVING_KNOBS = {
-    "default": ({}, {}),
-    "fused_stages": ({"fused_stages": True}, {"fused_stage": 3}),
+    "default": ({}, {"masked_affine_relu": 10}),
+    "fused_stages": ({"fused_stages": True},
+                     {"fused_stage": 3, "masked_affine_relu": 4}),
     "pallas_subm_conv+zfold_pallas": (
         {"pallas_subm_conv": True, "zfold_pallas": True},
-        {"subm_conv3d": 2, "conv2d_3x3": 1}),
+        {"subm_conv3d": 2, "conv2d_3x3": 1, "masked_affine_relu": 10}),
 }
 
 
@@ -1079,7 +1248,7 @@ def test_serving_round_trip_at_flagship_width_on_card(cuda, knobs,
     boxes and scores within 1e-6 of the live predict (the same kernels in
     the same order), and through the artifact each kernel launches as
     often as in the live predict: K1 and K2 once a cloud, K8 3, K10 2 and
-    K9 once under their knobs."""
+    K9 once under their knobs, K11 10 (4 beside K8)."""
     import os
 
     from objectdetection_3d_tpu_torch import configs, serving
@@ -1099,7 +1268,8 @@ def test_serving_round_trip_at_flagship_width_on_card(cuda, knobs,
     counted = {"postsort_scan": postsort_scan,
                "scatter_to_grid": scatter_to_grid,
                "fused_stage": fused_stage, "subm_conv3d": subm_conv3d,
-               "conv2d_3x3": conv2d_3x3}
+               "conv2d_3x3": conv2d_3x3,
+               "masked_affine_relu": masked_affine_relu}
     p = model.tpu_cfg["max_points_static"]
     for seed in (0, 1):
         batch = make_batch(tree_scene(seed), p)

@@ -15,6 +15,8 @@ width (float32).
   False are padding and not compared, as in ``test_torch_port_model``).
 * ``torch.library.opcheck`` holds each ``od3d`` operator (schema, fake
   implementation, autograd registration, tracing) at tiny shapes.
+* The exported predict calls K11's operator for each eval stage norm
+  that K8 does not run.
 * ``tools.export_model`` from a ``.pth``, with ``--device cpu``.
 """
 
@@ -121,6 +123,16 @@ def test_roundtrip_matches_live_predict(artifacts, knobs):
         _assert_same(got, want)
 
 
+@pytest.mark.parametrize("knobs", KNOBS)
+def test_exported_eval_norms_call_k11(artifacts, knobs):
+    """The tiny encoder's one stage: its two norms through
+    ``od3d.masked_affine_relu``, unless K8 runs the stage whole."""
+    _, _, program = artifacts[knobs]
+    calls = [n for n in program.graph.nodes
+             if str(n.target) == "od3d.masked_affine_relu.default"]
+    assert len(calls) == (0 if knobs == "fused_stages" else 2)
+
+
 def test_exported_is_self_contained(artifacts):
     """A process that loads the artifact and calls it on empty clouds:
     no valid box, and none of the model's modules imported."""
@@ -197,6 +209,10 @@ def _op_cases():
                         (torch.rand((1, 5, 8, 8), generator=g) < 0.5).float(),
                         rand(3, 3, 3, 4, 6), rand(3, 6, 6),
                         *(rand(6) for _ in range(4))),
+        "masked_affine_relu": (
+            rand(2, 5, 8, 8, 20),
+            (torch.rand((2, 5, 8, 8), generator=g) < 0.5).float(),
+            rand(20), rand(20)),
     }
 
 

@@ -178,7 +178,9 @@ def test_nms_rounds_counts_each_condition_evaluation(monkeypatch,
     batch = tiny_batch(batch_size=1, seed=3)
     calls[0] = 0
     _traced(lambda: model.predict(batch), tmp_path)
-    assert profiling.counters() == {"nms.rounds": calls[0]}
+    # and the tiny encoder's one stage runs its two eval norms as K11
+    assert profiling.counters() == {"nms.rounds": calls[0],
+                                    "encoder.norm_fused": 2}
     assert calls[0] > 2
 
 
