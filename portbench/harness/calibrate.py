@@ -68,11 +68,12 @@ def main(argv=None):
                          "--fault-seeds")
     ap.add_argument("--fault-seeds", type=int, nargs="*", default=[])
     args = ap.parse_args(argv)
+    from portbench.harness import plugins
     from portbench.harness.main import cell_spec, load_bench
-    from portbench.reference import model as ref_model
 
     bench = load_bench(ROOT)
     _, conf, traffic = cell_spec(bench, ROOT, args.workload)
+    control = plugins.architecture(conf, ROOT).fp8
     os.makedirs(args.out, exist_ok=True)
     log = open(os.path.join(args.out, args.workload + ".jsonl"), "a")
     for seed in args.seeds:
@@ -81,7 +82,7 @@ def main(argv=None):
         if seed in args.fault_seeds:
             sides.append(("fault:" + args.fault, None, True))
         if seed in args.control_seeds:
-            sides.append(("control", ref_model.fp8, False))
+            sides.append(("control", control, False))
         for side, quant, planted in sides:
             _side(args, conf, traffic, seed, side, quant, planted, log)
         print(f"seed {seed}: {time.perf_counter() - t0:.1f} s",

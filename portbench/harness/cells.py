@@ -3,8 +3,10 @@ the profiled calls of a ``--trace 1`` run, and the output check.
 
 Each driver is built from a configuration file and a traffic file
 (``BENCHMARK.json`` names both) and ``--seed``; nothing in it names a
-cell.  ``device`` is the card; the CPU is for the tests, which drive the
-same code at tiny sizes.
+cell or an architecture: the configuration's reference module
+(``self.arch``, :mod:`portbench.reference` gives its contract) supplies
+the reference, the leaves and the work count.  ``device`` is the card;
+the CPU is for the tests, which drive the same code at tiny sizes.
 """
 
 import time
@@ -12,8 +14,7 @@ import time
 import numpy as np
 import torch
 
-from portbench.harness import compare, flops, program, scenes, trace
-from portbench.reference import model as ref_model
+from portbench.harness import compare, plugins, program, scenes, trace
 from portbench.reference import tiles as ref_tiles
 from portbench.reference import train as ref_train
 
@@ -51,21 +52,22 @@ class Cell:
         self.conf, self.traffic, self.seed = conf, traffic, int(seed)
         self.root, self.device = root, device
         self.model_cfg = conf["model"]
-        self.spec = ref_model.Spec(self.model_cfg)
-        self.flops = flops.forward_flops(self.model_cfg)
+        self.arch = plugins.architecture(conf, root)
+        self.spec = self.arch.Spec(self.model_cfg)
+        self.flops = self.arch.forward_flops(self.model_cfg)
         self.stages = {}
 
     def setup(self):
         import sys
 
         marks = [("start", time.perf_counter())]
-        self.weights = program.make_weights(self.conf, self.seed, self.root,
-                                            self.device)
+        self.weights = program.make_weights(self.arch, self.conf, self.seed,
+                                            self.root, self.device)
         self.model = program.build_model(self.conf, self.weights,
                                          self.device)
         _sync(self.device)
         marks.append(("weights and model", time.perf_counter()))
-        self.pool = scenes.make_pool(self.traffic, self.seed)
+        self.pool = scenes.make_pool(self.traffic, self.seed, self.root)
         marks.append(("pool", time.perf_counter()))
         self._prepare()
         _sync(self.device)
@@ -100,10 +102,29 @@ class Cell:
         calls = PROFILED_CALLS[self.kind]
         start = getattr(self, "next_call", 0)
         tr, window_s = trace.profiled(lambda i: self.call(start + i), calls)
+        work, encoder_bytes = self.work(range(start, start + calls))
         return trace.record(
-            self.kind, self.model_cfg, self.flops,
-            flops.encoder_bytes(self.model_cfg), tr, window_s, calls,
-            self.clouds_per_call, self.stages, self.phases)
+            self.kind, self.model_cfg, work, encoder_bytes, tr, window_s,
+            calls, self.clouds_per_call, self.stages, self.phases)
+
+    def work(self, calls):
+        """(forward FLOPs of one cloud by stage, the encoder's least bytes)
+        of the calls ``calls``: the mean of ``arch.call_work`` over their
+        clouds where the architecture counts a call's own active sites,
+        else its static count of the configuration."""
+        count = getattr(self.arch, "call_work", None)
+        if count is None:
+            return self.flops, self.arch.encoder_bytes(self.model_cfg)
+        with torch.no_grad():
+            works = [count(self.spec, c) for i in calls
+                     for c in self.clouds(i)]
+        mean = {k: sum(w[k] for w in works) / len(works) for k in works[0]}
+        return mean, mean.pop("encoder_bytes")
+
+    def clouds(self, i):
+        """The clouds call ``i`` forwards, each an (N, C) tensor."""
+        cloud, _ = self.pool[i % len(self.pool)]
+        return [torch.as_tensor(cloud, device=self.device)]
 
     phases = ()
     clouds_per_call = 1
@@ -189,14 +210,15 @@ class PredictCell(Cell):
         rng = np.random.default_rng(self.seed)
         return sorted(int(k) for k in rng.choice(done, n, replace=False))
 
-    def reference_outputs(self, quant=ref_model.identity):
-        anc = ref_model.anchors(self.spec, self.device)
+    def reference_outputs(self, quant=None):
+        anc = self.arch.anchors(self.spec, self.device)
         out = {}
         for k in self.sample():
             cloud, _ = self.pool[k]
             pts = torch.as_tensor(cloud, device=self.device)
-            out[k] = ref_model.predict(pts, len(cloud), self.weights,
-                                       self.spec, anc, quant)
+            out[k] = self.arch.predict(pts, len(cloud), self.weights,
+                                       self.spec, anc,
+                                       quant or self.arch.identity)
         return out
 
     def check(self):
@@ -302,11 +324,13 @@ class TrainCell(Cell):
         cloud, boxes = self.pool[index]
         stats = {k: v for k, v in self.weights.items() if k not in params}
         return ref_train.train_step(
-            params, stats, adam, torch.as_tensor(cloud, device=self.device),
-            len(cloud), torch.as_tensor(boxes, device=self.device),
-            ref_model.anchors(self.spec, self.device), self.spec, quant)
+            self.arch, params, stats, adam,
+            torch.as_tensor(cloud, device=self.device), len(cloud),
+            torch.as_tensor(boxes, device=self.device),
+            self.arch.anchors(self.spec, self.device), self.spec,
+            quant or self.arch.identity)
 
-    def reference_steps(self, quant=ref_model.identity, steps=WARMUP_CALLS):
+    def reference_steps(self, quant=None, steps=WARMUP_CALLS):
         """The reference's first ``steps`` steps from the same weights on
         the same clouds: (losses per step, first clipped gradient's norm
         per leaf, parameter change's norm per leaf)."""
@@ -326,7 +350,7 @@ class TrainCell(Cell):
                   for k, v in params.items()}
         return losses, first, change
 
-    def reference_last_step(self, quant=ref_model.identity):
+    def reference_last_step(self, quant=None):
         """The reference's step from the state the program's last step
         started from, on its cloud: (losses, clipped gradient's norm per
         leaf, parameter change's norm per leaf)."""
@@ -411,14 +435,22 @@ class PlotCell(Cell):
         done = sorted(self.outputs)
         return [done[np.random.default_rng(self.seed).integers(len(done))]]
 
-    def reference_outputs(self, quant=ref_model.identity):
-        tiled = self.traffic["tiled"]
+    def clouds(self, i):
+        """The tiles call ``i`` forwards, as the tiled reference crops
+        them."""
+        return [t for _, t in ref_tiles.tiles(
+            self.pool[i % len(self.pool)][0], self.spec,
+            self.model_cfg["tpu"]["max_points_static"],
+            float(self.traffic["tiled"]["overlap"]), self.device)]
+
+    def reference_outputs(self, quant=None):
         out = {}
         for k in self.sample():
             out[k] = ref_tiles.plot_detections(
-                self.pool[k][0], self.weights, self.spec,
+                self.arch, self.pool[k][0], self.weights, self.spec,
                 self.model_cfg["tpu"]["max_points_static"],
-                float(tiled["overlap"]), self.device, quant=quant)
+                float(self.traffic["tiled"]["overlap"]), self.device,
+                quant or self.arch.identity)
         return out
 
     def check(self):

@@ -1,11 +1,16 @@
-"""The work a configuration asks of the device, counted from its shapes,
-and the card's published peaks.
+"""The work a configuration of :mod:`portbench.reference.model` asks of
+the device, counted from its shapes, and the card's published peaks.
 
 Every convolution and linear layer is counted dense at the configured
 grid: 2 x (output sites) x (input channels) x (kernel taps) x (output
-channels).  The masked sparse convolutions of the vertical encoder and
-the RPN run dense on the card, so the dense count is the work the chip
-does, whatever implements it.  Elementwise work, batch norms, voxelize,
+channels).  That is the work these architectures define: their vertical
+encoder and RPN are dense masked convolutions, which compute every site
+of the grid and zero the empty ones, so the dense count is the work,
+whatever implements it.  An architecture whose convolutions run on
+rulebooks computes only at active sites, a small share of the grid;
+it counts those sites per call in its own ``call_work``
+(:mod:`portbench.reference`), and the dense count would credit it many
+times the work it defines.  Elementwise work, batch norms, voxelize,
 decode and NMS are not counted.
 """
 

@@ -3,7 +3,6 @@ configuration and traffic from their files, runs set-up, the measured
 window and the output check, and prints the result line."""
 
 import argparse
-import importlib.util
 import json
 import math
 import os
@@ -51,17 +50,6 @@ def cell_spec(bench, root, name):
 
 def applies(metric, cell_name):
     return "workloads" not in metric or cell_name in metric["workloads"]
-
-
-def load_reader(root, name):
-    """The per-layer metric ``name``'s module,
-    ``portbench/metrics/<name>.py``."""
-    path = os.path.join(root, "portbench", "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def judge(root, workload, numbers):
@@ -122,7 +110,7 @@ def run(args, root, t_start, device="cuda"):
     cell, conf, traffic = cell_spec(bench, root, args.workload)
     if device == "cuda":
         check_device(int(cell["chips"]))
-    from portbench.harness import cells
+    from portbench.harness import cells, plugins
 
     driver = cells.make(traffic["kind"], conf, traffic, args.seed, root,
                         device)
@@ -141,7 +129,7 @@ def run(args, root, t_start, device="cuda"):
         metrics_of = [m for m in bench["per_layer"]
                       if applies(m, args.workload)]
         for m in metrics_of:
-            value = load_reader(root, m["name"]).read(record)
+            value = plugins.load(root, "metrics", m["name"]).read(record)
             if value is not None:
                 metrics[m["name"]] = {"value": float(value),
                                       "unit": m["unit"]}

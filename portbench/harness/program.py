@@ -8,7 +8,6 @@ import copy
 import torch
 
 from portbench.reference import weights as ref_weights
-from portbench.reference.model import Spec, param_shapes
 
 
 def model_cfg(conf):
@@ -27,14 +26,15 @@ def model_cfg(conf):
     return cfg
 
 
-def make_weights(conf, seed, root, device):
+def make_weights(arch, conf, seed, root, device):
     """{state-dict name: float32 tensor on ``device``}: the checkpoint's
     leaves the configuration takes from its file (checked against the
-    file's recorded hash), the others drawn from ``seed``."""
+    file's recorded hash), the others drawn from ``seed``; the leaves and
+    their shapes are those of ``arch.param_shapes``, ``arch`` the
+    configuration's reference module."""
     import os
 
-    spec = Spec(conf["model"])
-    shapes = param_shapes(spec)
+    shapes = arch.param_shapes(arch.Spec(conf["model"]))
     w = conf.get("weights") or {}
     out = {}
     if w.get("file"):

@@ -2,8 +2,9 @@
 port's ``scene.py`` generators (``tree_scene``, ``large_tree_scene``), so
 that a change to the program cannot change what the benchmark feeds it.
 
-A traffic file names a generator and its parameters; :func:`make_pool`
-draws a cell's pool of inputs from ``--seed``.
+A traffic file names a generator (one of these, or a file of its own
+under ``portbench/scenes/``) and its parameters; :func:`make_pool` draws
+a cell's pool of inputs from ``--seed``.
 """
 
 import numpy as np
@@ -60,14 +61,27 @@ def large_tree_scene(rng, extent=160.0, n_trees=80, n_clutter=1_700_000):
 GENERATORS = {"tree_scene": tree_scene, "large_tree_scene": large_tree_scene}
 
 
-def make_pool(traffic, seed):
+def generator(name, root):
+    """The scene generator ``name``: one of :data:`GENERATORS`, else the
+    ``scene`` function of ``portbench/scenes/<name>.py`` under ``root``.
+    A generator takes a ``numpy.random.Generator`` and the traffic's
+    ``params`` and returns a (N, 4) float32 cloud and its (G, 9) float32
+    boxes; every seed gives the same sizes."""
+    if name in GENERATORS:
+        return GENERATORS[name]
+    from portbench.harness import plugins
+
+    return plugins.load(root, "scenes", name).scene
+
+
+def make_pool(traffic, seed, root):
     """The cell's inputs: ``traffic["pool"]`` scenes of
     ``traffic["generator"]`` with ``traffic["params"]``, each drawn from
     its own stream of ``seed``.  Every seed gives the same sizes."""
-    gen = GENERATORS[traffic["generator"]]
-    root = np.random.SeedSequence(int(seed))
+    gen = generator(traffic["generator"], root)
+    streams = np.random.SeedSequence(int(seed)).spawn(int(traffic["pool"]))
     return [gen(np.random.default_rng(s), **traffic["params"])
-            for s in root.spawn(int(traffic["pool"]))]
+            for s in streams]
 
 
 def padded_batch(cloud, boxes, max_points, max_gt):

@@ -146,9 +146,10 @@ class Record:
 
     * ``kind``: the traffic's kind (``predict``, ``train``, ``plot``);
     * ``model``: the configuration's model dict;
-    * ``flops``: forward FLOPs of one cloud by stage
-      (``flops.forward_flops``), ``encoder_bytes`` the encoder's least
-      bytes;
+    * ``flops``: forward FLOPs of one cloud by stage, ``encoder_bytes``
+      the encoder's least bytes: the architecture's ``forward_flops`` and
+      ``encoder_bytes``, or the mean of its ``call_work`` over the
+      profiled calls' clouds where it has one;
     * ``calls``: the calls in the profiled window, ``clouds_per_call`` the
       clouds each forwarded (a plot's tiles);
     * ``window_s``, ``busy_s``: the profiled window's host seconds and the

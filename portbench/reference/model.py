@@ -1,8 +1,9 @@
 """Plain PyTorch reference of the PointPillars detector the benchmark
-measures: voxelization, the pillar feature net, the dense grid, the
-masked vertical encoder, the submanifold RPN or the strided backbone and
-FPN neck, the anchor head, decode, greedy NMS, the training losses with
-their target assignment, and clipped AdamW.
+measures, the architecture of a configuration that names none (the
+contract it keeps: :mod:`portbench.reference`): voxelization, the pillar
+feature net, the dense grid, the masked vertical encoder, the submanifold
+RPN or the strided backbone and FPN neck, the anchor head, decode, greedy
+NMS, the training losses with their target assignment, and clipped AdamW.
 
 Everything runs in float32 (the caller turns TF32 off), one cloud at a
 time, with no kernel of the program and nothing the program made: the
@@ -26,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+# this architecture's work, counted dense from the configuration's shapes
+from portbench.harness.flops import encoder_bytes, forward_flops  # noqa: F401
 from portbench.reference import geometry
 
 

@@ -17,8 +17,6 @@ generator seeded 1).  The rest is written out here.
 import numpy as np
 import torch
 
-from portbench.reference import model as ref_model
-
 SENTINEL = 1e9
 
 
@@ -111,41 +109,47 @@ class Crop:
                                         device=dev))[0]
 
 
-def plot_detections(scene, params, spec, max_pts, overlap, device,
-                    max_merge=2048, quant=ref_model.identity):
-    """The reference's detections of a whole plot: ``bbox`` (n, 9) and
-    ``score`` (n,) in the plot's frame, the merge's survivors; and for
-    each tile (``tiles``) its ``shift`` and its head's
-    ``logit``, ``reg``, ``anchor`` and ``cut_logit``, as
-    ``model.detections`` gives them."""
+def tiles(scene, spec, max_pts, overlap, device):
+    """Each tile of a plot, in the tiled call's order: (its ``shift`` (x0,
+    y0, z0) in the plot's frame, its (max_pts, C) points in its own
+    frame)."""
     pts = np.asarray(scene, np.float32)
     lo, hi = pts[:, :3].min(0), pts[:, :3].max(0)
     crop = Crop(spec, max_pts)
     xs = tile_origins(lo[0], hi[0], crop.tile_x, overlap)
     ys = tile_origins(lo[1], hi[1], crop.tile_y, overlap)
-    anc = ref_model.anchors(spec, device)
     scene_t = torch.as_tensor(pts, device=device)
     sorted_scene, key = crop.sort(scene_t, float(lo[0]))
     u = crop.draws(device)
-    boxes, scores, heads = [], [], []
     for x0 in xs:
         for y0 in ys:
             shift = torch.tensor([x0, y0, lo[2]], dtype=torch.float32,
                                  device=device)
-            tile = crop.tile(sorted_scene, key, shift, float(lo[0]), u)
-            d = ref_model.predict(tile, max_pts, params, spec, anc, quant)
-            b = d["bbox"][d["valid"]].clone()
-            b[:, :3] += shift
-            boxes.append(b)
-            scores.append(d["score"][d["valid"]])
-            heads.append({"shift": shift, "logit": d["logit"], "reg": d["reg"],
-                          "anchor": d["anchor"], "cut_logit": d["cut_logit"]})
+            yield shift, crop.tile(sorted_scene, key, shift, float(lo[0]), u)
+
+
+def plot_detections(arch, scene, params, spec, max_pts, overlap, device,
+                    quant, max_merge=2048):
+    """The reference's detections of a whole plot by the architecture
+    ``arch``: ``bbox`` (n, 9) and ``score`` (n,) in the plot's frame, the
+    merge's survivors; and for each tile (``tiles``) its ``shift`` and its
+    head's ``logit``, ``reg``, ``anchor`` and ``cut_logit``, as
+    ``arch.predict`` gives them."""
+    anc = arch.anchors(spec, device)
+    boxes, scores, heads = [], [], []
+    for shift, tile in tiles(scene, spec, max_pts, overlap, device):
+        d = arch.predict(tile, max_pts, params, spec, anc, quant)
+        b = d["bbox"][d["valid"]].clone()
+        b[:, :3] += shift
+        boxes.append(b)
+        scores.append(d["score"][d["valid"]])
+        heads.append({"shift": shift, "logit": d["logit"], "reg": d["reg"],
+                      "anchor": d["anchor"], "cut_logit": d["cut_logit"]})
     boxes, scores = torch.cat(boxes), torch.cat(scores)
     if len(scores) > max_merge:
-        top = ref_model.top_lowest_index(scores, max_merge).sort().values
+        top = arch.top_lowest_index(scores, max_merge).sort().values
         boxes, scores = boxes[top], scores[top]
-    keep = ref_model.greedy_nms(boxes, scores, spec.score_thr,
-                                ref_model.overlap_matrix(boxes,
-                                                         spec.nms_thresh))
+    keep = arch.greedy_nms(boxes, scores, spec.score_thr,
+                           arch.overlap_matrix(boxes, spec.nms_thresh))
     return {"bbox": boxes[keep].cpu().numpy(),
             "score": scores[keep].cpu().numpy(), "tiles": heads}

@@ -1,5 +1,6 @@
 """Plain PyTorch reference of one training step: the train-mode forward
-of :mod:`portbench.reference.model`, the target assignment, the three
+of the configuration's architecture (``arch.forward``, see
+:mod:`portbench.reference`), the target assignment, the three
 losses, the backward, and AdamW after each gradient element is clipped
 to ``[-clip, clip]``.
 
@@ -20,7 +21,6 @@ import torch
 import torch.nn.functional as F
 
 from portbench.reference import geometry
-from portbench.reference.model import encode, forward, identity
 
 # GT boxes per slab of the pair search
 _GT_SLAB = 8
@@ -56,7 +56,7 @@ def assign(anc, gt, spec):
             "num_pos": pos.sum()}
 
 
-def losses(outs, anc, gt, spec):
+def losses(arch, outs, anc, gt, spec):
     """The five losses of one cloud, each summed and divided by
     max(positives, 1): sigmoid focal loss over positives and negatives,
     smooth L1 over the positives' deltas (angles by the sine of their
@@ -78,7 +78,7 @@ def losses(outs, anc, gt, spec):
         / avg
 
     tgt_box = torch.where(t["pos"][:, None], gt[t["best"]], anc)
-    tgt = encode(anc, tgt_box)
+    tgt = arch.encode(anc, tgt_box)
     pred = torch.cat([reg[:, :6], torch.sin(reg[:, 6:]) *
                       torch.cos(tgt[:, 6:])], -1)
     want = torch.cat([tgt[:, :6], torch.cos(reg[:, 6:]) *
@@ -126,15 +126,15 @@ class AdamW:
             p.sub_(self.lr * m_hat / (torch.sqrt(v_hat) + self.eps))
 
 
-def train_step(params, stats, opt, points, n, gt, anc, spec,
-               quant=identity):
-    """One step on one cloud: ``params`` (trainable, float32) are updated
-    in place; ``stats`` holds the running statistics, which the train-mode
-    forward does not read.  Returns ({loss name: float}, num_pos, {name:
-    the clipped gradient the optimizer took})."""
+def train_step(arch, params, stats, opt, points, n, gt, anc, spec, quant):
+    """One step of the architecture ``arch`` on one cloud: ``params``
+    (trainable, float32) are updated in place; ``stats`` holds the running
+    statistics, which the train-mode forward does not read.  Returns ({loss
+    name: float}, num_pos, {name: the clipped gradient the optimizer
+    took})."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    outs = forward((points, n), {**stats, **leaves}, spec, True, quant)
-    parts, num_pos = losses(outs, anc, gt, spec)
+    outs = arch.forward((points, n), {**stats, **leaves}, spec, True, quant)
+    parts, num_pos = losses(arch, outs, anc, gt, spec)
     total = sum(parts.values())
     grads = torch.autograd.grad(total, list(leaves.values()),
                                 allow_unused=True)

@@ -52,13 +52,12 @@ def test_control_is_refused(cuda, cell):
     """The control, the reference computed in float8, put in the
     program's place, reads beyond the cell's limits."""
     from portbench.harness import calibrate, cells, main
-    from portbench.reference import model as ref_model
 
     _, conf, traffic = main.cell_spec(BENCH, REPO, cell)
     driver = cells.make(traffic["kind"], conf, traffic, 2 ** 31 + 99, REPO)
     driver.setup()
     driver.window(1.0)
     driver.free()
-    nums, _ = calibrate._numbers(driver, traffic["kind"], ref_model.fp8)
+    nums, _ = calibrate._numbers(driver, traffic["kind"], driver.arch.fp8)
     correct, compared = main.judge(REPO, cell, nums)
     assert not correct, compared
